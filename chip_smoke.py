@@ -4,7 +4,8 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
 CUDA card, nvcc (``/usr/local/cuda``) and g++; it builds the hand-written
 kernels and the native pedestal scan from this checkout into ``build/``
-and imports nothing of JAX or ``pylbl_tpu``.  Phases:
+(the two builds run concurrently) and imports nothing of JAX or
+``pylbl_tpu``.  Phases:
 
 1. device and toolchain (card name and power limit from nvidia-smi);
 2. build of the CUDA kernels and the native library;
@@ -19,12 +20,29 @@ and imports nothing of JAX or ``pylbl_tpu``.  Phases:
    phases 3 and 4 (2 layers), max rel diff below 5e-6, with both times;
 6. the float32 main path against the plain path in float64 on the card,
    2 layers of phase 3, rel below 5e-4;
-7. phase 3's call run twice gives bit-identical results.
+7. phase 3's call run twice gives bit-identical results;
+8. the single-gas engine on the headline workload (300k-line synthetic
+   H2O, one surface layer, grid 1-5000 cm-1 @ 0.1, 50,000 points):
+   ``Gas(..., device="cuda").absorption_coefficient`` cold and warm, with
+   and without the pedestal, against the float64 plain path (rel below
+   5e-4); the single-layer strided wings and mixed-slot core kernels
+   against their plain versions, and the masked line-point rate of the
+   device plan;
+9. the same layer at 0.01 cm-1 (grid 1-1000, 100,000 points; no stride
+   fits): the raw-Lorentz tile kernel, against float64;
+10. ``Gas.absorption_coefficient_batch`` over phase 3's 16-layer column
+    with the pedestal removed: wall time, peak memory, float64 parity on 2
+    layers, bit-identical repeat;
+11. the A/B formulations of one headline layer: per-stream segment core,
+    segment wings, raw-Lorentz splat wings and the scalar per-line core,
+    plus the strided wings on a tail-chunk layout; each kernel against its
+    plain version and each spectrum against phase 8's float64 result.
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
 """
 import cProfile
+import concurrent.futures
 import json
 import os
 import pstats
@@ -54,14 +72,28 @@ CANON_VMR = {
     "O2": [0.209, 0.209, 0.2090003, 0.208996],
     "N2": [0.78, 0.78, 0.78, 0.78],
 }
-# Kernel -> the TPU kernel it replaces.
+# Kernel (its launch counter) -> the TPU kernel it replaces.
+PALLAS = "pylbl_tpu/ops/lineshape_pallas.py"
 KERNELS = {
-    "wings_strided": "pylbl_tpu/ops/lineshape_pallas.py:2228",
-    "core_segmix": "pylbl_tpu/ops/lineshape_pallas.py:1148",
-    "wings_splat": "pylbl_tpu/ops/lineshape_pallas.py:1662",
+    "wings_strided": f"{PALLAS}:2228",
+    "core_segmix": f"{PALLAS}:1148",
+    "wings_splat": f"{PALLAS}:1662",
+    "wings_strided_single": f"{PALLAS}:2148",
+    "wings_strided_tail_single": f"{PALLAS}:2195",
+    "core_segmix_single": f"{PALLAS}:1113",
+    "tile_lorentz": f"{PALLAS}:1528 (:1662) with _lorentz_line :110",
+    "tile_correction": f"{PALLAS}:1528 (:1662) with _correction_line :119",
+    "seg_core": f"{PALLAS}:842 (:880) with _seg_chunk_accumulate :762",
+    "seg_wings": f"{PALLAS}:842 (:880) with _seg_chunk_accumulate_lorentz "
+                 ":806",
 }
+# The kernels of the stacked main path (phases 3-5).
+STACKED = ("wings_strided", "core_segmix", "wings_splat")
 KERNEL_TOL = 5e-6
 PARITY_TOL = 5e-4
+CUT_OFF = 25
+# The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
+SURFACE = (288.99, 98388.0, 6.637074e-03)
 
 
 class CheckFailed(Exception):
@@ -125,10 +157,11 @@ def timed_call(torch, fn):
     return out, time.perf_counter() - t0, start.elapsed_time(stop) / 1e3
 
 
-def kernel_ms(torch, fn, reps):
-    """Mean device milliseconds of ``fn`` over ``reps`` launches after one
-    warm-up, timed with CUDA events."""
-    fn()
+def kernel_ms(torch, fn, reps, warm=True):
+    """Mean device milliseconds of ``fn`` over ``reps`` launches (after one
+    warm-up call when ``warm``), timed with CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -220,18 +253,272 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records):
         else:
             run, run_plain = (lambda: fn.wings_pass(soa),
                               lambda: fn.wings_pass(soa, plain=True))
-        got = run()
-        want = run_plain()
+        compare_kernel(torch, name, run, run_plain, records[name], reps=20)
+
+
+def compare_kernel(torch, name, run, run_plain, record, reps=10):
+    """One kernel against its plain version on the same inputs: max rel
+    and abs difference, kernel ms (``reps`` after a warm-up) and plain ms
+    (one rep after the call that gives the reference)."""
+    got = run()
+    want = run_plain()
+    torch.cuda.synchronize()
+    rel, err = rel_diff(got, want, 1e-7)
+    ms = kernel_ms(torch, run, reps)
+    plain_ms = kernel_ms(torch, run_plain, 1, warm=False)
+    print(f"{name}: shape {tuple(got.shape)}, max rel {rel:.3e}, max abs "
+          f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    check(rel < KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain "
+          "version")
+    if record is not None:
+        record.update(max_abs_err=err, max_rel_err=rel, ms=ms,
+                      plain_ms=plain_ms)
+    return got
+
+
+def spectrum_parity(torch, label, got, want):
+    """Float32 spectrum against the float64 plain one (floor 1e-6 of the
+    maximum, as phase 6)."""
+    rel, err = rel_diff(torch.as_tensor(np.asarray(got)),
+                        torch.as_tensor(np.asarray(want)), 1e-6)
+    print(f"{label}: vs float64 plain, max rel {rel:.3e}, max abs "
+          f"{err:.3e}")
+    check(rel < PARITY_TOL, f"{label} within {PARITY_TOL} of float64")
+
+
+def headline_layer(fixtures, grid):
+    """The headline pack (bench.py build_workload) and its surface layer's
+    kernel inputs on ``grid``: (pack, kin, kernel arrays, n_per_v,
+    num_points, kept lines)."""
+    from pylbl_tpu_torch.models.lines import internal_grid
+    from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
+                                                      line_profile_params)
+    from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
+
+    pack = fixtures.synthetic_line_pack(
+        num_lines=300000, nu_min=0.5, nu_max=5100.0, seed=1,
+        band_centers=(150.0, 1600.0, 3700.0, 500.0))
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, CUT_OFF)
+    params = line_profile_params(pack, *SURFACE, keep=keep)
+    kin = kernel_inputs(params, v0, npv, CUT_OFF)
+    return pack, kin, prepare_kernel_arrays(kin, npv, np.float32), npv, n, \
+        keep
+
+
+def check_spectrum(k, shape, label, pedestal):
+    check(np.isfinite(k).all() and k.shape == shape,
+          f"{label} finite, shape {shape}")
+    if pedestal:
+        check(k.max() > 0 and bool((k.reshape(-1, shape[-1]).sum(axis=1)
+                                    > 0).all()),
+              f"{label} positive: positive maximum and spectral integral")
+    else:
+        check(k.max() > 0 and k.min() >= -1e-6 * k.max(),
+              f"{label} positive (non-negative to float32 round-off)")
+
+
+def phase_gas(torch, P, lc, fixtures, records, card):
+    """Phases 8 and 9: the single-layer Gas engine (``card``: the
+    nvidia-smi name and power limit, printed with the headline rate)."""
+    grid = np.arange(1.0, 5000.0, 0.1)
+    pack, kin, arrays, npv, n, keep = headline_layer(fixtures, grid)
+    check(n == 50000, "headline grid has 50,000 internal points")
+    gas = P.Gas(pack, "H2O", device="cuda")
+    gas64 = P.Gas(pack, "H2O", device="cuda", dtype=torch.float64,
+                  backend="plain")
+    lc.reset_launches()
+    k, cold, _ = timed_call(
+        torch, lambda: gas.absorption_coefficient(*SURFACE, grid))
+    counts = dict(lc.LAUNCHES)
+    again, warm, _ = timed_call(
+        torch, lambda: gas.absorption_coefficient(*SURFACE, grid))
+    k_ped, ped_wall, _ = timed_call(torch, lambda: gas.absorption_coefficient(
+        *SURFACE, grid, remove_pedestal=True))
+    print(f"phase 8 (300k-line H2O, 1 layer, 0.1 cm-1, {keep} lines kept): "
+          f"wall cold {cold:.3f} s, warm {warm:.3f} s, warm with the "
+          f"pedestal {ped_wall:.3f} s; launches {counts}")
+    check(counts["wings_strided_single"] > 0
+          and counts["core_segmix_single"] > 0,
+          "phase 8 launched the single-layer strided wings and core")
+    check(np.array_equal(k, again), "phase 8 repeat is bit-identical")
+    check_spectrum(k, (n,), "phase 8 spectrum", False)
+    check_spectrum(k_ped, (n,), "phase 8 spectrum with the pedestal", True)
+    k64 = gas64.absorption_coefficient(*SURFACE, grid)
+    spectrum_parity(torch, "phase 8", k, k64)
+    spectrum_parity(torch, "phase 8 with the pedestal", k_ped,
+                    gas64.absorption_coefficient(*SURFACE, grid,
+                                                 remove_pedestal=True))
+
+    plan = lc.make_device_plan(arrays, kin, n, npv, CUT_OFF, device="cuda")
+    check(plan.wings_stride is not None and np.array_equal(
+        plan().cpu().numpy().astype(np.float64), k),
+        "the device plan gives the Gas spectrum (strided wings)")
+    for name, run, run_plain in (
+            ("wings_strided_single", plan.wings_pass,
+             lambda: plan.wings_pass(plain=True)),
+            ("core_segmix_single", plan.core_pass,
+             lambda: plan.core_pass(plain=True))):
+        compare_kernel(torch, name, run, run_plain, records[name], reps=20)
+        records[name]["launches"] = counts[name]
+    lines_ms = kernel_ms(torch, plan, 20)
+    evals = keep * ((2 * CUT_OFF + 1) * npv + 1)
+    print(f"phase 8 headline rate: {evals} masked line-point evaluations "
+          f"in {lines_ms:.4f} ms (device plan, CUDA events, warm) = "
+          f"{evals / (lines_ms / 1e3):.6e} evaluations/s on {card}; over "
+          f"the warm Gas wall {evals / warm:.6e}/s")
+
+    # Phase 9: fine grid, no stride fits: raw-Lorentz splat wings.
+    grid_f = np.arange(1.0, 1000.0, 0.01)
+    _, kin_f, arrays_f, npv_f, n_f, keep_f = headline_layer(fixtures,
+                                                           grid_f)
+    lc.reset_launches()
+    k9, wall9, _ = timed_call(
+        torch, lambda: gas.absorption_coefficient(*SURFACE, grid_f))
+    counts9 = dict(lc.LAUNCHES)
+    print(f"phase 9 (0.01 cm-1, {n_f} points, {keep_f} lines kept): wall "
+          f"{wall9:.3f} s; launches {counts9}")
+    check(counts9["tile_lorentz"] > 0 and counts9["core_segmix_single"] > 0,
+          "phase 9 launched the raw-Lorentz tile kernel and the core")
+    check_spectrum(k9, (n_f,), "phase 9 spectrum", False)
+    spectrum_parity(torch, "phase 9", k9,
+                    gas64.absorption_coefficient(*SURFACE, grid_f))
+    plan_f = lc.make_device_plan(arrays_f, kin_f, n_f, npv_f, CUT_OFF,
+                                 device="cuda")
+    check(plan_f.wings_stride is None, "0.01 cm-1 takes the splat wings")
+    compare_kernel(torch, "tile_lorentz", plan_f.wings_pass,
+                   lambda: plan_f.wings_pass(plain=True),
+                   records["tile_lorentz"])
+    records["tile_lorentz"]["launches"] = counts9["tile_lorentz"]
+    compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
+                   plan_f.core_pass, lambda: plan_f.core_pass(plain=True),
+                   None)
+    return gas, gas64, grid, kin, arrays, npv, n, plan, k64
+
+
+def phase_gas_batch(torch, lc, gas, gas64, grid, col):
+    """Phase 10: the layer-batched Gas engine over a 16-layer column."""
+    t = np.asarray(col["t"].data)
+    p = np.asarray(col["p"].data)
+    x = np.asarray(col["h2o"].data)
+    torch.cuda.reset_peak_memory_stats()
+    lc.reset_launches()
+    kb, cold, _ = timed_call(torch, lambda: gas.absorption_coefficient_batch(
+        t, p, x, grid, remove_pedestal=True))
+    counts = dict(lc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    again, warm, _ = timed_call(
+        torch, lambda: gas.absorption_coefficient_batch(
+            t, p, x, grid, remove_pedestal=True))
+    (fn,) = gas._batched_fns.values()
+    _, lines_s, lines_dev = timed_call(torch, lambda: fn(t, p, x))
+    print(f"phase 10 (16 layers, 0.1 cm-1, pedestal removed): wall cold "
+          f"{cold:.3f} s, warm {warm:.3f} s, peak device memory "
+          f"{peak:.3f} GiB; launches {counts}")
+    print(f"  stages (warm, s): batched pipeline {lines_s:.4f} (CUDA events "
+          f"{lines_dev:.4f}), host transfer, pedestal and the rest "
+          f"{warm - lines_s:.4f}")
+    check(counts["wings_strided"] > 0 and counts["core_segmix"] > 0,
+          "phase 10 launched the batched strided wings and core")
+    check_spectrum(kb, (t.size, 50000), "phase 10 spectra", True)
+    check(np.array_equal(kb, again), "phase 10 repeat is bit-identical")
+    two = [0, t.size - 1]
+    spectrum_parity(torch, "phase 10 (layers 0 and 15)", kb[two],
+                    gas64.absorption_coefficient_batch(
+                        t[two], p[two], x[two], grid, remove_pedestal=True))
+
+
+def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
+    """Phase 11: the A/B formulations of one headline layer."""
+    from pylbl_tpu_torch.ops.lineshape import core_halfwidth
+
+    def counted(fn):
+        lc.reset_launches()
+        out = fn()
         torch.cuda.synchronize()
-        rel, err = rel_diff(got, want, 1e-7)
-        ms = kernel_ms(torch, run, 20)
-        plain_ms = kernel_ms(torch, run_plain, 2)
-        print(f"{name}: shape {tuple(got.shape)}, max rel {rel:.3e}, max "
-              f"abs {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        check(rel < KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain "
-              "version")
-        records[name].update(max_abs_err=err, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms)
+        return out, dict(lc.LAUNCHES)
+
+    for label, kwargs, name, stage in (
+            ("core_mode='seg'", {"core_mode": "seg"}, "seg_core", "core"),
+            ("wings_mode='seg'", {"wings_mode": "seg"}, "seg_wings",
+             "wings"),
+            ("wings_mode='tile'", {"wings_mode": "tile"}, "tile_lorentz",
+             "wings")):
+        alt = lc.make_device_plan(arrays, kin, n, npv, CUT_OFF,
+                                  device="cuda", **kwargs)
+        out, counts = counted(alt)
+        print(f"phase 11 {label}: launches {counts}")
+        check(counts[name] > 0, f"{label} launched {name}")
+        spectrum_parity(torch, f"phase 11 {label}",
+                        out.cpu().numpy().astype(np.float64), k64)
+        run = alt.core_pass if stage == "core" else alt.wings_pass
+        own = name != "tile_lorentz"    # tile_lorentz's record is phase 9's
+        compare_kernel(torch, name if own else f"{name} at 0.1 cm-1", run,
+                       lambda: run(plain=True),
+                       records[name] if own else None)
+        if own:
+            records[name]["launches"] = counts[name]
+
+    # The scalar per-line core pass over the core-window CSR (the reference
+    # the JAX tests hold the segment cores against), with the strided wings.
+    soa = lc.pack_lines_soa(arrays, 512)[0]
+    s = arrays["s_idx"].astype(np.int64)
+    e = arrays["e_idx"].astype(np.int64)
+    core_w = core_halfwidth(kin, npv, CUT_OFF)
+    center = np.rint(arrays["c_int"]).astype(np.int64)
+    c_start, c_n = (torch.as_tensor(a, device="cuda") for a in
+                    lc.tile_line_ranges(np.maximum(center - core_w, s),
+                                        np.minimum(center + core_w, e), n,
+                                        1024, 512))
+    soa = torch.as_tensor(soa, device="cuda")
+
+    def scalar_core(plain=False):
+        fn = lc.tile_plain if plain else lc.tile_pass
+        return fn(soa, c_start, c_n, n, 1024, 512, "core")
+
+    core, counts = counted(scalar_core)
+    print(f"phase 11 scalar core (pass_kind='core'): launches {counts}")
+    check(counts["tile_correction"] > 0, "scalar core launched "
+          "tile_correction")
+    spectrum_parity(torch, "phase 11 strided wings + scalar core",
+                    (plan.wings_pass() + core).cpu().numpy()
+                    .astype(np.float64), k64)
+    compare_kernel(torch, "tile_correction", scalar_core,
+                   lambda: scalar_core(plain=True),
+                   records["tile_correction"])
+    records["tile_correction"]["launches"] = counts["tile_correction"]
+
+    # The single-layer strided wings on a two-class (tail) layout.
+    lay = lc.build_strided_layout(s, plan.wings_stride, n, tail=128)
+    ka = {k: lay.gather(v) for k, v in arrays.items()}
+    for key, fill in (("prefactor", 0.0), ("s_idx", -1), ("e_idx", -2)):
+        ka[key] = np.where(lay.dead, fill, ka[key]).astype(ka[key].dtype)
+    soa_t = lc.pack_lines_soa(ka, 512)[0]
+    soa_t[lc.PREF] = soa_t[lc.PREF] * soa_t[lc.Y] \
+        * np.float32(1.0 / np.sqrt(np.pi))
+    soa_t[lc.Y] = soa_t[lc.Y] * soa_t[lc.Y]
+    soa_t = torch.as_tensor(soa_t, device="cuda")
+    csr = [torch.as_tensor(a, device="cuda")
+           for a in (lay.w_start, lay.w_n, lay.t_start, lay.t_n)]
+
+    def tail_wings(plain=False):
+        fn = lc.wings_strided_plain if plain else lc.wings_strided_pass
+        return fn(soa_t, csr[0], csr[1], n, 1024, plan.wings_stride,
+                  t_start=csr[2], t_n=csr[3], tail=128)
+
+    wings, counts = counted(tail_wings)
+    print(f"phase 11 tail layout ({int(lay.t_n.sum())} tail chunks): "
+          f"launches {counts}")
+    check(counts["wings_strided_tail_single"] == 1,
+          "tail layout launched wings_strided_tail_single once")
+    spectrum_parity(torch, "phase 11 tail wings + core",
+                    (wings + plan.core_pass()).cpu().numpy()
+                    .astype(np.float64), k64)
+    compare_kernel(torch, "wings_strided_tail_single", tail_wings,
+                   lambda: tail_wings(plain=True),
+                   records["wings_strided_tail_single"])
+    records["wings_strided_tail_single"]["launches"] = \
+        counts["wings_strided_tail_single"]
 
 
 def main():
@@ -264,13 +551,18 @@ def main():
     print(f"devices: {torch.cuda.device_count()} x "
           f"{torch.cuda.get_device_name(0)}")
 
-    # Phase 2: build.
+    # Phase 2: build, the nvcc and g++ builds started together.
     t0 = time.perf_counter()
-    lc.cuda_library()
-    t1 = time.perf_counter()
-    native.load()
-    t2 = time.perf_counter()
-    print(f"build: CUDA kernels {t1 - t0:.2f} s, native scan {t2 - t1:.2f} s")
+
+    def timed_build(load):
+        load()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cuda_s = pool.submit(timed_build, lc.cuda_library)
+        native_s = pool.submit(timed_build, native.load)
+        print(f"build: CUDA kernels {cuda_s.result():.2f} s, native scan "
+              f"{native_s.result():.2f} s (concurrent)")
     for line in build.BUILD_LOGS.get("liblineshape_cuda.so", "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -319,7 +611,7 @@ def main():
           "phase 4 total finite with positive maximum")
     check(launches["wings_splat"] > after_a["wings_splat"],
           f"phase 4 launched the splat wings kernel {launches}")
-    for name in records:
+    for name in STACKED:
         check(launches[name] > 0, f"main path launched {name}")
         records[name]["launches"] = launches[name]
 
@@ -366,6 +658,16 @@ def main():
     check(np.array_equal(total_of(again), total_a),
           "repeated phase 3 call is bit-identical")
     breakdown(torch, spec_a, col_a)
+
+    # Phases 8-11: the single-gas engine.
+    gas, gas64, grid_h, kin, arrays, npv, n, plan, k64 = phase_gas(
+        torch, P, lc, fixtures, records, card)
+    phase_gas_batch(torch, lc, gas, gas64, grid_h, col_a)
+    phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records)
+    for name, record in records.items():
+        check(record.get("launches", 0) > 0 and "max_rel_err" in record,
+              f"{name} launched on its path and compared with its plain "
+              "version")
 
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     print(card)

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the stacked line-by-line absorption path.
+// Hand-written Hopper kernels for the line-by-line absorption paths.
 //
 // Built by pylbl_tpu_torch/ops/lineshape_cuda.py (runtime/build.py) with
 //   nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a -fmad=false
@@ -8,20 +8,40 @@
 // -fmad=false keeps every a*b+c as two rounded operations, so the kernels
 // produce the values of the plain PyTorch versions beside their wrappers.
 //
-// pylbl_wings: strided prepacked wings with an optional tail chunk class
-//   (replaces _tile_kernel_strided_pre_tail_batched and, with no tail,
-//   _tile_kernel_strided_pre_batched in pylbl_tpu/ops/lineshape_pallas.py)
-//   and, with stride == tile, the splat wings (_tile_kernel_batched with
-//   _lorentz_line_pre).  One block per (tile, layer); 256 threads each own
-//   tile/256 output points; each chunk of the 8-row SoA is staged in shared
-//   memory and its lines are walked in order into a per-chunk partial that
-//   then lands in the tile accumulator (two-level summation).  The work is
-//   one IEEE f32 divide per line-point: the kernel is bound by the divide
-//   sequence, and reads every line once per tile as a shared-memory
-//   broadcast.
+// pylbl_wings: the tile kernel, templated on its line function.
+//   PRE (prepacked Lorentzian, Y row = y^2, PREF row = pref*y/sqrt(pi)):
+//   strided wings with an optional tail chunk class (replaces
+//   _tile_kernel_strided_pre_tail(_batched) and, with no tail,
+//   _tile_kernel_strided_pre(_batched) in pylbl_tpu/ops/lineshape_pallas.py)
+//   and, with stride == tile, the splat wings (_tile_kernel(_batched) with
+//   _lorentz_line_pre).  RAW (_lorentz_line: ((pref*y)/sqrt(pi)) /
+//   (x^2 + y^2) from the raw rows) and CORR (_correction_line: the per-line
+//   Humlicek correction, class picked from the line's own y, lines with
+//   y >= 70.55 skipped) serve _tile_kernel(_batched) with stride == tile.
+//   A single layer is a batch of one.  One block per (tile, layer); 256
+//   threads each own tile/256 output points; each chunk of the 8-row SoA is
+//   staged in shared memory and its lines are walked in order into a
+//   per-chunk partial that then lands in the tile accumulator (two-level
+//   summation).  PRE and RAW are one IEEE f32 divide per line-point: bound
+//   by the divide sequence, every line read once per tile as a shared-
+//   memory broadcast.  CORR is bound by the Humlicek rationals; its point
+//   loop is not unrolled, so the four class bodies are compiled once each.
+//
+// pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
+//   _seg_kernel_batched).  One block of 4 warps per (tile, layer) walks the
+//   tile's 128-instance chunks in order; every chunk carries ONE segment
+//   slot.  Lane = offset o in the segment; warp w adds its 32 instances in
+//   order into a register, the four warp sums are added in warp order and
+//   land on points t*tile + 32*slot + o.  CORE (_seg_chunk_accumulate):
+//   seg0-relative x, window mask o in [s_rel, e_rel], class from the
+//   chunk's min y.  WINGS (_seg_chunk_accumulate_lorentz): raw SoA rows in
+//   absolute points, the Lorentzian of every instance, no class branch.
+//   The TPU's transposed (8, tile/8) accumulator is a layout, not carried
+//   over: the output is in natural order, with no atomics.
 //
 // pylbl_core_segmix: mixed-slot segment-32 Humlicek core correction
-//   (replaces _seg_kernel_mixed_batched with _seg_chunk_accumulate_mixed).
+//   (replaces _seg_kernel_mixed(_batched) with _seg_chunk_accumulate_mixed;
+//   a single layer is a batch of one).
 //   One block of 4 warps per (tile, layer).  Per 128-instance chunk: stage
 //   the 8 parameter rows, reduce min y, pick the correction class once for
 //   the chunk (block-uniform branch), then warp w walks instances
@@ -54,74 +74,10 @@ constexpr int kCInt = 0, kCFrac = 1, kSrw = 2, kY = 3, kPref = 4,
 constexpr int kSeg0Rel = 0, kCoreCFrac = 1, kCoreSrw = 2, kCoreY = 3,
               kCorePref = 4, kSRel = 5, kERel = 6, kSlot = 7;
 
-template <int PPT>
-__global__ void __launch_bounds__(kWingsThreads)
-wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
-             const int* __restrict__ w_start, const int* __restrict__ w_n,
-             const int* __restrict__ t_start, const int* __restrict__ t_n,
-             long long csr_b, float* __restrict__ out, int num_tiles,
-             int tile, int stride, int chunk, int tail)
-{
-    __shared__ float buf[7][kMaxChunk];
-    const int t = blockIdx.x;
-    const int b = blockIdx.y;
-    const float* lines = soa + b * soa_b;
-    const long long csr = b * csr_b + t;
-
-    float point[PPT], acc[PPT];
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-        point[j] = (float)(t * stride + threadIdx.x + j * kWingsThreads);
-        acc[j] = 0.0f;
-    }
-    for (int cls = 0; cls < 2; ++cls) {
-        int base, count, width;
-        if (cls == 0) {
-            base = w_start[csr];
-            count = w_n[csr];
-            width = chunk;
-        } else {
-            if (t_start == nullptr) break;
-            base = t_start[csr];
-            count = t_n[csr];
-            width = tail;
-        }
-        for (int k = 0; k < count; ++k) {
-            const long long line0 = (long long)base + (long long)k * width;
-            __syncthreads();
-            for (int i = threadIdx.x; i < 7 * width; i += kWingsThreads) {
-                const int r = i / width;
-                const int l = i - r * width;
-                buf[r][l] = lines[r * soa_r + line0 + l];
-            }
-            __syncthreads();
-            float part[PPT];
-#pragma unroll
-            for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
-            for (int l = 0; l < width; ++l) {
-                const float c_int = buf[kCInt][l];
-                const float c_frac = buf[kCFrac][l];
-                const float srw = buf[kSrw][l];
-                const float ysq = buf[kY][l];
-                const float pref_y = buf[kPref][l];
-                const float s = buf[kSIdx][l];
-                const float e = buf[kEIdx][l];
-#pragma unroll
-                for (int j = 0; j < PPT; ++j) {
-                    const float x = ((point[j] - c_int) - c_frac) * srw;
-                    const float val = pref_y / (x * x + ysq);
-                    const bool in = (point[j] >= s) && (point[j] <= e);
-                    part[j] = part[j] + (in ? val : 0.0f);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
-        }
-    }
-    float* o = out + ((long long)b * num_tiles + t) * tile;
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) o[threadIdx.x + j * kWingsThreads] = acc[j];
-}
+// Tile-kernel line functions (pylbl_wings' line_fn argument).
+constexpr int kLinePre = 0, kLineRaw = 1, kLineCorr = 2;
+// Segment-pass kinds (pylbl_seg's kind argument).
+constexpr int kSegCore = 0, kSegWings = 1;
 
 // ---- Humlicek classes (pylbl_tpu_torch/ops/voigt.py, same op order) ----
 
@@ -302,6 +258,99 @@ __device__ __forceinline__ float correction(float x, float y)
     return corr_regions<CLASS>(x, y);
 }
 
+// _correction_line at one point: the class comes from the line's own y.
+__device__ __forceinline__ float correction_of_line(float x, float y)
+{
+    if (y >= F(8.425)) return correction<1>(x, y);
+    if (y >= F(6.8)) return correction<2>(x, y);
+    if (y >= F(2.0)) return correction<3>(x, y);
+    return correction<4>(x, y);
+}
+
+template <int PPT, int LINE>
+__global__ void __launch_bounds__(kWingsThreads)
+wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
+             const int* __restrict__ w_start, const int* __restrict__ w_n,
+             const int* __restrict__ t_start, const int* __restrict__ t_n,
+             long long csr_b, float* __restrict__ out, int num_tiles,
+             int tile, int stride, int chunk, int tail)
+{
+    __shared__ float buf[7][kMaxChunk];
+    const int t = blockIdx.x;
+    const int b = blockIdx.y;
+    const float* lines = soa + b * soa_b;
+    const long long csr = b * csr_b + t;
+
+    float point[PPT], acc[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+        point[j] = (float)(t * stride + threadIdx.x + j * kWingsThreads);
+        acc[j] = 0.0f;
+    }
+    for (int cls = 0; cls < 2; ++cls) {
+        int base, count, width;
+        if (cls == 0) {
+            base = w_start[csr];
+            count = w_n[csr];
+            width = chunk;
+        } else {
+            if (t_start == nullptr) break;
+            base = t_start[csr];
+            count = t_n[csr];
+            width = tail;
+        }
+        for (int k = 0; k < count; ++k) {
+            const long long line0 = (long long)base + (long long)k * width;
+            __syncthreads();
+            for (int i = threadIdx.x; i < 7 * width; i += kWingsThreads) {
+                const int r = i / width;
+                const int l = i - r * width;
+                buf[r][l] = lines[r * soa_r + line0 + l];
+            }
+            __syncthreads();
+            float part[PPT];
+#pragma unroll
+            for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
+            for (int l = 0; l < width; ++l) {
+                const float c_int = buf[kCInt][l];
+                const float c_frac = buf[kCFrac][l];
+                const float srw = buf[kSrw][l];
+                const float y = buf[kY][l];
+                const float pref = buf[kPref][l];
+                const float s = buf[kSIdx][l];
+                const float e = buf[kEIdx][l];
+                if constexpr (LINE == kLineCorr) {
+                    if (y >= F(70.55)) continue;   // pure Lorentz line
+#pragma unroll 1
+                    for (int j = 0; j < PPT; ++j) {
+                        const float x = ((point[j] - c_int) - c_frac) * srw;
+                        const float val = correction_of_line(x, y);
+                        const bool in = (point[j] >= s) && (point[j] <= e);
+                        part[j] = part[j] + (in ? pref * val : 0.0f);
+                    }
+                } else {
+                    // PRE rows carry pref*y/sqrt(pi) and y^2 already.
+                    const float pref_y = LINE == kLineRaw
+                        ? (pref * y) * F(kRsqrpi) : pref;
+                    const float ysq = LINE == kLineRaw ? y * y : y;
+#pragma unroll
+                    for (int j = 0; j < PPT; ++j) {
+                        const float x = ((point[j] - c_int) - c_frac) * srw;
+                        const float val = pref_y / (x * x + ysq);
+                        const bool in = (point[j] >= s) && (point[j] <= e);
+                        part[j] = part[j] + (in ? val : 0.0f);
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
+        }
+    }
+    float* o = out + ((long long)b * num_tiles + t) * tile;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) o[threadIdx.x + j * kWingsThreads] = acc[j];
+}
+
 template <int CLASS>
 __device__ __forceinline__ void core_chunk(const float (*prm)[kCoreThreads],
                                            float* part, int warp, int lane)
@@ -381,6 +430,141 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
     for (int c = tid; c < tile; c += kCoreThreads) o[c] = acc[c];
 }
 
+// _seg_chunk_accumulate: warp w's 32 instances of a core chunk, summed in
+// order at offset o = lane of the chunk's segment.
+template <int CLASS>
+__device__ __forceinline__ float seg_core_sum(const float (*prm)[kCoreThreads],
+                                              int warp, int lane)
+{
+    const float o = (float)lane;
+    float sum = 0.0f;
+    for (int j = 0; j < 32; ++j) {
+        const int i = warp * 32 + j;
+        const float x = ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i])
+                        * prm[kCoreSrw][i];
+        const float val = correction<CLASS>(x, prm[kCoreY][i]);
+        const bool in = (o >= prm[kSRel][i]) && (o <= prm[kERel][i]);
+        sum = sum + (in ? prm[kCorePref][i] * val : 0.0f);
+    }
+    return sum;
+}
+
+// _seg_chunk_accumulate_lorentz: the same over raw SoA rows at an absolute
+// grid point.
+__device__ __forceinline__ float seg_wings_sum(const float (*prm)[kCoreThreads],
+                                               int warp, float point)
+{
+    float sum = 0.0f;
+    for (int j = 0; j < 32; ++j) {
+        const int i = warp * 32 + j;
+        const float y = prm[kY][i];
+        const float pref_y = (prm[kPref][i] * y) * F(kRsqrpi);
+        const float ysq = y * y;
+        const float x = ((point - prm[kCInt][i]) - prm[kCFrac][i])
+                        * prm[kSrw][i];
+        const float val = pref_y / (x * x + ysq);
+        const bool in = (point >= prm[kSIdx][i]) && (point <= prm[kEIdx][i]);
+        sum = sum + (in ? val : 0.0f);
+    }
+    return sum;
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kCoreThreads)
+seg_kernel(const float* __restrict__ params, long long p_b, long long p_r,
+           const int* __restrict__ tile_start,
+           const int* __restrict__ tile_chunks,
+           const int* __restrict__ chunk_slot, float* __restrict__ out,
+           int num_tiles, int tile)
+{
+    __shared__ float prm[8][kCoreThreads];
+    __shared__ float wsum[kCoreThreads / 32][32];
+    __shared__ float acc[kMaxTile];
+    __shared__ float wmin[kCoreThreads / 32];
+    const int t = blockIdx.x;
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float* p = params + b * p_b;
+
+    for (int c = tid; c < tile; c += kCoreThreads) acc[c] = 0.0f;
+    const int first = tile_start[t];
+    const int count = tile_chunks[t];
+    for (int k = 0; k < count; ++k) {
+        const int chunk = first + k;
+        const long long col = (long long)chunk * kCoreThreads + tid;
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) prm[r][tid] = p[r * p_r + col];
+        const int slot = chunk_slot[chunk];
+        float sum;
+        if constexpr (KIND == kSegCore) {
+            float m = prm[kCoreY][tid];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+            if (lane == 0) wmin[warp] = m;
+            __syncthreads();
+            const float ymin = fminf(fminf(wmin[0], wmin[1]),
+                                     fminf(wmin[2], wmin[3]));
+            if (ymin >= F(70.55)) continue;   // pure Lorentz chunk: no-op
+            if (ymin >= F(8.425)) {
+                sum = seg_core_sum<1>(prm, warp, lane);
+            } else if (ymin >= F(6.8)) {
+                sum = seg_core_sum<2>(prm, warp, lane);
+            } else if (ymin >= F(2.0)) {
+                sum = seg_core_sum<3>(prm, warp, lane);
+            } else {
+                sum = seg_core_sum<4>(prm, warp, lane);
+            }
+        } else {
+            __syncthreads();
+            sum = seg_wings_sum(prm, warp,
+                                (float)(t * tile + 32 * slot + lane));
+        }
+        wsum[warp][lane] = sum;
+        __syncthreads();
+        if (tid < 32) {
+            float* cell = acc + slot * 32 + tid;
+            *cell = *cell + (((wsum[0][tid] + wsum[1][tid]) + wsum[2][tid])
+                             + wsum[3][tid]);
+        }
+    }
+    __syncthreads();
+    float* o = out + ((long long)b * num_tiles + t) * tile;
+    for (int c = tid; c < tile; c += kCoreThreads) o[c] = acc[c];
+}
+
+template <int LINE>
+int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
+                 long long soa_b, long long soa_r, const int* w_start,
+                 const int* w_n, const int* t_start, const int* t_n,
+                 long long csr_b, float* out, int num_tiles, int tile,
+                 int stride, int chunk, int tail)
+{
+    switch (ppt) {
+    case 1:
+        wings_kernel<1, LINE><<<grid, kWingsThreads, 0, s>>>(
+            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+            num_tiles, tile, stride, chunk, tail);
+        break;
+    case 2:
+        wings_kernel<2, LINE><<<grid, kWingsThreads, 0, s>>>(
+            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+            num_tiles, tile, stride, chunk, tail);
+        break;
+    case 4:
+        wings_kernel<4, LINE><<<grid, kWingsThreads, 0, s>>>(
+            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+            num_tiles, tile, stride, chunk, tail);
+        break;
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
+    return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -389,30 +573,36 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
                 const int* w_start, const int* w_n, const int* t_start,
                 const int* t_n, long long csr_b, float* out, int num_layers,
                 int num_tiles, int tile, int stride, int chunk, int tail,
-                void* stream)
+                int line_fn, void* stream)
 {
     const dim3 grid(num_tiles, num_layers);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (num_tiles > 0 && num_layers > 0) {
-        switch (tile / kWingsThreads) {
-        case 1:
-            wings_kernel<1><<<grid, kWingsThreads, 0, s>>>(
-                soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-                num_tiles, tile, stride, chunk, tail);
+        const int ppt = tile / kWingsThreads;
+        int err;
+        switch (line_fn) {
+        case kLinePre:
+            err = launch_wings<kLinePre>(grid, s, ppt, soa, soa_b, soa_r,
+                                         w_start, w_n, t_start, t_n, csr_b,
+                                         out, num_tiles, tile, stride, chunk,
+                                         tail);
             break;
-        case 2:
-            wings_kernel<2><<<grid, kWingsThreads, 0, s>>>(
-                soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-                num_tiles, tile, stride, chunk, tail);
+        case kLineRaw:
+            err = launch_wings<kLineRaw>(grid, s, ppt, soa, soa_b, soa_r,
+                                         w_start, w_n, t_start, t_n, csr_b,
+                                         out, num_tiles, tile, stride, chunk,
+                                         tail);
             break;
-        case 4:
-            wings_kernel<4><<<grid, kWingsThreads, 0, s>>>(
-                soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-                num_tiles, tile, stride, chunk, tail);
+        case kLineCorr:
+            err = launch_wings<kLineCorr>(grid, s, ppt, soa, soa_b, soa_r,
+                                          w_start, w_n, t_start, t_n, csr_b,
+                                          out, num_tiles, tile, stride,
+                                          chunk, tail);
             break;
         default:
-            return (int)cudaErrorInvalidValue;
+            err = (int)cudaErrorInvalidValue;
         }
+        if (err != 0) return err;
     }
     return (int)cudaGetLastError();
 }
@@ -429,6 +619,31 @@ int pylbl_core_segmix(const float* params, long long p_b, long long p_r,
         core_segmix_kernel<<<grid, kCoreThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
             params, p_b, p_r, tile_start, tile_chunks, out, num_tiles, tile);
+    }
+    return (int)cudaGetLastError();
+}
+
+int pylbl_seg(const float* params, long long p_b, long long p_r,
+              const int* tile_start, const int* tile_chunks,
+              const int* chunk_slot, float* out, int num_layers,
+              int num_tiles, int tile, int chunk, int seg, int kind,
+              void* stream)
+{
+    if (chunk != kCoreThreads || seg != 32 || tile > kMaxTile || tile % 32
+            || (kind != kSegCore && kind != kSegWings))
+        return (int)cudaErrorInvalidValue;
+    if (num_tiles > 0 && num_layers > 0) {
+        const dim3 grid(num_tiles, num_layers);
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (kind == kSegCore) {
+            seg_kernel<kSegCore><<<grid, kCoreThreads, 0, s>>>(
+                params, p_b, p_r, tile_start, tile_chunks, chunk_slot, out,
+                num_tiles, tile);
+        } else {
+            seg_kernel<kSegWings><<<grid, kCoreThreads, 0, s>>>(
+                params, p_b, p_r, tile_start, tile_chunks, chunk_slot, out,
+                num_tiles, tile);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -219,3 +219,50 @@ def compute_pedestals_batch(k_nosub, kin, num_points, n_per_v, cut_off,
             coverN[i], k_s_contrib[i], pre_contrib_e[i], cum0_incl[i],
             cumN_incl[i], window, n_buckets)
     return ped
+
+
+def compute_pedestals(k_nosub, kin, num_points, n_per_v, cut_off,
+                      chunk=None, device="cpu"):
+    """Single-layer pedestal values (see :func:`compute_pedestals_batch`).
+
+    Args:
+        k_nosub: [num_points] pedestal-free field (float64 numpy).
+        kin: dict with float64 per-line [N] arrays in nu-sorted processing
+            order: nu_raw, nu_shift, center, repwid, y, prefactor, s_idx,
+            e_idx, bucket.
+        device: torch device of the contribution sums.
+
+    Returns:
+        ped: [N] pedestal value per line.
+    """
+    kin_b = {"nu_raw": kin["nu_raw"]}
+    for name in ("nu_shift", "center", "repwid", "y", "prefactor",
+                 "s_idx", "e_idx", "bucket"):
+        kin_b[name] = np.asarray(kin[name])[None, :]
+    return compute_pedestals_batch(np.asarray(k_nosub)[None, :], kin_b,
+                                   num_points, n_per_v, cut_off,
+                                   chunk=chunk, device=device)[0]
+
+
+def apply_pedestal(k_nosub, ped, s_idx, e_idx, num_points):
+    """Subtracts each line's pedestal over its clamped window (float64 on
+    the host).
+
+    Box subtraction via a difference array (O(num_points + N)), matching the
+    reference's per-window loop (spectra.c:73-77) summed over all lines.
+    """
+    n = int(num_points)
+    live = (s_idx < n) & (e_idx >= 0) & (ped != 0.0)
+    s = np.clip(s_idx[live], 0, n - 1)
+    e = np.clip(e_idx[live], 0, n - 1)
+    diff = np.zeros(n + 1)
+    np.add.at(diff, s, ped[live])
+    np.add.at(diff, e + 1, -ped[live])
+    return k_nosub - np.cumsum(diff[:n])
+
+
+def apply_pedestal_batch(k_nosub, ped, s_idx, e_idx, num_points):
+    """Layer-batched :func:`apply_pedestal` ([B, n] / [B, N] arrays)."""
+    return np.stack([
+        apply_pedestal(k_nosub[i], ped[i], s_idx[i], e_idx[i], num_points)
+        for i in range(k_nosub.shape[0])])

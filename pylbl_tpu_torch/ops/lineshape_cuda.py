@@ -1,19 +1,24 @@
 """Windowed Voigt summation on the card: host plans, CUDA kernels, plain twins.
 
-Counterpart of pylbl_tpu/ops/lineshape_pallas.py for the stacked
-all-gases path.  Three parts:
+Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
 
 1. **Host planners**, copied from the JAX package as numpy (the port cannot
-   import it): per-tile line CSRs (:func:`tile_line_ranges`), the
-   overlapped-tile strided wings layout (:func:`plan_strided_stage` and its
-   helpers) and the mixed-slot segment-32 core plan (:class:`CorePlan`,
-   :func:`build_core_segments_mixed`).  Tests hold them byte-identical to
-   the JAX planners.
+   import it): the SoA packer (:func:`pack_lines_soa`), per-tile line CSRs
+   (:func:`tile_line_ranges`), the overlapped-tile strided wings layout
+   (:func:`plan_strided_stage` and its helpers), the exact per-layer core
+   windows (:func:`core_instance_windows`) and the segment-32 core plans
+   (:class:`CorePlan` in its "segmix" and "seg" modes,
+   :func:`build_core_segments_mixed`, :func:`build_core_segments`,
+   :func:`gather_segment_params`).  Tests hold them byte-identical to the
+   JAX planners.
 2. **Kernel wrappers.**  :func:`wings_strided_pass` (strided prepacked
-   wings, with or without the tail chunk class), :func:`wings_splat_pass`
-   (the splat fallback on fine grids) and :func:`core_segmix_pass` (the
-   mixed-slot Humlicek core).  On CUDA tensors each launches its
-   hand-written kernel from ``csrc/lineshape.cu`` (built on first use,
+   wings, with or without the tail chunk class), :func:`tile_pass` (the
+   tile kernel at stride = tile with the prepacked, raw-Lorentz or
+   per-line-correction line function), :func:`core_segmix_pass` (the
+   mixed-slot Humlicek core) and :func:`seg_pass` (the per-stream
+   segment-32 pass, core or wings).  Each takes a layer batch [B, 8, N] or
+   a single layer [8, N] (a batch of one).  On CUDA tensors each launches
+   its hand-written kernel from ``csrc/lineshape.cu`` (built on first use,
    runtime/build.py) and adds one to its entry in :data:`LAUNCHES`; on CPU
    tensors it runs the plain version.  There is no fallback between the
    two: a CUDA tensor that the kernel does not take raises.
@@ -21,29 +26,37 @@ all-gases path.  Three parts:
    chunking and summation order as the kernels (two-level chunk sums, warp
    partials summed in warp order), in any float dtype and on any device.
    They work in slabs so they also run at main-path size on the card.
+4. **The single-layer device plan** (:class:`DevicePlan`,
+   :func:`make_device_plan`, :func:`accumulate_device`, counterparts of
+   ``DevicePlan``, ``make_device_plan`` and ``accumulate_tpu``).
 
 Kernel source notes (flags: ``-O3 -std=c++17 -gencode
 arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
 
-- Wings (replaces ``_tile_kernel_strided_pre_tail_batched``
-  lineshape_pallas.py:2228, ``_tile_kernel_strided_pre_batched`` :2172 as
-  its empty-tail case, and ``_tile_kernel_batched`` :1662 with
-  ``_lorentz_line_pre`` :2088 for splat).  One block per (tile, layer);
-  256 threads own the tile's points, chunks of the 8-row SoA are staged in
-  shared memory and walked line by line in order.  Bound: one IEEE f32
-  divide per line-point (``pref_y / (x*x + ysq)``), so it is bound by
-  the instruction rate of the divide sequence, not by memory (each line
-  is read once per tile from shared memory as a broadcast).
-- Core (replaces ``_seg_kernel_mixed_batched`` :1148 with
-  ``_seg_chunk_accumulate_mixed`` :1070).  One block of 4 warps per (tile,
-  layer); per 128-instance chunk the class is picked from the chunk's min
-  y (block-uniform branch), lane = point offset within the 32-point
-  segment, each warp walks its 32 instances in order into a private
-  [slot, offset] partial tile in shared memory, and the four partials are
-  summed in warp order into the tile accumulator.  Bound: the Humlicek
-  rationals (CPF12: 12 divides and an exp per point).  No tensor cores and
-  no atomics: the slot scatter is a direct indexed add, so runs are
-  bit-identical.
+- Tile kernel (replaces ``_tile_kernel_strided_pre(_tail)(_batched)``
+  lineshape_pallas.py:2148-2257, and ``_tile_kernel(_batched)`` :1528/:1662
+  with ``_lorentz_line_pre`` :2088, ``_lorentz_line`` :110 or
+  ``_correction_line`` :119).  One block per (tile, layer); 256 threads own
+  the tile's points, chunks of the 8-row SoA are staged in shared memory
+  and walked line by line in order.  Bound: one IEEE f32 divide per
+  line-point for the Lorentzian line functions (the instruction rate of the
+  divide sequence, not memory: each line is read once per tile from shared
+  memory as a broadcast); the Humlicek rationals for the correction.
+- Mixed-slot core (replaces ``_seg_kernel_mixed(_batched)`` :1113/:1148
+  with ``_seg_chunk_accumulate_mixed`` :1070).  One block of 4 warps per
+  (tile, layer); per 128-instance chunk the class is picked from the
+  chunk's min y (block-uniform branch), lane = point offset within the
+  32-point segment, each warp walks its 32 instances in order into a
+  private [slot, offset] partial tile in shared memory, and the four
+  partials are summed in warp order into the tile accumulator.  Bound: the
+  Humlicek rationals (CPF12: 12 divides and an exp per point).  No tensor
+  cores and no atomics: the slot scatter is a direct indexed add, so runs
+  are bit-identical.
+- Per-stream segment pass (replaces ``_seg_kernel(_batched)`` :842/:880
+  with ``_seg_chunk_accumulate`` :762 or ``_seg_chunk_accumulate_lorentz``
+  :806).  As the mixed-slot core, but a chunk carries one slot, so each
+  warp sums its 32 instances into a register and the four warp sums land
+  on the chunk's segment; natural point order, no transposed accumulator.
 - ``-fmad=false`` keeps ``a*b + c`` as two rounded operations, so the
   kernels compute the same values, in the same order, as the plain
   versions and the JAX reference's separate multiply and add.
@@ -58,6 +71,7 @@ import torch
 from .voigt import (XLIM0_MAX, voigt_correction, voigt_correction_k1,
                     voigt_correction_k12, voigt_correction_k123)
 from ..runtime.build import PACKAGE_DIR, load_library
+from ..utils.constants import RSQRPI
 
 # SoA row order in the packed (8, N) line block.
 C_INT, C_FRAC, SRW, Y, PREF, S_IDX, E_IDX, _PAD = range(8)
@@ -71,13 +85,24 @@ SEGP_ROWS = 8             # param rows per instance.
 (SR_SEG0REL, SR_CFRAC, SR_SRW, SR_Y, SR_PREF, SR_SREL,
  SR_EREL, SR_SLOT) = range(8)
 
-# Core-correction classes by chunk min y (lineshape_pallas.py:1102-1110).
+# Production core-pass formulation (lineshape_pallas.py CORE_MODE); "seg"
+# is the per-stream A/B mode, "rows" (ROADMAP Queue 2 K9) is not ported.
+CORE_MODE = "segmix"
+
+# Core-correction classes by min y (lineshape_pallas.py:1102-1110).
 _CORE_CLASSES = ((8.425, voigt_correction_k1), (6.8, voigt_correction_k12),
                  (2.0, voigt_correction_k123), (-np.inf, voigt_correction))
 _CORE_SKIP_Y = 70.55
 
-# Launches of each CUDA kernel since the last reset_launches().
-LAUNCHES = {"wings_strided": 0, "wings_splat": 0, "core_segmix": 0}
+# Launches of each CUDA kernel wrapper since the last reset_launches():
+# the strided wings, splat wings and mixed-slot core on layer batches,
+# the strided wings and mixed-slot core on single layers ([8, N] inputs),
+# and the tile kernel's raw-Lorentz and correction line functions and the
+# segment passes.
+LAUNCHES = {"wings_strided": 0, "wings_splat": 0, "core_segmix": 0,
+            "wings_strided_single": 0, "wings_strided_tail_single": 0,
+            "core_segmix_single": 0, "tile_lorentz": 0,
+            "tile_correction": 0, "seg_core": 0, "seg_wings": 0}
 
 
 def reset_launches():
@@ -96,6 +121,41 @@ def core_halfwidths(repwid, n_per_v, cut_off):
     repwid = np.asarray(repwid, dtype=np.float64)
     width = np.ceil(XLIM0_MAX / np.maximum(repwid, 1e-300) * n_per_v) + 1
     return np.minimum(width, (cut_off + 1) * n_per_v).astype(np.int64)
+
+
+def pack_lines_soa(arrays, chunk=DEFAULT_CHUNK, dtype=np.float32):
+    """Packs kernel arrays into the ([B,] 8, N_padded) SoA block.
+
+    Args:
+        arrays: dict from ops.lineshape.prepare_kernel_arrays, leaves [N]
+            or layer-batched [B, N].
+        chunk: line-chunk size; N is padded to a multiple of it with dead
+            lines (window [-1, -2] so every point masks off).
+        dtype: block dtype (float32 for the kernels; float64 for the plain
+            reference).
+
+    Returns:
+        (soa[..., 8, N_padded], num_lines).
+    """
+    num = arrays["prefactor"].shape[-1]
+    batch = arrays["prefactor"].shape[:-1]
+    padded = -num % chunk
+    total = num + padded
+    soa = np.zeros(batch + (8, total), dtype=dtype)
+    soa[..., C_INT, :num] = arrays["c_int"]
+    soa[..., C_FRAC, :num] = arrays["c_frac"]
+    soa[..., SRW, :num] = arrays["scaled_repwid"]
+    soa[..., Y, :num] = arrays["y"]
+    soa[..., PREF, :num] = arrays["prefactor"]
+    soa[..., S_IDX, :num] = arrays["s_idx"]
+    soa[..., E_IDX, :num] = arrays["e_idx"]
+    soa[..., S_IDX, num:] = -1.0
+    soa[..., E_IDX, num:] = -2.0
+    soa[..., SRW, num:] = 1.0
+    # Dead-line y sits above the pure-Lorentz threshold (70.55) so the
+    # scalar core pass's per-line branch skips padded lines outright.
+    soa[..., Y, num:] = 100.0
+    return soa, num
 
 
 def tile_line_ranges(window_start, window_end, num_points, tile, chunk):
@@ -124,6 +184,83 @@ def tile_line_ranges(window_start, window_end, num_points, tile, chunk):
     return lo_aligned.astype(np.int32), nchunks.astype(np.int32)
 
 
+def _core_instances(core_start, core_end, num_points, seg):
+    """(line index, segment index) of every instance: one per ``seg``-point
+    segment a line's clipped core window touches (entries with end < start
+    or outside the grid are dropped)."""
+    core_start = np.asarray(core_start)
+    core_end = np.asarray(core_end)
+    cs = np.clip(core_start, 0, num_points - 1)
+    ce = np.clip(core_end, 0, num_points - 1)
+    valid = (core_end >= core_start) & (core_end >= 0) \
+        & (core_start < num_points)
+    s0 = cs // seg
+    s1 = ce // seg
+    counts = np.where(valid, s1 - s0 + 1, 0).astype(np.int64)
+    inst_of = np.repeat(np.arange(counts.size, dtype=np.int64), counts)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    off = np.arange(inst_of.size, dtype=np.int64) - np.repeat(starts, counts)
+    return inst_of, s0[inst_of] + off
+
+
+def build_core_segments(core_start, core_end, num_points,
+                        tile=DEFAULT_TILE, seg=SEG, chunk=ROWS_CHUNK,
+                        sort_key=None):
+    """Packs per-line core windows into aligned ``seg``-point segment
+    streams, one per (tile, slot), each padded to whole chunks.
+
+    Instances within a stream are ordered by descending ``sort_key``
+    (typically y) so chunks are y-class homogeneous.
+
+    Returns:
+        (inst_line [I_pad] int64 with -1 dead lanes,
+         seg0 [I_pad] int64 segment base points,
+         tile_start [T] int32 first chunk index per tile,
+         tile_chunks [T] int32 chunk count per tile,
+         chunk_slot [C] int32 segment slot (seg0 % tile) // seg per chunk).
+    """
+    inst_of, segidx = _core_instances(core_start, core_end, num_points, seg)
+    num_tiles = -(-num_points // tile)
+    slots_per_tile = tile // seg
+    n_streams = num_tiles * slots_per_tile
+
+    if sort_key is not None:
+        key = -np.asarray(sort_key, np.float64)[inst_of]   # descending y
+        order = np.lexsort((key, segidx))
+    else:
+        order = np.argsort(segidx, kind="stable")
+    segidx_s = segidx[order]
+    lines_s = inst_of[order]
+
+    stream_counts = np.bincount(segidx_s, minlength=n_streams)
+    stream_chunks = -(-stream_counts // chunk)
+    stream_pad = stream_chunks * chunk
+    col_start = np.concatenate(([0], np.cumsum(stream_pad)[:-1]))
+    total = int(stream_pad.sum())
+
+    size = max(total, chunk)
+    inst_line = np.full(size, -1, dtype=np.int64)
+    seg0 = np.zeros(size, dtype=np.int64)
+    if segidx_s.size:
+        stream_first = np.concatenate(([0], np.cumsum(stream_counts)[:-1]))
+        pos = np.arange(segidx_s.size, dtype=np.int64) \
+            - stream_first[segidx_s]
+        inst_line[col_start[segidx_s] + pos] = lines_s
+    if total:
+        seg0[:total] = np.repeat(
+            np.arange(n_streams, dtype=np.int64) * seg, stream_pad)
+
+    chunks_per_tile = stream_chunks.reshape(num_tiles,
+                                            slots_per_tile).sum(axis=1)
+    tile_start = np.concatenate(([0], np.cumsum(chunks_per_tile)[:-1]))
+    slot_of_stream = np.arange(n_streams, dtype=np.int64) % slots_per_tile
+    chunk_slot = np.repeat(slot_of_stream, stream_chunks).astype(np.int32)
+    if chunk_slot.size == 0:
+        chunk_slot = np.zeros(1, np.int32)
+    return (inst_line, seg0, tile_start.astype(np.int32),
+            chunks_per_tile.astype(np.int32), chunk_slot)
+
+
 def build_core_segments_mixed(core_start, core_end, num_points,
                               tile=DEFAULT_TILE, seg=SEG, chunk=ROWS_CHUNK,
                               sort_key=None):
@@ -140,22 +277,9 @@ def build_core_segments_mixed(core_start, core_end, num_points,
          tile_start [T] int32 first chunk index per tile,
          tile_chunks [T] int32 chunk count per tile).
     """
-    core_start = np.asarray(core_start)
-    core_end = np.asarray(core_end)
-    cs = np.clip(core_start, 0, num_points - 1)
-    ce = np.clip(core_end, 0, num_points - 1)
-    valid = (core_end >= core_start) & (core_end >= 0) \
-        & (core_start < num_points)
-    s0 = cs // seg
-    s1 = ce // seg
-    counts = np.where(valid, s1 - s0 + 1, 0).astype(np.int64)
+    inst_of, segidx = _core_instances(core_start, core_end, num_points, seg)
     num_tiles = -(-num_points // tile)
     slots_per_tile = tile // seg
-
-    inst_of = np.repeat(np.arange(counts.size, dtype=np.int64), counts)
-    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-    off = np.arange(inst_of.size, dtype=np.int64) - np.repeat(starts, counts)
-    segidx = s0[inst_of] + off
     tile_of = segidx // slots_per_tile
 
     if sort_key is not None:
@@ -189,48 +313,140 @@ def build_core_segments_mixed(core_start, core_end, num_points,
             tile_chunks.astype(np.int32))
 
 
-class CorePlan:
-    """Host-built plan for the mixed-slot segment-32 core pass.
+# Dead-lane fills of a segment parameter block: empty window, zero
+# strength, y above the pure-Lorentz threshold.
+_SEG_FILLS = (0.0, 0.0, 1.0, 100.0, 0.0, 1.0, -1.0, 0.0)
 
-    Counterpart of the JAX ``CorePlan`` in its production "segmix" mode
-    (the A/B "seg" and "rows" modes are not ported)::
+
+def gather_segment_params(kernel_arrays, inst_line, seg0, slot=None,
+                          dtype=np.float32):
+    """Builds the ([B,] 8, I_pad) segment-parameter block on the host.
+
+    Rows: seg0_rel = seg0 - c_int (exact small integer), c_frac,
+    scaled_repwid, y, prefactor, s_rel = s_idx - seg0, e_rel = e_idx -
+    seg0, and the slot row (``slot`` per instance for the mixed-slot
+    kernel; zeros otherwise).  Dead lanes (inst_line < 0) get
+    (0, 0, 1, 100, 0, 1, -1, 0).  C-contiguous, as the kernels take it.
+    """
+    fields = ("c_int", "c_frac", "scaled_repwid", "y", "prefactor", "s_idx",
+              "e_idx")
+    mat = np.stack(
+        [kernel_arrays[name].astype(dtype) for name in fields]
+        + [np.zeros_like(kernel_arrays["y"], dtype=dtype)],
+        axis=-1)                                     # [..., N, 8]
+    idx = np.maximum(np.asarray(inst_line), 0)
+    g = mat[..., idx, :]                             # [..., I, 8]
+    seg0f = np.asarray(seg0).astype(dtype)
+    slotf = (np.zeros_like(seg0f) if slot is None
+             else np.asarray(slot).astype(dtype))
+    vals = np.stack([
+        seg0f - g[..., 0],                           # seg0_rel
+        g[..., 1],                                   # c_frac
+        g[..., 2],                                   # srw
+        g[..., 3],                                   # y
+        g[..., 4],                                   # pref
+        g[..., 5] - seg0f,                           # s_rel
+        g[..., 6] - seg0f,                           # e_rel
+        slotf + np.zeros_like(g[..., 7]),
+    ], axis=-2)                                      # [..., 8, I]
+    fills = np.asarray(_SEG_FILLS, dtype)
+    dead = np.asarray(inst_line) < 0
+    return np.ascontiguousarray(np.where(dead[..., None, :], fills[:, None],
+                                         vals))
+
+
+def core_instance_windows(kernel_arrays, kin, num_points, n_per_v, cut_off):
+    """Per-line core-correction point windows for instance grouping.
+
+    Lines with (float32) y >= 70.55 are pure Lorentzian in the reference
+    (voigt.c:17-27): their correction is identically zero, so they are
+    dropped here instead of being skipped inside the kernel.
+    """
+    core_w = core_halfwidths(kin["repwid"], n_per_v, cut_off)
+    s_idx = kernel_arrays["s_idx"].astype(np.int64)
+    e_idx = kernel_arrays["e_idx"].astype(np.int64)
+    center = np.rint(kernel_arrays["c_int"]).astype(np.int64)
+    cs = np.maximum(center - core_w, s_idx)
+    ce = np.minimum(center + core_w, e_idx)
+    ce = np.where(kernel_arrays["y"].astype(np.float32) >= 70.55,
+                  cs - 1, ce)
+    return cs, ce
+
+
+class CorePlan:
+    """Host-built plan for a segment-32 pass (counterpart of the JAX
+    ``CorePlan``)::
 
         plan = CorePlan(cs, ce, num_points, tile, sort_key=y)
-        inst = plan.expand_line_arrays(line_tensors)   # once
+        params = plan.gather(kernel_arrays)            # host numpy, or
+        inst = plan.expand_line_arrays(line_tensors)   # once, then per layer
         params = plan.seg_params(line_kernel_arrays(inst, ...))
         out = plan.core_pass(params)
+
+    ``mode``: "segmix" (per-tile mixed-slot streams, the production core)
+    or "seg" (per-(tile, slot) streams); "rows" is not ported.  ``kind``:
+    "core" (Humlicek correction) or "wings" (Lorentzian; seg mode only,
+    parameters from :meth:`wings_params`).
     """
 
     def __init__(self, core_start, core_end, num_points, tile,
-                 sort_key=None, chunk=ROWS_CHUNK, seg=SEG):
+                 sort_key=None, mode=None, chunk=ROWS_CHUNK, kind="core",
+                 seg=SEG):
+        self.mode = CORE_MODE if mode is None else mode
+        self.kind = kind
         self.seg = seg
         self.num_points = int(num_points)
         self.tile = tile
         self.chunk = chunk
-        (self.inst_line, self.seg0, self.slot, self.t_start,
-         self.t_chunks) = build_core_segments_mixed(
-            core_start, core_end, num_points, tile=tile, seg=seg,
-            chunk=chunk, sort_key=sort_key)
+        if kind != "core" and self.mode != "seg":
+            raise ValueError("wings-kind plans require seg mode")
+        if self.mode == "seg":
+            (self.inst_line, self.seg0, self.t_start, self.t_chunks,
+             self.c_slot) = build_core_segments(
+                core_start, core_end, num_points, tile=tile, seg=seg,
+                chunk=chunk, sort_key=sort_key)
+            self.slot = None
+        elif self.mode == "segmix":
+            (self.inst_line, self.seg0, self.slot, self.t_start,
+             self.t_chunks) = build_core_segments_mixed(
+                core_start, core_end, num_points, tile=tile, seg=seg,
+                chunk=chunk, sort_key=sort_key)
+            self.c_slot = None
+        elif self.mode == "rows":
+            raise NotImplementedError(
+                "core_mode='rows' (the rows core, ROADMAP Queue 2 K9) is "
+                "not ported")
+        else:
+            raise ValueError(f"unknown core mode {self.mode!r}")
         self._dev = {}
 
     @property
     def num_instances(self):
         return int(self.inst_line.size)
 
+    @property
+    def _slotf(self):
+        """Per-instance slot row (segmix) or zeros (seg), float32."""
+        if self.slot is None:
+            return np.zeros(self.inst_line.size, np.float32)
+        return self.slot.astype(np.float32)
+
     def _device_consts(self, device):
-        """(inst index, seg0 f32, dead mask, slot f32, tile_start,
-        tile_chunks) as tensors on ``device``, built once per device."""
+        """Instance index, seg0, dead mask, slot row and the chunk CSRs as
+        tensors on ``device``, built once per device."""
         key = str(device)
         consts = self._dev.get(key)
         if consts is None:
-            consts = (
-                torch.as_tensor(np.maximum(self.inst_line, 0),
-                                device=device),
-                torch.as_tensor(self.seg0.astype(np.float32), device=device),
-                torch.as_tensor(self.inst_line < 0, device=device),
-                torch.as_tensor(self.slot.astype(np.float32), device=device),
-                torch.as_tensor(self.t_start, device=device),
-                torch.as_tensor(self.t_chunks, device=device))
+            def dev(a):
+                return None if a is None else torch.as_tensor(a,
+                                                               device=device)
+            consts = {"idx": dev(np.maximum(self.inst_line, 0)),
+                      "seg0f": dev(self.seg0.astype(np.float32)),
+                      "dead": dev(self.inst_line < 0),
+                      "slotf": dev(self._slotf),
+                      "t_start": dev(self.t_start),
+                      "t_chunks": dev(self.t_chunks),
+                      "c_slot": dev(self.c_slot)}
             self._dev[key] = consts
         return consts
 
@@ -240,21 +456,17 @@ class CorePlan:
         parameters come from running the elementwise line physics directly
         in instance space.  Dead lanes point at line 0 and are overwritten
         by :meth:`seg_params`' fills."""
-        device = arrays["nu"].device
-        idx = self._device_consts(device)[0]
+        idx = self._device_consts(arrays["nu"].device)["idx"]
         return {k: (v if k == "q_table" else v.index_select(0, idx))
                 for k, v in arrays.items()}
 
     def seg_params(self, ka_inst):
         """[..., 8, I] core parameters from INSTANCE-order kernel arrays
-        (rows seg0_rel, c_frac, srw, y, pref, s_rel, e_rel, slot; dead lanes
-        get (0, 0, 1, 100, 0, 1, -1, 0): empty window, y above the
-        pure-Lorentz threshold)."""
-        device = ka_inst["c_frac"].device
-        _, seg0f, dead, slotf, _, _ = self._device_consts(device)
+        (tensors): the block :meth:`gather` builds, without the per-layer
+        gather."""
+        c = self._device_consts(ka_inst["c_frac"].device)
         dtype = ka_inst["c_frac"].dtype
-        seg0f = seg0f.to(dtype)
-        fills = (0.0, 0.0, 1.0, 100.0, 0.0, 1.0, -1.0, 0.0)
+        seg0f = c["seg0f"].to(dtype)
         rows = (seg0f - ka_inst["c_int"].to(dtype),
                 ka_inst["c_frac"],
                 ka_inst["scaled_repwid"],
@@ -262,19 +474,56 @@ class CorePlan:
                 ka_inst["prefactor"],
                 ka_inst["s_idx"].to(dtype) - seg0f,
                 ka_inst["e_idx"].to(dtype) - seg0f,
-                slotf.to(dtype))
+                c["slotf"].to(dtype))
         rows = torch.broadcast_tensors(*rows)
-        return torch.stack([torch.where(dead, torch.as_tensor(f, dtype=dtype,
-                                                              device=device),
-                                        r)
-                            for f, r in zip(fills, rows)], dim=-2)
+        return torch.stack([torch.where(c["dead"], torch.as_tensor(
+            f, dtype=dtype, device=seg0f.device), r)
+            for f, r in zip(_SEG_FILLS, rows)], dim=-2)
+
+    def wings_params(self, ka_inst):
+        """[..., 8, I] wings parameters from INSTANCE-order host kernel
+        arrays (wings-kind plans): the raw SoA rows C_INT..E_IDX in
+        absolute grid coordinates, dead lanes with an empty window and
+        zero strength."""
+        if self.kind != "wings":
+            raise ValueError("wings_params requires a wings-kind plan")
+        dtype = ka_inst["c_frac"].dtype
+        dead = self.inst_line < 0
+        rows = (ka_inst["c_int"].astype(dtype),
+                ka_inst["c_frac"],
+                ka_inst["scaled_repwid"],
+                ka_inst["y"],
+                ka_inst["prefactor"],
+                ka_inst["s_idx"].astype(dtype),
+                ka_inst["e_idx"].astype(dtype),
+                np.zeros_like(ka_inst["c_frac"]))
+        return np.ascontiguousarray(np.stack(
+            [np.where(dead, dtype.type(f), r)
+             for f, r in zip(_SEG_FILLS, rows)], axis=-2))
+
+    def gather(self, kernel_arrays):
+        """Per-layer segment parameters [..., 8, I] from host kernel
+        arrays, in their float dtype."""
+        return gather_segment_params(kernel_arrays, self.inst_line,
+                                     self.seg0, slot=self._slotf,
+                                     dtype=kernel_arrays["c_frac"].dtype)
+
+    def seg_pass(self, params, plain=False):
+        """This plan's segment pass: params [..., 8, I] -> spectrum
+        [..., num_points]."""
+        c = self._device_consts(params.device)
+        if self.mode == "segmix":
+            fn = core_segmix_plain if plain else core_segmix_pass
+            return fn(params, c["t_start"], c["t_chunks"], self.num_points,
+                      self.tile, self.chunk, self.seg)
+        fn = seg_plain if plain else seg_pass
+        return fn(params, c["t_start"], c["t_chunks"], c["c_slot"],
+                  self.num_points, self.tile, self.chunk, self.seg,
+                  kind=self.kind)
 
     def core_pass(self, params, plain=False):
-        """The core-correction pass: params [B, 8, I] -> [B, num_points]."""
-        _, _, _, _, t_start, t_chunks = self._device_consts(params.device)
-        fn = core_segmix_plain if plain else core_segmix_pass
-        return fn(params, t_start, t_chunks, self.num_points, self.tile,
-                  self.chunk, self.seg)
+        """The core-correction pass alone (either seg mode)."""
+        return self.seg_pass(params, plain)
 
 
 def pick_wings_stride(tile, window_max):
@@ -449,8 +698,8 @@ def build_strided_layout(s_wide, stride, num_points, chunk=STRIDED_CHUNK,
 
 
 def plan_strided_stage(s_wide, e_wide, core_lo, core_hi, y_ref, n_out,
-                       tile=DEFAULT_TILE, chunk=STRIDED_CHUNK, stride=None,
-                       tail=None):
+                       tile=DEFAULT_TILE, chunk=STRIDED_CHUNK,
+                       core_mode=None, stride=None, tail=None):
     """Strided-wings + core plan for one line set and output grid.
 
     Returns:
@@ -467,7 +716,8 @@ def plan_strided_stage(s_wide, e_wide, core_lo, core_hi, y_ref, n_out,
     lay = build_strided_layout(s_wide, stride, n_out, chunk=chunk,
                                e_wide=e_wide, tile=tile, tail=tail)
     c_lo, c_hi = lay.gather_windows(core_lo, core_hi)
-    cp = CorePlan(c_lo, c_hi, n_out, tile, sort_key=lay.gather(y_ref))
+    cp = CorePlan(c_lo, c_hi, n_out, tile, sort_key=lay.gather(y_ref),
+                  mode=core_mode)
     return stride, lay, cp
 
 
@@ -506,6 +756,12 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# Tile-kernel line functions by pass kind (lineshape_pallas.py
+# _pass_line_fn): the kernel's line_fn id and the launch counter.
+_TILE_LINES = {"wings_pre": (0, "wings_splat"), "wings": (1, "tile_lorentz"),
+               "core": (2, "tile_correction")}
+_SEG_KINDS = {"core": 0, "wings": 1}
+
 
 def nvcc_path():
     found = shutil.which("nvcc")
@@ -530,6 +786,7 @@ def cuda_library():
             p, p, p, p, i64,        # w_start, w_n, t_start, t_n, csr bstride
             p,                      # out [B, T, tile]
             i32, i32, i32, i32, i32, i32,  # B, T, tile, stride, chunk, tail
+            i32,                    # line function
             p]                      # stream
         lib.pylbl_core_segmix.restype = ctypes.c_int
         lib.pylbl_core_segmix.argtypes = [
@@ -537,6 +794,13 @@ def cuda_library():
             p, p,                   # tile_start, tile_chunks
             p,                      # out [B, T, tile]
             i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg
+            p]                      # stream
+        lib.pylbl_seg.restype = ctypes.c_int
+        lib.pylbl_seg.argtypes = [
+            p, i64, i64,            # params, batch stride, row stride
+            p, p, p,                # tile_start, tile_chunks, chunk_slot
+            p,                      # out [B, T, tile]
+            i32, i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg, kind
             p]                      # stream
         lib._pylbl_bound = True
     return lib
@@ -578,12 +842,30 @@ def _check_cuda_inputs(name, data, csr, num_tiles):
                              f"{num_tiles} tiles and {data.shape[0]} layers")
 
 
+def _as_batch(data):
+    """([1, 8, N] view, True) for a single layer [8, N]; (data, False) for
+    a layer batch [B, 8, N]."""
+    if data.dim() == 2:
+        return data[None], True
+    return data, False
+
+
+def _unbatch(out, single):
+    return out[0] if single else out
+
+
+def _refuse_device(name, data):
+    if not data.is_cuda:
+        raise ValueError(f"no {name} kernel for device {data.device}")
+
+
 # --------------------------------------------------------------------------
-# Wings: strided prepacked (ROADMAP K1/K3) and splat (K4).
+# Tile kernel: strided wings (K1/K3), splat and scalar-line passes (K4, K5,
+# K7).
 # --------------------------------------------------------------------------
 
 def _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
-                  stride, chunk, tail):
+                  stride, chunk, tail, line_fn):
     _check_cuda_inputs("wings", soa, [w_start, w_n, t_start, t_n],
                        num_tiles)
     if tile not in (256, 512, 1024) or chunk > 512 or tail > 512 \
@@ -598,7 +880,8 @@ def _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
         _ptr(soa), soa.stride(0), soa.stride(1),
         _ptr(w_start), _ptr(w_n), _ptr(t_start), _ptr(t_n), csr_bstride,
         _ptr(out), batch, num_tiles, tile, stride, chunk,
-        tail if t_start is not None else 0, _stream_ptr(soa.device))
+        tail if t_start is not None else 0, line_fn,
+        _stream_ptr(soa.device))
     _check_launch("wings", err)
     return out
 
@@ -616,11 +899,31 @@ def _chunk_pairs(start, count, width, seq0, device):
     return tiles, line0, seq0[tiles] + k
 
 
-def _wings_partials_plain(soa, tiles, line0, width, tile, stride,
-                          max_elems=1 << 23):
+def _line_corrections(x, y, pref):
+    """pref * (K_class - K_lorentz) with the class picked from each line's
+    own y (``_correction_line``); lines with y >= 70.55 give 0.  x [..., n],
+    y and pref [..., 1]."""
+    flat_x = x.reshape(-1, x.shape[-1])
+    flat_y = y.reshape(-1, 1)
+    flat_p = pref.reshape(-1, 1)
+    val = torch.zeros_like(flat_x)
+    taken = flat_y[:, 0] >= _CORE_SKIP_Y
+    for threshold, corr_fn in _CORE_CLASSES:
+        cls = (~taken) & (flat_y[:, 0] >= threshold)
+        taken = taken | cls
+        idx = torch.nonzero(cls).flatten()
+        if idx.numel():
+            val[idx] = flat_p[idx] * corr_fn(flat_x[idx], flat_y[idx])
+    return val.reshape(x.shape)
+
+
+def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
+                         max_elems=1 << 23):
     """[B, P, tile] per-chunk partial sums: for each (tile, chunk) pair,
     the chunk's ``width`` lines summed in line order (the first level of
-    the two-level summation), in slabs of pairs."""
+    the two-level summation), in slabs of pairs.  ``line``: "pre"
+    (prepacked Lorentzian), "raw" (Lorentzian from raw rows) or "corr"
+    (per-line Humlicek correction)."""
     batch = soa.shape[0]
     dtype = soa.dtype
     pairs = tiles.numel()
@@ -634,41 +937,48 @@ def _wings_partials_plain(soa, tiles, line0, width, tile, stride,
         for j in range(width):
             vals = soa[:, :, line0[lo:hi] + j, None]     # [B, 8, P, 1]
             x = ((point - vals[:, C_INT]) - vals[:, C_FRAC]) * vals[:, SRW]
-            val = vals[:, PREF] / (x * x + vals[:, Y])
+            y, pref = vals[:, Y], vals[:, PREF]
+            if line == "corr":
+                val = _line_corrections(x, y, pref)
+            elif line == "raw":
+                val = ((pref * y) * RSQRPI) / (x * x + y * y)
+            else:
+                val = pref / (x * x + y)
             mask = (point >= vals[:, S_IDX]) & (point <= vals[:, E_IDX])
             part = part + torch.where(mask, val, torch.zeros_like(val))
         out[:, lo:hi] = part
     return out
 
 
-def _fold_in_order(parts, tiles, seq, shape):
-    """acc[tile] = ((0 + parts[seq 0]) + parts[seq 1]) + ... per tile, in
-    seq order (the second level of the two-level summation).  Each seq
-    value names at most one pair per tile, so every step is a plain
+def _fold_in_order(parts, targets, seq, shape):
+    """acc[target] = ((0 + parts[seq 0]) + parts[seq 1]) + ... per target,
+    in seq order (the second level of the two-level summation).  Each seq
+    value names at most one part per target, so every step is a plain
     indexed add without collisions."""
     acc = parts.new_zeros(shape)
     if seq.numel() == 0:
         return acc
     for j in range(int(seq.max()) + 1):
         sel = torch.nonzero(seq == j).flatten()
-        t = tiles[sel]
+        t = targets[sel]
         acc[:, t] = acc[:, t] + parts[:, sel]
     return acc
 
 
 def wings_tiles_plain(soa, w_start, w_n, num_tiles, tile, stride, chunk,
-                      t_start=None, t_n=None, tail=128):
-    """Plain version of the wings kernel: [B, 8, N] prepacked SoA and a
-    per-tile chunk CSR ([T], shared by every layer) -> [B, T, tile] tile
-    sums; point = t * stride + offset, main chunks then tail chunks."""
+                      t_start=None, t_n=None, tail=128, line="pre"):
+    """Plain version of the tile kernel: [B, 8, N] SoA and a per-tile
+    chunk CSR ([T], shared by every layer) -> [B, T, tile] tile sums;
+    point = t * stride + offset, main chunks then tail chunks."""
     device = soa.device
     zero = torch.zeros(num_tiles, dtype=torch.int64, device=device)
     tiles, line0, seq = _chunk_pairs(w_start, w_n, chunk, zero, device)
-    parts = _wings_partials_plain(soa, tiles, line0, chunk, tile, stride)
+    parts = _tile_partials_plain(soa, tiles, line0, chunk, tile, stride,
+                                 line)
     if t_start is not None:
         tt, tl, ts = _chunk_pairs(t_start, t_n, tail,
                                   w_n.to(torch.int64), device)
-        tparts = _wings_partials_plain(soa, tt, tl, tail, tile, stride)
+        tparts = _tile_partials_plain(soa, tt, tl, tail, tile, stride, line)
         tiles = torch.cat([tiles, tt])
         seq = torch.cat([seq, ts])
         parts = torch.cat([parts, tparts], dim=1)
@@ -692,66 +1002,158 @@ def strided_combine(out, num_points, tile, stride):
     return total[:, :num_points]
 
 
-def _wings_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
-                 t_start, t_n, tail):
-    num_tiles = (num_points - 1) // stride + 1
-    tiles = wings_tiles_plain(soa, _shared_csr(w_start), _shared_csr(w_n),
-                              num_tiles, tile, stride, chunk,
-                              _shared_csr(t_start), _shared_csr(t_n), tail)
-    return strided_combine(tiles, num_points, tile, stride)
-
-
-def _wings(soa, w_start, w_n, num_points, tile, stride, chunk, t_start,
-           t_n, tail, counter):
-    if soa.device.type == "cpu":
-        return _wings_plain(soa, w_start, w_n, num_points, tile, stride,
-                            chunk, t_start, t_n, tail)
-    if not soa.is_cuda:
-        raise ValueError(f"no wings kernel for device {soa.device}")
-    num_tiles = (num_points - 1) // stride + 1
-    tiles = _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
-                          stride, chunk, tail)
-    LAUNCHES[counter] += 1
-    return strided_combine(tiles, num_points, tile, stride)
-
-
-def _shared_csr(csr):
-    """A [T] view of a layer-shared CSR ([T] or a [B, T] broadcast)."""
-    if csr is None or csr.dim() == 1:
+def _shared_csr(csr, device):
+    """A [T] tensor of a layer-shared CSR ([T] or a [B, T] broadcast;
+    numpy or torch)."""
+    if csr is None:
+        return None
+    csr = torch.as_tensor(csr, device=device)
+    if csr.dim() == 1:
         return csr
     if not bool((csr == csr[:1]).all()):
         raise ValueError("plain wings take a CSR shared by all layers")
     return csr[0]
 
 
+def _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
+                t_start, t_n, tail, line):
+    soa, single = _as_batch(soa)
+    num_tiles = (num_points - 1) // stride + 1
+    d = soa.device
+    tiles = wings_tiles_plain(soa, _shared_csr(w_start, d),
+                              _shared_csr(w_n, d), num_tiles, tile, stride,
+                              chunk, _shared_csr(t_start, d),
+                              _shared_csr(t_n, d), tail, line)
+    return _unbatch(strided_combine(tiles, num_points, tile, stride), single)
+
+
+def _tile(soa, w_start, w_n, num_points, tile, stride, chunk, t_start,
+          t_n, tail, line, line_fn, counter):
+    if soa.device.type == "cpu":
+        return _tile_plain(soa, w_start, w_n, num_points, tile, stride,
+                           chunk, t_start, t_n, tail, line)
+    _refuse_device("wings", soa)
+    soa, single = _as_batch(soa)
+    num_tiles = (num_points - 1) // stride + 1
+    tiles = _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
+                          stride, chunk, tail, line_fn)
+    LAUNCHES[counter] += 1
+    return _unbatch(strided_combine(tiles, num_points, tile, stride), single)
+
+
+def _strided_counter(soa, t_start):
+    if soa.dim() == 3:
+        return "wings_strided"
+    return "wings_strided_single" if t_start is None \
+        else "wings_strided_tail_single"
+
+
 def wings_strided_pass(soa, w_start, w_n, num_points, tile, stride,
                        chunk=STRIDED_CHUNK, t_start=None, t_n=None,
                        tail=128):
-    """Strided overlapped-tile prepacked wings -> [B, num_points].
+    """Strided overlapped-tile prepacked wings -> [B, num_points] (or
+    [num_points] for a single layer [8, N]).
 
-    ``soa`` [B, 8, N] carries y^2 in the Y row and pref*y/sqrt(pi) in the
-    PREF row; ``w_start``/``w_n`` (and optionally the tail class
-    ``t_start``/``t_n``) are [T] int32 CSRs over the private per-tile
-    chunks of :func:`padded_strided_layout_tail`."""
+    ``soa`` carries y^2 in the Y row and pref*y/sqrt(pi) in the PREF row;
+    ``w_start``/``w_n`` (and optionally the tail class ``t_start``/``t_n``)
+    are [T] int32 CSRs over the private per-tile chunks of
+    :func:`padded_strided_layout_tail`."""
     if t_start is not None and tail % 128 != 0:
         raise ValueError("tail width must be a multiple of 128")
-    return _wings(soa, w_start, w_n, num_points, tile, stride, chunk,
-                  t_start, t_n, tail, "wings_strided")
+    return _tile(soa, w_start, w_n, num_points, tile, stride, chunk,
+                 t_start, t_n, tail, "pre", 0,
+                 _strided_counter(soa, t_start))
 
 
-def wings_splat_pass(soa, start, nchunks, num_points, tile,
-                     chunk=DEFAULT_CHUNK):
-    """Splat prepacked wings -> [B, num_points]: tile t sums its
-    envelope-CSR line range (:func:`tile_line_ranges`) over points
-    t*tile + offset, window-masked.  The CSR is [T] or a [B, T]
-    broadcast."""
-    return _wings(soa, start, nchunks, num_points, tile, tile, chunk,
-                  None, None, 128, "wings_splat")
+def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
+                        chunk=STRIDED_CHUNK, t_start=None, t_n=None,
+                        tail=128):
+    """:func:`wings_strided_pass` through the plain version on any device
+    and float dtype."""
+    return _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
+                       t_start, t_n, tail, "pre")
+
+
+_PLAIN_LINES = {"wings_pre": "pre", "wings": "raw", "core": "corr"}
+
+
+def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
+              pass_kind="wings_pre"):
+    """Tile pass at stride = tile (``_pallas_pass(_batched)``) ->
+    [B, num_points] or [num_points]: tile t sums its CSR line range
+    (:func:`tile_line_ranges`) over points t*tile + offset, window-masked.
+
+    ``pass_kind``: "wings_pre" (prepacked Lorentzian, ``_lorentz_line_pre``),
+    "wings" (Lorentzian from raw rows, ``_lorentz_line``) or "core" (the
+    per-line Humlicek correction, ``_correction_line``).  The CSR is [T] or
+    a [B, T] broadcast."""
+    line_fn, counter = _TILE_LINES[pass_kind]
+    return _tile(soa, start, nchunks, num_points, tile, tile, chunk, None,
+                 None, 128, _PLAIN_LINES[pass_kind], line_fn, counter)
+
+
+def tile_plain(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
+               pass_kind="wings_pre"):
+    """:func:`tile_pass` through the plain version on any device and float
+    dtype."""
+    return _tile_plain(soa, start, nchunks, num_points, tile, tile, chunk,
+                       None, None, 128, _PLAIN_LINES[pass_kind])
 
 
 # --------------------------------------------------------------------------
-# Core: mixed-slot segment-32 Humlicek correction (ROADMAP K2).
+# Segment-32 passes: mixed-slot core (K2, K5) and per-stream core or wings
+# (K8).
 # --------------------------------------------------------------------------
+
+def _chunk_refs(tile_start, tile_chunks, num_tiles, device):
+    """(tile, seq within the tile, chunk id) of every chunk a tile walks,
+    in tile-major order."""
+    count = tile_chunks.to(torch.int64)
+    chunk_tile = torch.repeat_interleave(
+        torch.arange(num_tiles, device=device), count)
+    chunk_seq = torch.arange(chunk_tile.numel(), device=device) \
+        - (torch.cumsum(count, 0) - count)[chunk_tile]
+    chunk_id = tile_start.to(torch.int64)[chunk_tile] + chunk_seq
+    return chunk_tile, chunk_seq, chunk_id
+
+
+def _warp_sums(val, chunk):
+    """[M, chunk, ...] per-instance values -> [M, chunk // 32, ...]: warp
+    w's 32 instances added in order from 0."""
+    val = val.reshape((val.shape[0], chunk // 32, 32) + val.shape[2:])
+    part = torch.zeros_like(val[:, :, 0])
+    for j in range(32):
+        part = part + val[:, :, j]
+    return part
+
+
+def _in_warp_order(part):
+    """((p0 + p1) + p2) + p3 over the warp axis 1."""
+    total = part[:, 0]
+    for w in range(1, part.shape[1]):
+        total = total + part[:, w]
+    return total
+
+
+def _core_values(row, offs, corr_fn):
+    """pref * (K_class - K_lorentz) at seg0-relative offsets, window-masked
+    (``_seg_chunk_accumulate``): rows [M, chunk, 1] -> [M, chunk, seg]."""
+    x = ((row[SR_SEG0REL] + offs) - row[SR_CFRAC]) * row[SR_SRW]
+    val = corr_fn(x, row[SR_Y])
+    mask = (offs >= row[SR_SREL]) & (offs <= row[SR_EREL])
+    return torch.where(mask, row[SR_PREF] * val, torch.zeros_like(val))
+
+
+def _class_chunks(blocks):
+    """(mask over [B, C] chunks, correction) per Humlicek class, picked by
+    the chunk's min y; chunks at y >= 70.55 are in none."""
+    ymin = blocks[:, :, SR_Y].amin(dim=-1)
+    taken = ymin >= _CORE_SKIP_Y
+    for threshold, corr_fn in _CORE_CLASSES:
+        cls = (~taken) & (ymin >= threshold)
+        taken = taken | cls
+        yield cls, corr_fn
+
 
 def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
                  seg):
@@ -773,7 +1175,8 @@ def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
 
 def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
                      chunk=ROWS_CHUNK, seg=SEG, max_elems=1 << 22):
-    """Plain version of the core kernel: [B, 8, I] params -> [B, T, tile].
+    """Plain version of the mixed-slot core kernel: [B, 8, I] params ->
+    [B, T, tile].
 
     Per (layer, chunk): class from the chunk's min y (skip at >= 70.55),
     ``pref * (K_class - K_lorentz)`` on the [instance, offset] block,
@@ -786,44 +1189,28 @@ def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
     batch = params.shape[0]
     slots = tile // seg
     warps = chunk // 32
-    count = tile_chunks.to(torch.int64)
-    nref = int(count.sum())
-    chunk_tile = torch.repeat_interleave(
-        torch.arange(num_tiles, device=device), count)
-    chunk_seq = torch.arange(nref, device=device) \
-        - (torch.cumsum(count, 0) - count)[chunk_tile]
-    chunk_id = tile_start.to(torch.int64)[chunk_tile] + chunk_seq
+    chunk_tile, chunk_seq, chunk_id = _chunk_refs(tile_start, tile_chunks,
+                                                  num_tiles, device)
     blocks = params.reshape(batch, SEGP_ROWS, -1, chunk)
     blocks = blocks.index_select(2, chunk_id).permute(0, 2, 1, 3)
-    ymin = blocks[:, :, SR_Y].amin(dim=-1)                  # [B, C]
-    sums = params.new_zeros((batch, nref, slots, seg))
+    sums = params.new_zeros((batch, chunk_id.numel(), slots, seg))
     offs = torch.arange(seg, device=device).to(dtype)
     onehot_slots = torch.arange(slots, device=device).to(dtype)
-    taken = ymin >= _CORE_SKIP_Y
-    for threshold, corr_fn in _CORE_CLASSES:
-        cls = (~taken) & (ymin >= threshold)
-        taken = taken | cls
+    per = max(1, max_elems // (chunk * seg))
+    for cls, corr_fn in _class_chunks(blocks):
         idx = torch.nonzero(cls)                            # [M, 2]
-        per = max(1, max_elems // (chunk * seg))
         for lo in range(0, idx.shape[0], per):
             sel = idx[lo:lo + per]
             blk = blocks[sel[:, 0], sel[:, 1]]              # [M, 8, chunk]
             row = {r: blk[:, r, :, None] for r in range(SEGP_ROWS)}
-            x = ((row[SR_SEG0REL] + offs) - row[SR_CFRAC]) * row[SR_SRW]
-            val = corr_fn(x, row[SR_Y])
-            mask = (offs >= row[SR_SREL]) & (offs <= row[SR_EREL])
-            val = torch.where(mask, row[SR_PREF] * val,
-                              torch.zeros_like(val))       # [M, chunk, seg]
+            val = _core_values(row, offs, corr_fn)          # [M, chunk, seg]
             val = val.reshape(-1, warps, 32, seg)
             slot = blk[:, SR_SLOT].reshape(-1, warps, 32)
             part = val.new_zeros((val.shape[0], warps, slots, seg))
             for j in range(32):
                 onehot = (slot[:, :, j, None] == onehot_slots).to(dtype)
                 part = part + onehot[..., None] * val[:, :, j, None, :]
-            chunk_sum = part[:, 0]
-            for w in range(1, warps):
-                chunk_sum = chunk_sum + part[:, w]
-            sums[sel[:, 0], sel[:, 1]] = chunk_sum
+            sums[sel[:, 0], sel[:, 1]] = _in_warp_order(part)
     acc = _fold_in_order(sums, chunk_tile, chunk_seq,
                          (batch, num_tiles, slots, seg))
     return acc.reshape(batch, num_tiles, tile)
@@ -836,41 +1223,296 @@ def _core_out(tiles, num_points):
 
 def core_segmix_pass(params, tile_start, tile_chunks, num_points, tile,
                      chunk=ROWS_CHUNK, seg=SEG):
-    """Mixed-slot core pass -> [B, num_points] (point = t*tile + seg*slot
-    + offset).  ``params`` [B, 8, I] from :meth:`CorePlan.seg_params`."""
+    """Mixed-slot core pass -> [B, num_points] or [num_points] (point =
+    t*tile + seg*slot + offset).  ``params`` [B, 8, I] or [8, I] from
+    :meth:`CorePlan.seg_params` / :meth:`CorePlan.gather`."""
     if params.device.type == "cpu":
         return core_segmix_plain(params, tile_start, tile_chunks, num_points,
                                  tile, chunk, seg)
-    if not params.is_cuda:
-        raise ValueError(f"no core kernel for device {params.device}")
-    tiles = _launch_core(params, tile_start, tile_chunks,
+    _refuse_device("core", params)
+    p, single = _as_batch(params)
+    tiles = _launch_core(p, tile_start, tile_chunks,
                          -(-num_points // tile), tile, chunk, seg)
-    LAUNCHES["core_segmix"] += 1
-    return _core_out(tiles, num_points)
+    LAUNCHES["core_segmix_single" if single else "core_segmix"] += 1
+    return _unbatch(_core_out(tiles, num_points), single)
 
 
 def core_segmix_plain(params, tile_start, tile_chunks, num_points, tile,
                       chunk=ROWS_CHUNK, seg=SEG):
     """:func:`core_segmix_pass` through the plain version on any device
     and float dtype."""
+    p, single = _as_batch(params)
     num_tiles = -(-num_points // tile)
-    return _core_out(core_tiles_plain(params, tile_start, tile_chunks,
-                                      num_tiles, tile, chunk, seg),
-                     num_points)
+    return _unbatch(_core_out(core_tiles_plain(p, tile_start, tile_chunks,
+                                               num_tiles, tile, chunk, seg),
+                              num_points), single)
 
 
-def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
-                        chunk=STRIDED_CHUNK, t_start=None, t_n=None,
-                        tail=128):
-    """:func:`wings_strided_pass` through the plain version on any device
-    and float dtype."""
-    return _wings_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
-                        t_start, t_n, tail)
+def _launch_seg(params, tile_start, tile_chunks, chunk_slot, num_tiles,
+                tile, chunk, seg, kind):
+    _check_cuda_inputs("seg", params, [tile_start, tile_chunks], num_tiles)
+    if chunk != 128 or seg != 32 or tile % 32 or not 32 <= tile <= 1024 \
+            or params.shape[2] % chunk:
+        raise ValueError("segment kernel takes chunk 128, seg 32, a tile of "
+                         "32..1024 points and whole chunks of instances")
+    if chunk_slot.device != params.device or chunk_slot.dtype != torch.int32 \
+            or chunk_slot.dim() != 1 or chunk_slot.stride(0) != 1 \
+            or chunk_slot.numel() < params.shape[2] // chunk:
+        raise ValueError("seg: chunk_slot must be a contiguous int32 [C] "
+                         "tensor with one slot per chunk, on the params' "
+                         "device")
+    batch = params.shape[0]
+    out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
+                      device=params.device)
+    err = cuda_library().pylbl_seg(
+        _ptr(params), params.stride(0), params.stride(1),
+        _ptr(tile_start), _ptr(tile_chunks), _ptr(chunk_slot), _ptr(out),
+        batch, num_tiles, tile, chunk, seg, _SEG_KINDS[kind],
+        _stream_ptr(params.device))
+    _check_launch("seg", err)
+    return out
 
 
-def wings_splat_plain(soa, start, nchunks, num_points, tile,
-                      chunk=DEFAULT_CHUNK):
-    """:func:`wings_splat_pass` through the plain version on any device
-    and float dtype."""
-    return _wings_plain(soa, start, nchunks, num_points, tile, tile, chunk,
-                        None, None, 128)
+def seg_tiles_plain(params, tile_start, tile_chunks, chunk_slot, num_tiles,
+                    tile, chunk=ROWS_CHUNK, seg=SEG, kind="core",
+                    max_elems=1 << 22):
+    """Plain version of the segment kernel: [B, 8, I] params -> [B, T,
+    tile].
+
+    Per (layer, chunk), on the chunk's one segment slot: "core" picks the
+    class from the chunk's min y (skip at >= 70.55) and evaluates
+    ``pref * (K_class - K_lorentz)`` at seg0-relative offsets; "wings"
+    evaluates the Lorentzian of the raw rows at the absolute points
+    t*tile + seg*slot + offset.  Warp w (instances 32w..32w+31) adds its
+    instances in order, the chunk sum is ((w0 + w1) + w2) + w3, and each
+    (tile, slot) folds its chunks in order."""
+    device = params.device
+    dtype = params.dtype
+    batch = params.shape[0]
+    slots = tile // seg
+    chunk_tile, chunk_seq, chunk_id = _chunk_refs(tile_start, tile_chunks,
+                                                  num_tiles, device)
+    slot = torch.as_tensor(chunk_slot, device=device).to(
+        torch.int64)[chunk_id]
+    blocks = params.reshape(batch, SEGP_ROWS, -1, chunk)
+    blocks = blocks.index_select(2, chunk_id).permute(0, 2, 1, 3)
+    sums = params.new_zeros((batch, chunk_id.numel(), seg))
+    offs = torch.arange(seg, device=device).to(dtype)
+    if kind == "core":
+        classes = _class_chunks(blocks)
+    else:
+        every = torch.ones(blocks.shape[:2], dtype=torch.bool, device=device)
+        classes = [(every, None)]
+    per = max(1, max_elems // (chunk * seg))
+    for cls, corr_fn in classes:
+        idx = torch.nonzero(cls)                            # [M, 2]
+        for lo in range(0, idx.shape[0], per):
+            sel = idx[lo:lo + per]
+            blk = blocks[sel[:, 0], sel[:, 1]]              # [M, 8, chunk]
+            row = {r: blk[:, r, :, None] for r in range(SEGP_ROWS)}
+            if kind == "core":
+                val = _core_values(row, offs, corr_fn)
+            else:
+                c = sel[:, 1]
+                point = ((chunk_tile[c] * tile + seg * slot[c]).to(dtype)
+                         [:, None, None] + offs)            # [M, 1, seg]
+                y = row[Y]
+                pref_y = (row[PREF] * y) * RSQRPI
+                x = ((point - row[C_INT]) - row[C_FRAC]) * row[SRW]
+                val = pref_y / (x * x + y * y)
+                mask = (point >= row[S_IDX]) & (point <= row[E_IDX])
+                val = torch.where(mask, val, torch.zeros_like(val))
+            sums[sel[:, 0], sel[:, 1]] = _in_warp_order(
+                _warp_sums(val, chunk))
+    acc = _fold_in_order(sums, chunk_tile * slots + slot, chunk_seq,
+                         (batch, num_tiles * slots, seg))
+    return acc.reshape(batch, num_tiles, tile)
+
+
+def seg_pass(params, tile_start, tile_chunks, chunk_slot, num_points, tile,
+             chunk=ROWS_CHUNK, seg=SEG, kind="core"):
+    """Per-stream segment pass (``_pallas_seg_pass``) -> [B, num_points]
+    or [num_points], natural point order.  ``kind``: "core" (params from
+    :meth:`CorePlan.gather` / :meth:`CorePlan.seg_params`) or "wings"
+    (params from :meth:`CorePlan.wings_params`)."""
+    if kind not in _SEG_KINDS:
+        raise ValueError(f"unknown segment pass kind {kind!r}")
+    if params.device.type == "cpu":
+        return seg_plain(params, tile_start, tile_chunks, chunk_slot,
+                         num_points, tile, chunk, seg, kind)
+    _refuse_device("segment", params)
+    p, single = _as_batch(params)
+    tiles = _launch_seg(p, tile_start, tile_chunks, chunk_slot,
+                        -(-num_points // tile), tile, chunk, seg, kind)
+    LAUNCHES["seg_" + kind] += 1
+    return _unbatch(_core_out(tiles, num_points), single)
+
+
+def seg_plain(params, tile_start, tile_chunks, chunk_slot, num_points, tile,
+              chunk=ROWS_CHUNK, seg=SEG, kind="core"):
+    """:func:`seg_pass` through the plain version on any device and float
+    dtype."""
+    p, single = _as_batch(params)
+    num_tiles = -(-num_points // tile)
+    return _unbatch(_core_out(seg_tiles_plain(p, tile_start, tile_chunks,
+                                              chunk_slot, num_tiles, tile,
+                                              chunk, seg, kind),
+                              num_points), single)
+
+
+# --------------------------------------------------------------------------
+# Single-layer device plan (lineshape_pallas.py:2588-2735).
+# --------------------------------------------------------------------------
+
+class DevicePlan:
+    """Device-resident plan for one (line set, grid, layer): the SoA line
+    block (or a seg wings plan's parameter block), the wings CSR and the
+    core parameters live on ``device``; ``plan()`` runs the wings pass and
+    the core pass with no host transfer.
+
+    The wings pass is the strided prepacked pass when ``wings_stride`` is
+    set, the segment-32 wings pass when ``wings_plan`` is, and the raw
+    Lorentz splat otherwise; the core pass is ``core_plan``'s.
+    ``plain``: run the plain versions instead of the wrappers.
+    """
+
+    def __init__(self, soa, w_start, w_n, core_plan, core_params,
+                 num_points, tile, chunk, wings_plan=None, wings_stride=None,
+                 device="cpu", plain=False):
+        device = torch.device(device)
+        self.soa = torch.as_tensor(soa, device=device)
+        self.w_start = torch.as_tensor(w_start, device=device)
+        self.w_n = torch.as_tensor(w_n, device=device)
+        self.core = core_plan
+        self.wings = wings_plan
+        self.wings_stride = wings_stride
+        self.groups = torch.as_tensor(core_params, device=device)
+        self.num_points = int(num_points)
+        self.tile = tile
+        self.chunk = chunk
+        self.plain = plain
+
+    def __call__(self):
+        return self.run_with(self.soa, self.groups)
+
+    def wings_pass(self, soa=None, plain=None):
+        soa = self.soa if soa is None else soa
+        plain = self.plain if plain is None else plain
+        if self.wings is not None:
+            return self.wings.seg_pass(soa, plain)
+        if self.wings_stride is not None:
+            fn = wings_strided_plain if plain else wings_strided_pass
+            return fn(soa, self.w_start, self.w_n, self.num_points,
+                      self.tile, self.wings_stride)
+        fn = tile_plain if plain else tile_pass
+        return fn(soa, self.w_start, self.w_n, self.num_points, self.tile,
+                  self.chunk, "wings")
+
+    def core_pass(self, groups=None, plain=None):
+        groups = self.groups if groups is None else groups
+        return self.core.core_pass(groups,
+                                   self.plain if plain is None else plain)
+
+    def run_with(self, soa, groups):
+        """The spectrum [num_points] from given wings and core blocks."""
+        return self.wings_pass(soa) + self.core_pass(groups)
+
+
+def make_device_plan(kernel_arrays, kin, num_points, n_per_v, cut_off,
+                     tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, core_mode=None,
+                     wings_mode=None, device="cpu", plain=False):
+    """Builds a :class:`DevicePlan` from host kernel arrays (see
+    :func:`accumulate_device`).
+
+    ``wings_mode``: None/"auto" picks the strided overlapped-tile wings
+    pass when the windows fit (:func:`pick_wings_stride`); "seg" forces the
+    segment-32 variant, "tile" the raw Lorentz splat.  ``core_mode``:
+    "segmix" (default) or "seg".  The blocks take the kernel arrays' float
+    dtype (float32 for the kernels).
+    """
+    dtype = np.dtype(kernel_arrays["c_frac"].dtype)
+    s_idx = kernel_arrays["s_idx"].astype(np.int64)
+    e_idx = kernel_arrays["e_idx"].astype(np.int64)
+    cs, ce = core_instance_windows(kernel_arrays, kin, num_points, n_per_v,
+                                   cut_off)
+    num0 = int(kernel_arrays["prefactor"].shape[-1])
+    mode = CORE_MODE if core_mode is None else core_mode
+    wings_stride = None
+    if mode in ("seg", "segmix") and wings_mode == "seg":
+        pass                           # segment-32 wings handled below
+    elif wings_mode != "tile" and num0:
+        wings_stride = pick_wings_stride(
+            tile, int((e_idx - s_idx).max(initial=0)) + 1)
+    if wings_stride is not None:
+        # Chunk-aligned per-tile line layout: each tile reads only its own
+        # chunks.
+        lay = build_strided_layout(s_idx, wings_stride, num_points)
+        for k, v in kernel_arrays.items():
+            if v.ndim != 1 or v.shape[0] != num0:
+                raise ValueError(
+                    f"make_device_plan: kernel array {k!r} has shape "
+                    f"{v.shape}, expected 1-D of the line count {num0}")
+        kernel_arrays = {k: lay.gather(v) for k, v in kernel_arrays.items()}
+        # Dead slots mirror pack_lines_soa's pad fills: zero prefactor,
+        # empty wings windows, empty core windows.
+        for key, fill in (("prefactor", 0.0), ("s_idx", -1),
+                          ("e_idx", -2)):
+            v = kernel_arrays[key]
+            kernel_arrays[key] = np.where(lay.dead, fill, v).astype(v.dtype)
+        w_start, w_n = lay.w_start, lay.w_n
+        cs, ce = lay.gather_windows(cs, ce)
+    plan = CorePlan(cs, ce, int(num_points), tile,
+                    sort_key=kernel_arrays["y"], mode=core_mode)
+    params = plan.gather(kernel_arrays)
+    wings_plan = None
+    soa, _ = pack_lines_soa(kernel_arrays, chunk, dtype=dtype)
+    if plan.mode in ("seg", "segmix") and wings_mode == "seg":
+        # Segment-32 wings (A/B).  Single fixed layer: the exact per-line
+        # windows are the instance windows.
+        wp = CorePlan(s_idx, e_idx, int(num_points), tile, mode="seg",
+                      kind="wings")
+        idx = np.maximum(wp.inst_line, 0)
+        ka_inst = {k: kernel_arrays[k][idx]
+                   for k in ("c_int", "c_frac", "scaled_repwid", "y",
+                             "prefactor", "s_idx", "e_idx")}
+        soa = wp.wings_params(ka_inst)
+        wings_plan = wp
+        w_start = w_n = np.zeros(1, np.int32)  # unused in this mode
+    elif wings_stride is not None:
+        # Prepacked wings rows for the strided pass (chunks are private per
+        # tile; dead slots carry zero strength): PREF row = pref*y/sqrt(pi)
+        # from the raw y, then Y row = y^2.
+        soa[PREF, :] = soa[PREF, :] * soa[Y, :] * dtype.type(RSQRPI)
+        soa[Y, :] = soa[Y, :] * soa[Y, :]
+    else:
+        w_start, w_n = tile_line_ranges(s_idx, e_idx, num_points, tile,
+                                        chunk)
+    return DevicePlan(soa, w_start, w_n, plan, params, num_points, tile,
+                      chunk, wings_plan=wings_plan, wings_stride=wings_stride,
+                      device=device, plain=plain)
+
+
+def accumulate_device(kernel_arrays, kin, num_points, n_per_v, cut_off,
+                      tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cpu",
+                      plain=False):
+    """Two-pass single-layer accumulation (``accumulate_tpu``).
+
+    Args:
+        kernel_arrays: [N] host arrays from prepare_kernel_arrays (float32
+            for the kernels; float64 runs the plain versions).
+        kin: float64 physics dict (for core-window sizing).
+        num_points: internal grid size.
+        n_per_v / cut_off: grid convention parameters.
+        device: torch device of the plan and the result.
+        plain: run the plain versions instead of the wrappers.
+
+    Returns:
+        [num_points] tensor of absorption cross sections on ``device``.
+    """
+    if kernel_arrays["prefactor"].shape[-1] == 0:
+        return torch.zeros(int(num_points), device=device,
+                           dtype=torch.from_numpy(
+                               kernel_arrays["c_frac"][:0]).dtype)
+    plan = make_device_plan(kernel_arrays, kin, int(num_points), n_per_v,
+                            cut_off, tile, chunk, device=device, plain=plain)
+    return plan()

@@ -1,4 +1,4 @@
-"""Stacked all-gases line-absorption pipeline on one device (torch).
+"""Batched line-absorption pipelines on one device (torch).
 
 Counterpart of the single-device part of pylbl_tpu/parallel/lines.py:
 
@@ -10,8 +10,9 @@ Counterpart of the single-device part of pylbl_tpu/parallel/lines.py:
   identical inputs;
 - :func:`line_kernel_arrays` is the per-layer line physics in torch,
   vectorized over the layer batch;
-- :func:`make_multigas_batched_fn` assembles the prepacked wings SoA and the
-  mixed-slot core parameters and runs the wings and core passes
+- :func:`make_multigas_batched_fn` (all gases stacked) and
+  :func:`make_batched_fn` (one gas) assemble the wings SoA and the
+  segment-32 core parameters and run the wings and core passes
   (ops/lineshape_cuda.py: CUDA kernels on the card, plain versions on the
   CPU, or the plain versions anywhere with ``backend="plain"``);
 - :func:`make_stacked_pedestal_remover` removes the reference pedestal with
@@ -165,7 +166,6 @@ def line_kernel_arrays(arrays, static, temperature, pressure,
     """
     n_per_v = static["n_per_v"]
     cut_off = static["cut_off"]
-    v0 = static["v0"]
     temperature = temperature[:, None]
     pressure = pressure[:, None]
     stacked = "flat_off" in arrays
@@ -189,10 +189,19 @@ def line_kernel_arrays(arrays, static, temperature, pressure,
     sw = arrays["sw_pre"] * sb * (one_minus_g / q_t)
     repwid = arrays["repwid_base"] * torch.rsqrt(temperature)
     dc = shift * n_per_v
-    center = arrays["c_base_int"] + (arrays["c_base_frac"] + dc)
-    bucket = torch.floor(center / n_per_v + v0)
-    s_idx = ((bucket - cut_off - v0) * n_per_v).to(torch.int32)
-    e_idx = ((bucket + cut_off + 1 - v0) * n_per_v).to(torch.int32)
+    c_frac = arrays["c_base_frac"] + dc
+    # The window's wavenumber floor(nu_shift) - v0 from the split center:
+    # with c_base_int = q * n_per_v + r exactly, floor((r + c_frac) /
+    # n_per_v) is decided on a small number.  (The JAX package's float32
+    # floor(center / n_per_v + v0) rounds across the integer for a line
+    # within float32 rounding of one and moves its window by a wavenumber;
+    # ROADMAP Queue 3.)
+    base = arrays["c_base_int"].to(torch.int64)
+    q = torch.div(base, n_per_v, rounding_mode="floor")
+    r = (base - q * n_per_v).to(c_frac.dtype)
+    bucket = q + torch.floor((r + c_frac) / n_per_v)      # minus v0
+    s_idx = ((bucket - cut_off) * n_per_v).to(torch.int32)
+    e_idx = ((bucket + cut_off + 1) * n_per_v).to(torch.int32)
     c_int = arrays["c_base_int"]
     if stacked:
         # Clamp to the gas segment FIRST, then shift into the flat grid.
@@ -203,7 +212,7 @@ def line_kernel_arrays(arrays, static, temperature, pressure,
         c_int = c_int + off.to(c_int.dtype)
     return {
         "c_int": c_int.to(torch.int32).expand_as(s_idx),
-        "c_frac": arrays["c_base_frac"] + dc,
+        "c_frac": c_frac,
         "scaled_repwid": (repwid / n_per_v).expand_as(dc),
         "y": repwid * gamma,
         "prefactor": sw * c.RSQRPI * repwid,
@@ -317,6 +326,150 @@ def _layer_tensor(value, device, dtype):
         value, torch.Tensor) else value, device=device).to(dtype)
 
 
+def _envelope_guard(t_max, p_max_atm):
+    """Refuses layers outside the (t_max, p_max_atm) envelope the
+    core-instance windows were sized for: core-correction coverage would
+    silently degrade at window edges there."""
+    def check(temperature, pressure):
+        t_check = np.asarray(temperature.cpu(), np.float64)
+        p_check = np.asarray(pressure.cpu(), np.float64) * c.PA_TO_ATM
+        if t_check.size and float(t_check.max()) > t_max:
+            raise ValueError(
+                f"temperature {float(t_check.max()):.1f} K exceeds the "
+                f"kernel envelope t_max={t_max} K; rebuild with a larger "
+                "t_max")
+        if p_check.size and float(p_check.max()) > p_max_atm:
+            raise ValueError(
+                f"pressure {float(p_check.max()):.2f} atm exceeds the "
+                f"kernel envelope p_max_atm={p_max_atm}; rebuild with a "
+                "larger p_max_atm")
+    return check
+
+
+def _core_reach(host, v0, n_per_v, cut_off, t_max, p_max_atm):
+    """Layer-independent core-instance reach per line: (center0, reach,
+    y_ref).  ``reach`` covers the line's core at the envelope's widest
+    Doppler width (``t_max``) plus its largest pressure shift
+    (``p_max_atm``); ``y_ref`` is its y at 275 K, 1 atm, air-broadened,
+    the sort key that keeps core chunks y-class homogeneous."""
+    alpha_ref = (host["nu"] / c.VLIGHT) * np.sqrt(
+        c.R2 * t_max / np.maximum(host["mass"], 1.0))
+    repwid_ref = c.SQRT_LN2 / np.maximum(alpha_ref, 1e-300)
+    core_w = lc.core_halfwidths(repwid_ref, n_per_v, cut_off)
+    shift_w = np.ceil(np.abs(host["delta_air"]) * p_max_atm
+                      * n_per_v).astype(np.int64) + 1
+    center0 = np.rint((host["nu"] - v0) * n_per_v).astype(np.int64)
+    y_ref = (c.SQRT_LN2 / np.maximum(
+        (host["nu"] / c.VLIGHT) * np.sqrt(
+            c.R2 * 275.0 / np.maximum(host["mass"], 1.0)), 1e-300)
+        ) * host["gamma_air"] * (296.0 / 275.0) ** host["n_air"]
+    return center0, core_w + shift_w, y_ref
+
+
+class _LineStage:
+    """The device part of a batched pipeline: plans for one line set on an
+    ``n_out``-point grid, the line constants on ``device``, and the
+    per-layer assembly and kernel passes.
+
+    Strided overlapped-tile wings (two chunk classes when ``wings_tail``)
+    wherever a stride fits the widened windows ``s_wide``/``e_wide``, the
+    splat wings otherwise; the core pass of a ``core_mode`` plan over the
+    windows ``core_lo``/``core_hi``, its parameters computed directly in
+    instance space.  The wings rows are prepacked (Y = y^2, PREF =
+    pref*y/sqrt(pi)) except for the splat under a "seg" core plan, which
+    takes the raw Lorentzian rows (lineshape_pallas.py ``wings_core``).
+    """
+
+    def __init__(self, arrays_np, static, s_wide, e_wide, core_lo, core_hi,
+                 y_ref, n_out, tile, chunk, core_mode, wings_tail, device,
+                 dtype, plain):
+        planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
+                                        y_ref, n_out, tile=tile,
+                                        chunk=lc.STRIDED_CHUNK,
+                                        core_mode=core_mode, tail=wings_tail)
+        if planned is not None:
+            self.wings_stride, lay, self.core_plan = planned
+            arrays_np = lc.permute_line_arrays(arrays_np, lay.perm)
+            csr = [lay.w_start, lay.w_n]
+            if lay.t_start is not None:
+                csr += [lay.t_start, lay.t_n]
+            nlines = lay.nlines
+            self.wings_chunk = lc.STRIDED_CHUNK
+        else:
+            self.wings_stride = None
+            self.wings_chunk = chunk
+            csr = list(lc.tile_line_ranges(s_wide, e_wide, n_out, tile,
+                                           chunk))
+            nlines = static["num_lines"]
+            self.core_plan = lc.CorePlan(core_lo, core_hi, n_out, tile,
+                                         sort_key=y_ref, mode=core_mode)
+        self.csr = csr
+        self.csr_dev = [torch.as_tensor(a, device=device) for a in csr]
+        self.static = static
+        self.n_out = n_out
+        self.tile = tile
+        self.wings_tail = wings_tail
+        self.dtype = dtype
+        self.plain = plain
+        self.prepacked = self.wings_stride is not None \
+            or self.core_plan.mode == "segmix"
+        self.arrays = as_tensors(arrays_np, device, dtype)
+        self.core_inst = self.core_plan.expand_line_arrays(self.arrays)
+        self.pad = -nlines % chunk
+
+    def assemble(self, t, p, x):
+        """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
+        [B, 8, I])."""
+        ka = line_kernel_arrays(self.arrays, self.static, t, p, x)
+        y, pref = ka["y"], ka["prefactor"]
+        if self.prepacked:
+            y, pref = y * y, pref * y * c.RSQRPI
+        rows = (ka["c_int"].to(self.dtype), ka["c_frac"], ka["scaled_repwid"],
+                y, pref, ka["s_idx"].to(self.dtype),
+                ka["e_idx"].to(self.dtype), torch.zeros_like(ka["c_frac"]))
+        # Dead-line fills: zero strength, an empty window, y above the
+        # pure-Lorentz threshold.
+        fill = (0.0, 0.0, 1.0, 1.0e4 if self.prepacked else 100.0, 0.0,
+                -1.0, -2.0, 0.0)
+        soa = torch.stack([torch.nn.functional.pad(r, (0, self.pad), value=v)
+                           for r, v in zip(rows, fill)], dim=1)
+        ka_i = line_kernel_arrays(self.core_inst, self.static, t, p, x)
+        return soa.contiguous(), self.core_plan.seg_params(ka_i).contiguous()
+
+    def wings_pass(self, soa, plain=None):
+        plain = self.plain if plain is None else plain
+        csr = self.csr_dev
+        if self.wings_stride is not None:
+            f = lc.wings_strided_plain if plain else lc.wings_strided_pass
+            tail_csr = csr[2:] or [None, None]
+            return f(soa, csr[0], csr[1], self.n_out, self.tile,
+                     self.wings_stride, self.wings_chunk, *tail_csr,
+                     tail=self.wings_tail or 128)
+        f = lc.tile_plain if plain else lc.tile_pass
+        return f(soa, csr[0], csr[1], self.n_out, self.tile, self.wings_chunk,
+                 "wings_pre" if self.prepacked else "wings")
+
+    def core_pass(self, params, plain=None):
+        return self.core_plan.core_pass(
+            params, plain=self.plain if plain is None else plain)
+
+    def run(self, t, p, x):
+        soa, core = self.assemble(t, p, x)
+        return self.wings_pass(soa) + self.core_pass(core)
+
+    def attach(self, fn):
+        """Exposes the stage handles on a pipeline function."""
+        fn.core_plan = self.core_plan
+        fn.wings_stride = self.wings_stride
+        fn.wings_chunk = self.wings_chunk
+        fn.wings_prepacked = self.prepacked
+        fn.wings_csr = tuple(self.csr[:2])
+        fn.wings_tail_csr = tuple(self.csr[2:]) or None
+        fn.wings_pass = self.wings_pass
+        fn.core_pass = self.core_pass
+        return fn
+
+
 def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
                              tile=None, chunk=None, t_max=350.0,
                              p_max_atm=5.0, backend="kernel", device="cpu",
@@ -348,7 +501,6 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     device = resolve_device(device)
     tile = tile or lc.DEFAULT_TILE
     chunk = chunk or lc.DEFAULT_CHUNK
-    plain = backend == "plain"
     arrays_np, host, static, names = stack_device_packs(packs, grid,
                                                         cut_off)
     num_points = static["num_points"]
@@ -356,27 +508,13 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     n_per_v = static["n_per_v"]
     v0 = static["v0"]
     num_gases = static["num_gases"]
-    keep = static["num_lines"]
-
-    def _check_envelope(temperature, pressure):
-        t_check = np.asarray(temperature.cpu(), np.float64)
-        p_check = np.asarray(pressure.cpu(), np.float64) * c.PA_TO_ATM
-        if t_check.size and float(t_check.max()) > t_max:
-            raise ValueError(
-                f"temperature {float(t_check.max()):.1f} K exceeds the "
-                f"kernel envelope t_max={t_max} K; rebuild with a larger "
-                "t_max")
-        if p_check.size and float(p_check.max()) > p_max_atm:
-            raise ValueError(
-                f"pressure {float(p_check.max()):.2f} atm exceeds the "
-                f"kernel envelope p_max_atm={p_max_atm}; rebuild with a "
-                "larger p_max_atm")
+    guard = _envelope_guard(t_max, p_max_atm)
 
     def _inputs(temperature, pressure, vmr):
         t = _layer_tensor(temperature, device, dtype).reshape(-1)
         p = _layer_tensor(pressure, device, dtype).reshape(-1)
         x = _layer_tensor(vmr, device, dtype).reshape(t.shape[0], -1)
-        _check_envelope(t, p)
+        guard(t, p)
         return t, p, x
 
     def _total(k, t, p, x):
@@ -386,7 +524,7 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
             total = total + k[:, g] * n_density[:, g, None]
         return total
 
-    if keep == 0:
+    if static["num_lines"] == 0:
         def empty(temperature, pressure, vmr):
             t, _, _ = _inputs(temperature, pressure, vmr)
             return torch.zeros((t.shape[0], num_gases, num_points),
@@ -395,107 +533,115 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         return empty
 
     # Flat windows for the CSR, from unshifted positions +/-1 wavenumber
-    # slop, clamped per gas segment then offset.
+    # slop, clamped per gas segment then offset; core instance windows
+    # placed in the flat grid the same way.
     off = arrays_np["flat_off"].astype(np.int64)
     b0 = np.floor(host["nu"]).astype(np.int64)
     s_loc = np.clip((b0 - 1 - cut_off - v0) * n_per_v, 0, num_points - 1)
     e_loc = np.clip((b0 + 1 + cut_off + 1 - v0) * n_per_v, 0,
                     num_points - 1)
-    s_wide = off + s_loc
-    e_wide = off + e_loc
-
-    # Core instance windows, sized for the envelope's widest Doppler core
-    # and largest pressure shift, placed in the flat grid.
-    alpha_ref = (host["nu"] / c.VLIGHT) * np.sqrt(
-        c.R2 * t_max / np.maximum(host["mass"], 1.0))
-    repwid_ref = c.SQRT_LN2 / np.maximum(alpha_ref, 1e-300)
-    core_w = lc.core_halfwidths(repwid_ref, n_per_v, cut_off)
-    shift_w = np.ceil(np.abs(host["delta_air"]) * p_max_atm
-                      * n_per_v).astype(np.int64) + 1
-    center0 = np.rint((host["nu"] - v0) * n_per_v).astype(np.int64)
-    y_ref = (c.SQRT_LN2 / np.maximum(
-        (host["nu"] / c.VLIGHT) * np.sqrt(
-            c.R2 * 275.0 / np.maximum(host["mass"], 1.0)), 1e-300)
-        ) * host["gamma_air"] * (296.0 / 275.0) ** host["n_air"]
-    core_lo = off + np.clip(center0 - core_w - shift_w, 0, num_points - 1)
-    core_hi = off + np.clip(center0 + core_w + shift_w, 0, num_points - 1)
-    planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
-                                    y_ref, flat_points, tile=tile,
-                                    chunk=lc.STRIDED_CHUNK, tail=wings_tail)
-    if planned is not None:
-        wings_stride, lay, core_plan = planned
-        arrays_np = lc.permute_line_arrays(arrays_np, lay.perm)
-        csr = [lay.w_start, lay.w_n]
-        if lay.t_start is not None:
-            csr += [lay.t_start, lay.t_n]
-        nlines = lay.nlines
-        wings_chunk = lc.STRIDED_CHUNK
-    else:
-        wings_stride = None
-        wings_chunk = chunk
-        csr = list(lc.tile_line_ranges(s_wide, e_wide, flat_points, tile,
-                                       wings_chunk))
-        nlines = keep
-        core_plan = lc.CorePlan(core_lo, core_hi, flat_points, tile,
-                                sort_key=y_ref)
-    csr_dev = [torch.as_tensor(a, device=device) for a in csr]
-    arrays_dev = as_tensors(arrays_np, device, dtype)
-    core_inst = core_plan.expand_line_arrays(arrays_dev)
-    pad = -nlines % chunk
-    # Prepacked wings rows: Y carries y^2, PREF carries pref*y/sqrt(pi);
-    # dead-line fills give zero strength and an empty window.
-    fill = (0.0, 0.0, 1.0, 1.0e4, 0.0, -1.0, -2.0, 0.0)
-
-    def assemble(t, p, x):
-        """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
-        [B, 8, I])."""
-        ka = line_kernel_arrays(arrays_dev, static, t, p, x)
-        rows = (ka["c_int"].to(dtype), ka["c_frac"], ka["scaled_repwid"],
-                ka["y"] * ka["y"], ka["prefactor"] * ka["y"] * c.RSQRPI,
-                ka["s_idx"].to(dtype), ka["e_idx"].to(dtype),
-                torch.zeros_like(ka["c_frac"]))
-        soa = torch.stack([torch.nn.functional.pad(r, (0, pad), value=v)
-                           for r, v in zip(rows, fill)], dim=1)
-        ka_i = line_kernel_arrays(core_inst, static, t, p, x)
-        return soa.contiguous(), core_plan.seg_params(ka_i).contiguous()
-
-    def wings_pass(soa, plain=plain):
-        if wings_stride is not None:
-            f = lc.wings_strided_plain if plain else lc.wings_strided_pass
-            tail_csr = csr_dev[2:] or [None, None]
-            return f(soa, csr_dev[0], csr_dev[1], flat_points, tile,
-                     wings_stride, wings_chunk, *tail_csr,
-                     tail=wings_tail or 128)
-        f = lc.wings_splat_plain if plain else lc.wings_splat_pass
-        return f(soa, csr_dev[0], csr_dev[1], flat_points, tile,
-                 wings_chunk)
-
-    def core_pass(params, plain=plain):
-        return core_plan.core_pass(params, plain=plain)
-
-    def run(t, p, x):
-        soa, core = assemble(t, p, x)
-        k = wings_pass(soa) + core_pass(core)
-        return k.reshape(t.shape[0], num_gases, num_points)
+    center0, reach, y_ref = _core_reach(host, v0, n_per_v, cut_off, t_max,
+                                        p_max_atm)
+    core_lo = off + np.clip(center0 - reach, 0, num_points - 1)
+    core_hi = off + np.clip(center0 + reach, 0, num_points - 1)
+    stage = _LineStage(arrays_np, static, off + s_loc, off + e_loc, core_lo,
+                       core_hi, y_ref, flat_points, tile, chunk, None,
+                       wings_tail, device, dtype, backend == "plain")
 
     def fn(temperature, pressure, vmr):
-        return run(*_inputs(temperature, pressure, vmr))
+        t, p, x = _inputs(temperature, pressure, vmr)
+        return stage.run(t, p, x).reshape(t.shape[0], num_gases, num_points)
 
     def total(temperature, pressure, vmr):
         t, p, x = _inputs(temperature, pressure, vmr)
-        return _total(run(t, p, x), t, p, x)
+        k = stage.run(t, p, x).reshape(t.shape[0], num_gases, num_points)
+        return _total(k, t, p, x)
 
     fn.total = total
-    fn.assemble = lambda t, p, x: assemble(*_inputs(t, p, x))
-    fn.wings_pass = wings_pass
-    fn.core_pass = core_pass
-    fn.core_plan = core_plan
-    fn.wings_stride = wings_stride
-    fn.wings_chunk = wings_chunk
-    fn.wings_csr = tuple(csr[:2])
-    fn.wings_tail_csr = tuple(csr[2:]) or None
+    fn.assemble = lambda t, p, x: stage.assemble(*_inputs(t, p, x))
     fn.names = names
-    return fn
+    return stage.attach(fn)
+
+
+def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
+                    chunk=None, t_max=350.0, p_max_atm=5.0, core_mode=None,
+                    wings_tail=None, backend="kernel", device="cpu",
+                    dtype=torch.float32):
+    """Builds the single-gas batched pipeline for one (gas, grid) on one
+    device (counterpart of ``make_batched_tpu_fn``).
+
+    Line constants go to the device once; each call ships only the [B]
+    layer conditions, runs the line physics on the device and feeds the
+    layer-batched kernels.  The per-tile line ranges come from the
+    *unshifted* line positions widened by one wavenumber, so they are
+    layer-independent; the kernels' window masks use the exact per-layer
+    windows.  The core-instance windows are sized per line for the
+    hottest plausible layer (``t_max``) plus the line's own worst-case
+    pressure shift at ``p_max_atm``; layers outside that envelope are
+    refused.  ``wings_tail=None`` gives the single-class strided layout
+    (the stacked pipeline defaults to a 128-line tail).
+
+    Args:
+        pack: LinePack.
+        core_mode: "segmix" (default) or "seg".
+        backend / device / dtype: as :func:`make_multigas_batched_fn`.
+
+    Returns:
+        fn(temperature[B], pressure[B], vmr[B]) -> [B, num_points] tensor
+        of absorption cross sections [m2] on the internal grid;
+        ``fn.inner`` skips the envelope guard, ``fn.assemble_layer(t, p,
+        x)`` gives one layer's (wings SoA, core params), and
+        ``fn.core_plan``, ``fn.wings_stride``, ``fn.wings_csr`` and the
+        pass handles expose the stages.
+    """
+    if backend not in ("kernel", "plain"):
+        raise ValueError(f"unknown backend {backend!r}")
+    device = resolve_device(device)
+    tile = tile or lc.DEFAULT_TILE
+    chunk = chunk or lc.DEFAULT_CHUNK
+    arrays_np, static = device_line_pack(pack, grid, cut_off=cut_off)
+    num_points = static["num_points"]
+    n_per_v = static["n_per_v"]
+    v0 = static["v0"]
+    keep = static["num_lines"]
+    guard = _envelope_guard(t_max, p_max_atm)
+
+    def tensors(temperature, pressure, vmr):
+        return tuple(_layer_tensor(a, device, dtype).reshape(-1)
+                     for a in (temperature, pressure, vmr))
+
+    def fn(temperature, pressure, vmr):
+        t, p, x = tensors(temperature, pressure, vmr)
+        guard(t, p)
+        return fn.inner(t, p, x)
+
+    if keep == 0:
+        fn.inner = lambda t, p, x: torch.zeros(
+            (tensors(t, p, x)[0].shape[0], num_points), dtype=dtype,
+            device=device)
+        return fn
+
+    # Layer-independent CSR windows from unshifted positions, +/-1
+    # wavenumber slop; core instance windows inside them.
+    nu = pack.nu[:keep]
+    b0 = np.floor(nu).astype(np.int64)
+    s_wide = (b0 - 1 - cut_off - v0) * n_per_v
+    e_wide = (b0 + 1 + cut_off + 1 - v0) * n_per_v
+    host = {"nu": nu, "mass": pack.mass[:keep],
+            "delta_air": pack.delta_air[:keep],
+            "gamma_air": pack.gamma_air[:keep], "n_air": pack.n_air[:keep]}
+    center0, reach, y_ref = _core_reach(host, v0, n_per_v, cut_off, t_max,
+                                        p_max_atm)
+    stage = _LineStage(arrays_np, static, s_wide, e_wide,
+                       np.maximum(center0 - reach, s_wide),
+                       np.minimum(center0 + reach, e_wide), y_ref,
+                       num_points, tile, chunk, core_mode, wings_tail,
+                       device, dtype, backend == "plain")
+
+    fn.inner = lambda t, p, x: stage.run(*tensors(t, p, x))
+    fn.assemble_layer = lambda t, p, x: tuple(
+        a[0] for a in stage.assemble(*tensors([t], [p], [x])))
+    return stage.attach(fn)
 
 
 def make_stacked_pedestal_remover(packs, grid, cut_off=c.DEFAULT_CUT_OFF):

@@ -11,8 +11,9 @@ Two libraries, both plain C interfaces bound with ctypes:
 Libraries are built at first use into ``<repo>/build/pylbl_tpu_torch/``
 (listed in .gitignore) and rebuilt when a source is newer.  Each build
 writes a private temporary file and renames it into place, so concurrent
-test workers never load a half-written library.  A failed build raises:
-nothing in the port falls back to a slower path.
+test workers never load a half-written library; each library has its own
+lock, so two libraries build concurrently from two threads.  A failed
+build raises: nothing in the port falls back to a slower path.
 """
 import ctypes
 import os
@@ -25,6 +26,7 @@ REPO_DIR = PACKAGE_DIR.parent
 BUILD_DIR = REPO_DIR / "build" / "pylbl_tpu_torch"
 
 _lock = threading.Lock()
+_locks = {}
 _loaded = {}
 # Compiler output of the builds made by this process, by library name.
 BUILD_LOGS = {}
@@ -69,6 +71,8 @@ def build_library(name, sources, command):
 def load_library(name, sources, command):
     """Builds (when stale) and loads a library once per process."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             path = build_library(name, sources, command)

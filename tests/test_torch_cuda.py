@@ -114,3 +114,180 @@ def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
     scale = np.abs(want).max()
     assert float((np.abs(got - want) / np.maximum(np.abs(want),
                                                   scale * 1e-6)).max()) < 5e-5
+
+
+# --- Single-gas kernels: tile line functions, segment passes, single-layer
+# launches and the Gas engine. ---
+
+def single_gas_layers(step, num_layers=2):
+    """[(kin, kernel arrays)] of a 3000-line H2O pack for ``num_layers``
+    layers, npv, n."""
+    from pylbl_tpu_torch.models.lines import internal_grid
+    from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
+                                                      line_profile_params)
+    from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
+
+    pack = packs()["H2O"]
+    grid = np.arange(1.0, 220.0, step)
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, 25)
+    layers = []
+    for i in range(num_layers):
+        params = line_profile_params(pack, T[i], P[i], VMR[i, 0], keep=keep)
+        kin = kernel_inputs(params, v0, npv, 25)
+        layers.append((kin, prepare_kernel_arrays(kin, npv, np.float32)))
+    return layers, npv, n
+
+
+def batch_of(arrays_list, batched):
+    if not batched:
+        return arrays_list[0]
+    return {k: np.stack([a[k] for a in arrays_list]) for k in arrays_list[0]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_tile_line_functions_match_plain(cuda_device, tile, batched):
+    from pylbl_tpu_torch.ops.lineshape import core_halfwidth
+
+    layers, npv, n = single_gas_layers(0.1)
+    arrays = [a for _, a in layers]
+    soa_np = lc.pack_lines_soa(batch_of(arrays, batched), 512)[0]
+    s = np.min([a["s_idx"] for a in arrays], axis=0).astype(np.int64)
+    e = np.max([a["e_idx"] for a in arrays], axis=0).astype(np.int64)
+    kin = layers[0][0]
+    core_w = core_halfwidth(kin, npv, 25)
+    center = np.rint(arrays[0]["c_int"]).astype(np.int64)
+    csr = {"wings": lc.tile_line_ranges(s, e, n, tile, 512),
+           "core": lc.tile_line_ranges(np.maximum(center - core_w, s),
+                                       np.minimum(center + core_w, e), n,
+                                       tile, 512)}
+    soa = torch.as_tensor(soa_np, device=cuda_device)
+    lc.reset_launches()
+    for kind, counter in (("wings", "tile_lorentz"),
+                          ("core", "tile_correction")):
+        start, nchunks = (torch.as_tensor(a, device=cuda_device)
+                          for a in csr[kind])
+        got = lc.tile_pass(soa, start, nchunks, n, tile, 512, kind)
+        want = lc.tile_plain(soa, start, nchunks, n, tile, 512, kind)
+        torch.cuda.synchronize()
+        assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
+        assert rel_err(got, want) < 5e-6
+        assert lc.LAUNCHES[counter] == 1
+    assert sum(lc.LAUNCHES.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_seg_kernels_match_plain(cuda_device, tile, batched):
+    layers, npv, n = single_gas_layers(0.1)
+    arrays = [a for _, a in layers]
+    data = batch_of(arrays, batched)
+    cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
+                 for k, a in layers], axis=0)
+    ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
+                 for k, a in layers], axis=0)
+    core = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"], mode="seg")
+    s = np.min([a["s_idx"] for a in arrays], axis=0).astype(np.int64)
+    e = np.max([a["e_idx"] for a in arrays], axis=0).astype(np.int64)
+    wings = lc.CorePlan(s, e, n, tile, mode="seg", kind="wings")
+    idx = np.maximum(wings.inst_line, 0)
+    lc.reset_launches()
+    for plan, params in (
+            (core, core.gather(data)),
+            (wings, wings.wings_params({k: v[..., idx]
+                                        for k, v in data.items()}))):
+        params = torch.as_tensor(params, device=cuda_device)
+        got = plan.seg_pass(params)
+        want = plan.seg_pass(params, plain=True)
+        torch.cuda.synchronize()
+        assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
+        assert rel_err(got, want) < 5e-6
+    assert lc.LAUNCHES["seg_core"] == 1 and lc.LAUNCHES["seg_wings"] == 1
+    assert sum(lc.LAUNCHES.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [None, 128])
+def test_single_layer_launches_match_plain(cuda_device, tail):
+    """A single layer [8, N] runs the strided wings (with or without the
+    tail class) and the mixed-slot core as batches of one."""
+    layers, npv, n = single_gas_layers(0.1, num_layers=1)
+    kin, arrays = layers[0]
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, device=cuda_device)
+    assert plan.wings_stride is not None and plan.soa.dim() == 2
+    soa, w_start, w_n = plan.soa, plan.w_start, plan.w_n
+    t_start = t_n = None
+    if tail is not None:
+        s = arrays["s_idx"].astype(np.int64)
+        lay = lc.build_strided_layout(s, plan.wings_stride, n, tail=tail)
+        ka = {k: lay.gather(v) for k, v in arrays.items()}
+        for key, fill in (("prefactor", 0.0), ("s_idx", -1), ("e_idx", -2)):
+            ka[key] = np.where(lay.dead, fill, ka[key]).astype(ka[key].dtype)
+        soa_np = lc.pack_lines_soa(ka, 512)[0]
+        soa_np[lc.PREF] = soa_np[lc.PREF] * soa_np[lc.Y] \
+            * np.float32(1.0 / np.sqrt(np.pi))
+        soa_np[lc.Y] = soa_np[lc.Y] * soa_np[lc.Y]
+        soa = torch.as_tensor(soa_np, device=cuda_device)
+        w_start, w_n, t_start, t_n = (
+            torch.as_tensor(a, device=cuda_device)
+            for a in (lay.w_start, lay.w_n, lay.t_start, lay.t_n))
+    lc.reset_launches()
+    got = lc.wings_strided_pass(soa, w_start, w_n, n, 1024,
+                                plan.wings_stride, t_start=t_start, t_n=t_n)
+    want = lc.wings_strided_plain(soa, w_start, w_n, n, 1024,
+                                  plan.wings_stride, t_start=t_start,
+                                  t_n=t_n)
+    core = plan.core_pass()
+    core_want = plan.core_pass(plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == core.shape == (n,)
+    assert rel_err(got, want) < 5e-6 and rel_err(core, core_want) < 5e-6
+    key = "wings_strided_single" if tail is None \
+        else "wings_strided_tail_single"
+    assert lc.LAUNCHES[key] == 1 and lc.LAUNCHES["core_segmix_single"] == 1
+    assert sum(lc.LAUNCHES.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", [0.1, 0.01])
+def test_gas_on_card_matches_cpu(cuda_device, step):
+    """The Gas engine on the card (kernels) against the same engine on the
+    CPU (plain versions): one layer, a layer batch, with and without the
+    pedestal.  The batch's float32 line physics runs on each device (its
+    exp and pow differ in the last ulp between them), and the pedestal
+    subtraction leaves points that cancel to near zero, so with the
+    pedestal the tolerance is tests/test_multigas.py:110's (5e-4, floor
+    1e-6); without it 5e-5."""
+    from pylbl_tpu_torch.models.lines import Gas
+
+    pack = packs()["H2O"]
+    grid = np.arange(1.0, 220.0 if step > 0.05 else 60.0, step)
+    gpu = Gas(pack, "H2O", device=cuda_device)
+    cpu = Gas(pack, "H2O")
+
+    def rel(got, want):
+        scale = np.abs(want).max()
+        return float((np.abs(got - want) / np.maximum(
+            np.abs(want), scale * 1e-6)).max())
+
+    lc.reset_launches()
+    for ped, tol in ((False, 5e-5), (True, 5e-4)):
+        got = gpu.absorption_coefficient(T[0], P[0], VMR[0, 0], grid,
+                                         remove_pedestal=ped)
+        want = cpu.absorption_coefficient(T[0], P[0], VMR[0, 0], grid,
+                                          remove_pedestal=ped)
+        assert rel(got, want) < tol
+        batch = gpu.absorption_coefficient_batch(T, P, VMR[:, 0], grid,
+                                                 remove_pedestal=ped)
+        again = gpu.absorption_coefficient_batch(T, P, VMR[:, 0], grid,
+                                                 remove_pedestal=ped)
+        assert np.array_equal(batch, again)
+        want_b = cpu.absorption_coefficient_batch(T, P, VMR[:, 0], grid,
+                                                  remove_pedestal=ped)
+        assert rel(batch, want_b) < tol
+    single = "wings_strided_single" if step > 0.05 else "tile_lorentz"
+    assert lc.LAUNCHES[single] > 0 and lc.LAUNCHES["core_segmix_single"] > 0
+    assert lc.LAUNCHES["core_segmix"] > 0

@@ -92,8 +92,8 @@ def test_splat_wings_match_pallas():
     assert rel_err(got, want) < 5e-6
     # A [B, T] broadcast CSR is taken like the shared [T] one.
     bcast = [torch.as_tensor(a).expand(batch, -1) for a in fn.wings_csr]
-    again = lc.wings_splat_pass(soa, *bcast, fn.core_plan.num_points, 256,
-                                fn.wings_chunk).numpy()
+    again = lc.tile_pass(soa, *bcast, fn.core_plan.num_points, 256,
+                         fn.wings_chunk, "wings_pre").numpy()
     np.testing.assert_array_equal(again, got)
 
 
@@ -133,3 +133,199 @@ def test_wrappers_refuse_other_devices():
         fn.wings_pass(soa.to("meta"))
     with pytest.raises(ValueError, match="device"):
         fn.core_pass(core.to("meta"))
+
+
+# --- Single-gas formulations on the small workload of
+# tests/test_lineshape_pallas.py:13-22 (two layers for the batched forms). ---
+
+SMALL_CONDS = [(288.99, 98388.0, 6.637074e-03), (250.0, 80000.0, 0.004)]
+
+
+def small_layers(step=0.2):
+    """[(kin, port kernel arrays)] per layer, npv, n."""
+    from pylbl_tpu.database.fixtures import synthetic_line_pack as jpack
+    from pylbl_tpu.models.lines import internal_grid
+    from pylbl_tpu.models.lines.physics import (kernel_inputs,
+                                                line_profile_params)
+    from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
+
+    pack = jpack(num_lines=120, nu_min=30.0, nu_max=280.0, seed=11,
+                 band_centers=(150.0,))
+    grid = np.arange(50.0, 250.0, step)
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, 25)
+    layers = []
+    for cond in SMALL_CONDS:
+        kin = kernel_inputs(line_profile_params(pack, *cond, keep=keep), v0,
+                            npv, 25)
+        layers.append((kin, prepare_kernel_arrays(kin, npv, np.float32)))
+    return layers, npv, n
+
+
+def union_windows(arrays_list, lo, hi):
+    return (np.min([a[lo] for a in arrays_list], axis=0).astype(np.int64),
+            np.max([a[hi] for a in arrays_list], axis=0).astype(np.int64))
+
+
+def stacked(arrays_list):
+    return {k: np.stack([a[k] for a in arrays_list]) for k in arrays_list[0]}
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("pass_kind", ["wings", "core", "wings_pre"])
+def test_tile_pass_matches_pallas(pass_kind, batched):
+    """The tile kernel's line functions (raw Lorentzian, per-line Humlicek
+    correction, prepacked Lorentzian) against ``_pallas_pass`` (one layer)
+    and ``_pallas_pass_batched``.  The correction alone cancels to near
+    zero at points, so it is held to 1e-6 of its scale, as the JAX
+    package's own scalar-vs-segment core test does."""
+    from pylbl_tpu_torch.ops.lineshape import core_halfwidth
+
+    layers, npv, n = small_layers()
+    arrays = [a for _, a in layers]
+    tile, chunk = 256, 128
+    s, e = union_windows(arrays, "s_idx", "e_idx")
+    if pass_kind == "core":
+        kin = layers[0][0]
+        core_w = core_halfwidth({"y": kin["y"], "repwid": kin["repwid"]},
+                                npv, 25)
+        center = np.rint(arrays[0]["c_int"]).astype(np.int64)
+        s, e = np.maximum(center - core_w, s), np.minimum(center + core_w, e)
+    start, nchunks = lc.tile_line_ranges(s, e, n, tile, chunk)
+    soa = lc.pack_lines_soa(stacked(arrays) if batched else arrays[0],
+                            chunk)[0]
+    if pass_kind == "wings_pre":
+        soa[..., lc.PREF, :] = soa[..., lc.PREF, :] * soa[..., lc.Y, :] \
+            * np.float32(1.0 / np.sqrt(np.pi))
+        soa[..., lc.Y, :] = soa[..., lc.Y, :] * soa[..., lc.Y, :]
+    lc.reset_launches()
+    got = lc.tile_pass(torch.as_tensor(soa), start, nchunks, n, tile, chunk,
+                       pass_kind).numpy()
+    assert sum(lc.LAUNCHES.values()) == 0
+    if batched:
+        bcast = [np.ascontiguousarray(np.stack([a, a]))
+                 for a in (start, nchunks)]
+        want = jlp._pallas_pass_batched(jnp.asarray(soa), *bcast, n, tile,
+                                        chunk, pass_kind, interpret=True)
+    else:
+        want = jlp._pallas_pass(jnp.asarray(soa), start, nchunks, n, tile,
+                                chunk, pass_kind, interpret=True)
+    want = np.asarray(want)
+    assert got.shape == want.shape == ((2, n) if batched else (n,))
+    if pass_kind == "core":
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    else:
+        assert rel_err(got, want) < 5e-6
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("kind", ["core", "wings"])
+def test_seg_pass_matches_pallas(kind, batched):
+    """The per-stream segment-32 pass (core and Lorentzian wings) against
+    ``_pallas_seg_pass``, one layer and a two-layer batch over a shared
+    plan (the core alone to 1e-6 of its scale, as above)."""
+    layers, npv, n = small_layers()
+    arrays = [a for _, a in layers]
+    data = stacked(arrays) if batched else arrays[0]
+    tile, chunk = 256, 128
+    if kind == "core":
+        cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
+                     for k, a in layers], axis=0)
+        ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
+                     for k, a in layers], axis=0)
+        plan = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"],
+                           mode="seg", chunk=chunk)
+        params = plan.gather(data)
+    else:
+        s, e = union_windows(arrays, "s_idx", "e_idx")
+        plan = lc.CorePlan(s, e, n, tile, mode="seg", kind="wings",
+                           chunk=chunk)
+        idx = np.maximum(plan.inst_line, 0)
+        params = plan.wings_params({k: v[..., idx] for k, v in data.items()})
+    got = plan.seg_pass(torch.as_tensor(params)).numpy()
+    want = np.asarray(jlp._pallas_seg_pass(
+        jnp.asarray(params), plan.t_start, plan.t_chunks, plan.c_slot, n,
+        tile, chunk, interpret=True, kind=kind))
+    assert got.shape == want.shape == ((2, n) if batched else (n,))
+    if kind == "core":
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    else:
+        assert rel_err(got, want) < 5e-6
+
+
+def test_single_layer_strided_and_segmix_match_pallas():
+    """One layer [8, N] through the strided wings and the mixed-slot core
+    (batches of one) against ``_pallas_pass_strided`` and
+    ``_pallas_seg_pass_mixed`` on the same single-layer blocks."""
+    layers, npv, n = small_layers()
+    kin, arrays = layers[0]
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, tile=1024, chunk=128)
+    assert plan.wings_stride is not None and plan.soa.dim() == 2
+    wings = plan.wings_pass().numpy()
+    want = np.asarray(jlp._pallas_pass_strided(
+        jnp.asarray(plan.soa.numpy()), plan.w_start.numpy(),
+        plan.w_n.numpy(), n, 1024, plan.wings_stride, interpret=True,
+        prepacked=True))
+    assert wings.shape == want.shape == (n,)
+    assert rel_err(wings, want) < 5e-6
+    core = plan.core_pass().numpy()
+    want_core = np.asarray(jlp._pallas_seg_pass_mixed(
+        jnp.asarray(plan.groups.numpy()), plan.core.t_start,
+        plan.core.t_chunks, n, 1024, 128, interpret=True))
+    scale = np.abs(want_core).max()
+    np.testing.assert_allclose(core, want_core, rtol=0, atol=scale * 1e-6)
+    assert rel_err(wings + core, want + want_core) < 5e-6
+
+
+def test_strided_tail_single_layer_matches_pallas():
+    """Mirrors tests/test_lineshape_pallas.py:464-506: the single-layer
+    two-class tail pass against the Pallas tail kernel (5e-6) and against
+    the single-class pass on the same lines (the JAX test's tolerance)."""
+    rng = np.random.default_rng(11)
+    n = 2048
+    tile, stride = 512, 256
+    num_lines = 700
+    s = np.sort(rng.integers(0, n - 300, size=num_lines))
+    e = s + rng.integers(50, 280, size=num_lines)
+    lay1 = lc.build_strided_layout(s, stride, n, chunk=256, e_wide=e,
+                                   tile=tile)
+    lay2 = lc.build_strided_layout(s, stride, n, chunk=256, e_wide=e,
+                                   tile=tile, tail=128)
+    assert lay2.t_start is not None and lay2.t_n.sum() > 0
+    pref_line = (rng.random(num_lines) + 0.5).astype(np.float32)
+
+    def soa_for(lay):
+        c_int = (s + e) / 2.0
+        rows = np.zeros((8, lay.nlines), np.float32)
+        idx, dead = lay.idx, lay.dead
+        rows[0] = c_int[idx]
+        rows[1] = 0.1
+        rows[2] = np.float32(0.02)
+        rows[3] = np.float32(1.5)
+        rows[4] = np.where(dead, 0.0, pref_line[idx])
+        rows[5] = np.where(dead, -1, s[idx])
+        rows[6] = np.where(dead, -2, e[idx])
+        return rows
+
+    lc.reset_launches()
+    out1 = lc.wings_strided_pass(torch.as_tensor(soa_for(lay1)),
+                                 lay1.w_start, lay1.w_n, n, tile, stride,
+                                 chunk=256).numpy()
+    out2 = lc.wings_strided_pass(torch.as_tensor(soa_for(lay2)),
+                                 lay2.w_start, lay2.w_n, n, tile, stride,
+                                 chunk=256, t_start=lay2.t_start,
+                                 t_n=lay2.t_n, tail=128).numpy()
+    assert sum(lc.LAUNCHES.values()) == 0
+    want2 = np.asarray(jlp._pallas_pass_strided(
+        jnp.asarray(soa_for(lay2)), lay2.w_start, lay2.w_n, n, tile, stride,
+        chunk=256, interpret=True, prepacked=True, t_start=lay2.t_start,
+        t_n=lay2.t_n, tail=128))
+    assert out2.shape == want2.shape == (n,)
+    assert rel_err(out2, want2) < 5e-6
+    np.testing.assert_allclose(out1, out2, rtol=2e-6,
+                               atol=abs(out1).max() * 1e-6)
+    assert abs(out1).max() > 0

@@ -139,8 +139,9 @@ def test_pedestal_remover_matches_jax(packs, per_gas_f64):
 
 @pytest.mark.parametrize("remove_pedestal", [False, True])
 def test_gas_engine_matches_jax(packs, per_gas_f64, remove_pedestal):
-    """The port's Gas runs a one-gas stacked call (B=1 per layer, or the
-    whole batch) plus the pedestal remover."""
+    """The port's Gas (the single-layer device plan and the single-gas
+    batched pipeline, each with its pedestal functions) against the
+    per-gas float64 "xla" path."""
     gas = TGas(packs[1]["CO2"], "CO2")
     batch = gas.absorption_coefficient_batch(T, P, VMR[:, 1], GRID,
                                              remove_pedestal=remove_pedestal)

@@ -103,3 +103,35 @@ def test_as_tensors_keeps_types():
     got64 = tlines.as_tensors(arrays, "cpu", torch.float64)
     assert got64["nu"].dtype == torch.float64
     assert got64["q_row"].dtype == torch.int32
+
+
+def test_float32_windows_match_float64_host_physics():
+    """A line whose pressure-shifted center lies within float32 rounding of
+    an integer wavenumber: the JAX package's float32 window placement
+    (floor(center / n_per_v + v0)) moves its window by one wavenumber; the
+    port's split-center bucket keeps every window on the float64 host
+    physics' (models/lines/physics.py kernel_inputs)."""
+    from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
+                                                      line_profile_params)
+    from pylbl_tpu_torch.models.lines import LinePack
+
+    jpack = synthetic_line_pack(num_lines=3000, nu_min=0.5, nu_max=5100.0,
+                                seed=1,
+                                band_centers=(150.0, 1600.0, 3700.0, 500.0))
+    pack = LinePack(formula=jpack.formula,
+                    **{f: getattr(jpack, f) for f in LinePack._ARRAY_FIELDS})
+    grid = np.arange(1.0, 5000.0, 0.1)
+    cond = (288.99, 98388.0, 6.637074e-03)
+    arrays, static = jlines.device_line_pack(jpack, grid)
+    host = kernel_inputs(line_profile_params(
+        pack, *cond, keep=static["num_lines"]), static["v0"],
+        static["n_per_v"], static["cut_off"])
+    got = tlines.line_kernel_arrays(
+        tlines.as_tensors(arrays, "cpu"), static,
+        *(torch.as_tensor([v], dtype=torch.float32) for v in cond))
+    want = jlines.line_kernel_arrays(
+        {k: jnp.asarray(v) for k, v in arrays.items()}, static,
+        *(jnp.asarray(v, jnp.float32) for v in cond))
+    for key in ("s_idx", "e_idx"):
+        np.testing.assert_array_equal(got[key][0].numpy(), host[key])
+        assert int((np.asarray(want[key]) != host[key]).sum()) >= 1

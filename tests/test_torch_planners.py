@@ -200,3 +200,141 @@ def test_layout_builders_identical(stacked):
             jlp.build_core_segments_mixed(core_lo, core_hi, n, tile=tile,
                                           sort_key=y_ref)):
         assert_same(got, want)
+
+
+# --- Single-gas planners: kernel arrays, SoA, segment plans, device plan. ---
+
+MODES = [(None, None), (None, "tile"), (None, "seg"), ("seg", None),
+         ("seg", "seg")]
+
+
+def small_kin(step=0.2):
+    """The small workload of tests/test_lineshape_pallas.py:13-22 (JAX
+    physics, float64)."""
+    from pylbl_tpu.models.lines.physics import (kernel_inputs,
+                                                line_profile_params)
+    pack = jfix.synthetic_line_pack(num_lines=120, nu_min=30.0,
+                                    nu_max=280.0, seed=11,
+                                    band_centers=(150.0,))
+    grid = np.arange(50.0, 250.0, step)
+    v0, vn, npv, n = j_internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, 25)
+    params = line_profile_params(pack, 288.99, 98388.0, 6.637074e-03,
+                                 keep=keep)
+    return kernel_inputs(params, v0, npv, 25), npv, n
+
+
+def test_kernel_array_prep_identical():
+    from pylbl_tpu_torch.ops import lineshape as tls
+
+    kin, npv, _ = small_kin()
+    for dtype in (np.float32, np.float64):
+        got = tls.prepare_kernel_arrays(kin, npv, dtype)
+        want = jls.prepare_kernel_arrays(kin, npv, dtype)
+        assert set(got) == set(want)
+        for key in want:
+            assert_same(got[key], want[key])
+        for multiple in (128, 512):
+            (pg, ng), (pw, nw) = (tls._pad_lines(got, multiple),
+                                  jls._pad_lines(want, multiple))
+            assert ng == nw
+            for key in pw:
+                assert_same(pg[key], np.asarray(pw[key]))
+    assert tls.core_halfwidth(kin, npv, 25) == jls.core_halfwidth(kin, npv,
+                                                                  25)
+    assert_same(tls.core_halfwidths(kin["repwid"], npv, 25),
+                jls.core_halfwidths(kin["repwid"], npv, 25))
+
+
+@pytest.mark.parametrize("chunk", [128, 512])
+def test_pack_lines_soa_identical(chunk):
+    kin, npv, _ = small_kin()
+    arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    batched = {k: np.stack([v, v[::-1]]) for k, v in arrays.items()}
+    for data in (arrays, batched):
+        (got, ng), (want, nw) = (tlc.pack_lines_soa(data, chunk),
+                                 jlp.pack_lines_soa(data, chunk))
+        assert ng == nw
+        assert_same(got, want)
+
+
+@pytest.mark.parametrize("tile,sorted_", [(256, True), (1024, True),
+                                          (512, False)])
+def test_segment_planners_identical(tile, sorted_):
+    kin, npv, n = small_kin()
+    arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    got_w = tlc.core_instance_windows(arrays, kin, n, npv, 25)
+    want_w = jlp.core_instance_windows(arrays, kin, n, npv, 25)
+    for got, want in zip(got_w, want_w):
+        assert_same(got, want)
+    key = arrays["y"] if sorted_ else None
+    got = tlc.build_core_segments(*got_w, n, tile=tile, sort_key=key)
+    want = jlp.build_core_segments(*want_w, n, tile=tile, sort_key=key)
+    for g, w in zip(got, want):
+        assert_same(g, w)
+    inst, seg0, slot = got[0], got[1], got[4][:1].repeat(got[0].size)
+    batched = {k: np.stack([v, v]) for k, v in arrays.items()}
+    for data in (arrays, batched):
+        for sl in (None, slot):
+            assert_same(tlc.gather_segment_params(data, inst, seg0, slot=sl),
+                        jlp.gather_segment_params(data, inst, seg0, xp=np,
+                                                  slot=sl))
+
+
+@pytest.mark.parametrize("mode,kind", [("seg", "core"), ("segmix", "core"),
+                                       ("seg", "wings")])
+def test_core_plan_modes_identical(mode, kind):
+    kin, npv, n = small_kin()
+    arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    if kind == "wings":
+        lo = arrays["s_idx"].astype(np.int64)
+        hi = arrays["e_idx"].astype(np.int64)
+    else:
+        lo, hi = jlp.core_instance_windows(arrays, kin, n, npv, 25)
+    got = tlc.CorePlan(lo, hi, n, 256, sort_key=arrays["y"], mode=mode,
+                       kind=kind)
+    want = jlp.CorePlan(lo, hi, n, 256, sort_key=arrays["y"], mode=mode,
+                        kind=kind)
+    for field in ("inst_line", "seg0", "t_start", "t_chunks", "slot",
+                  "c_slot"):
+        if getattr(want, field, None) is None:
+            assert getattr(got, field) is None
+        else:
+            assert_same(getattr(got, field), getattr(want, field))
+    assert got.num_instances == want.num_instances
+    if kind == "wings":
+        idx = np.maximum(want.inst_line, 0)
+        ka = {k: arrays[k][idx] for k in ("c_int", "c_frac", "scaled_repwid",
+                                          "y", "prefactor", "s_idx",
+                                          "e_idx")}
+        assert_same(got.wings_params(ka), want.wings_params(ka, xp=np))
+    else:
+        assert_same(got.gather(arrays), want.gather(arrays))
+    with pytest.raises(NotImplementedError, match="K9"):
+        tlc.CorePlan(lo, hi, n, 256, mode="rows")
+
+
+@pytest.mark.parametrize("step,tile", [(0.2, 256), (0.2, 1024), (0.02, 256)])
+@pytest.mark.parametrize("core_mode,wings_mode", MODES)
+def test_make_device_plan_host_arrays_identical(step, tile, core_mode,
+                                                wings_mode):
+    """The single-layer plan's host blocks (SoA or seg wings parameters,
+    wings CSR, core parameters) and plans, in each mode."""
+    kin, npv, n = small_kin(step)
+    arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    got = tlc.make_device_plan(arrays, kin, n, npv, 25, tile=tile,
+                               chunk=128, core_mode=core_mode,
+                               wings_mode=wings_mode)
+    want = jlp.make_device_plan(arrays, kin, n, npv, 25, tile=tile,
+                                chunk=128, core_mode=core_mode,
+                                wings_mode=wings_mode, interpret=True)
+    assert got.wings_stride == want.wings_stride
+    assert (got.wings is None) == (want.wings is None)
+    for field in ("soa", "w_start", "w_n", "groups"):
+        assert_same(getattr(got, field).numpy(),
+                    np.asarray(getattr(want, field)))
+    for g, w in ((got.core, want.core), (got.wings, want.wings)):
+        if w is not None:
+            assert g.mode == w.mode and g.kind == w.kind
+            assert_same(g.inst_line, w.inst_line)
+            assert_same(g.t_chunks, w.t_chunks)
