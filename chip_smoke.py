@@ -36,7 +36,17 @@ kernels and the native pedestal scan from this checkout into ``build/``
 11. the A/B formulations of one headline layer: per-stream segment core,
     segment wings, raw-Lorentz splat wings and the scalar per-line core,
     plus the strided wings on a tail-chunk layout; each kernel against its
-    plain version and each spectrum against phase 8's float64 result.
+    plain version and each spectrum against phase 8's float64 result;
+12. the rows core and the ownership-checked strided wings: the headline
+    layer's ``make_device_plan(core_mode="rows")`` with the strided and
+    the tile wings (float64 parity), the rows core with its separate
+    min-y block, the checked strided wings on the layer's straddle CSR
+    (against the prepacked strided pass), phase 10's 16-layer column
+    through ``make_batched_fn(core_mode="rows")`` (float64 parity on
+    layers 0 and 15), the checked wings on two of its layers with one
+    CSR, and the port's ``kernel_microbench`` and ``parity_ab`` tools at
+    the headline size; each new kernel equals its plain version bit for
+    bit.
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -86,6 +96,12 @@ KERNELS = {
     "seg_core": f"{PALLAS}:842 (:880) with _seg_chunk_accumulate :762",
     "seg_wings": f"{PALLAS}:842 (:880) with _seg_chunk_accumulate_lorentz "
                  ":806",
+    "core_rows_single": f"{PALLAS}:456 (_pallas_rows_pass :595)",
+    "core_rows": f"{PALLAS}:505 (_pallas_rows_pass :595)",
+    "core_rows_vmem": f"{PALLAS}:363 (_pallas_rows_pass_vmem :443)",
+    "wings_strided_checked_single": f"{PALLAS}:2260 (_pallas_pass_strided "
+                                    ":2469)",
+    "wings_strided_checked": f"{PALLAS}:2321 (_pallas_pass_strided :2469)",
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
@@ -521,6 +537,175 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
         counts["wings_strided_tail_single"]
 
 
+def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
+               col, records):
+    """Phase 12: the rows core (K9) and the ownership-checked strided wings
+    (K6) on the headline layer and phase 10's column."""
+    from pylbl_tpu_torch.models.lines import internal_grid
+    from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
+                                                      line_profile_params)
+    from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
+    from pylbl_tpu_torch.parallel.lines import make_batched_fn
+    from pylbl_tpu_torch.tools import kernel_microbench, parity_ab
+
+    def exact(name, run, run_plain, reps=10):
+        got = compare_kernel(torch, name, run, run_plain, records[name], reps)
+        check(records[name]["max_rel_err"] == 0,
+              f"{name} equals its plain version bit for bit")
+        return got
+
+    # The headline layer's rows device plans (strided and tile wings).
+    rows_plans = {}
+    for label, kwargs, wings in (("strided wings", {}, "wings_strided_single"),
+                                 ("wings_mode='tile'", {"wings_mode": "tile"},
+                                  "tile_lorentz")):
+        alt = lc.make_device_plan(arrays, kin, n, npv, CUT_OFF, device="cuda",
+                                  core_mode="rows", **kwargs)
+        lc.reset_launches()
+        out = alt()
+        torch.cuda.synchronize()
+        counts = dict(lc.LAUNCHES)
+        print(f"phase 12 core_mode='rows', {label}: {alt.core.num_instances} "
+              f"instance slots, launches {counts}")
+        check(counts["core_rows_single"] > 0 and counts[wings] > 0,
+              f"rows plan ({label}) launched core_rows_single and {wings}")
+        check(torch.equal(alt(), out), f"rows plan ({label}) repeat is "
+              "bit-identical")
+        spectrum_parity(torch, f"phase 12 rows, {label}",
+                        out.cpu().numpy().astype(np.float64), k64)
+        if not rows_plans:
+            exact("core_rows_single", alt.core_pass,
+                  lambda: alt.core_pass(plain=True))
+            records["core_rows_single"]["launches"] = \
+                counts["core_rows_single"]
+        rows_plans[label] = alt
+    alt = rows_plans["strided wings"]
+
+    # The rows core with the separate min-y block: its plain version and
+    # the rows kernel itself.
+    groups = alt.groups
+    ymin = lc.group_min_y(groups)
+    g_start, g_n = (torch.as_tensor(a, device="cuda")
+                    for a in (alt.core.g_start, alt.core.g_n))
+
+    def vmem(plain=False):
+        if plain:
+            return lc.rows_plain(groups, g_start, g_n, n, 1024, ymin=ymin)
+        return lc.rows_vmem_pass(groups, ymin, g_start, g_n, n, 1024)
+
+    got = exact("core_rows_vmem", vmem, lambda: vmem(True))
+    check(torch.equal(got, alt.core_pass()), "core_rows_vmem equals the "
+          "rows kernel bit for bit")
+
+    # The checked strided wings on the headline layer's straddle CSR.
+    stride = plan.wings_stride
+    soa, num = lc.pack_lines_soa(arrays, 512)
+    assign = np.clip(arrays["s_idx"].astype(np.int64), 0, None) // stride
+    soa[lc._PAD, :num] = assign.astype(np.float32)
+    soa[lc._PAD, num:] = -1.0
+    st, nc = (torch.as_tensor(a, device="cuda") for a in
+              lc.strided_line_ranges(assign, (n - 1) // stride + 1))
+    soa = torch.as_tensor(soa, device="cuda")
+
+    def checked(plain=False):
+        fn = lc.wings_strided_checked_plain if plain \
+            else lc.wings_strided_checked_pass
+        return fn(soa, st, nc, n, 1024, stride)
+
+    got = exact("wings_strided_checked_single", checked,
+                lambda: checked(True))
+    ref = plan.wings_pass()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    print(f"phase 12 checked strided wings ({int(nc.sum())} chunk visits "
+          f"on the straddle CSR, {int(plan.w_n.sum())} on the private "
+          f"layout) vs the prepacked strided pass: max |diff| / max "
+          f"{rel:.3e}")
+    check(rel <= 1e-6, "checked strided wings within 1e-6 of the prepacked "
+          "strided pass")
+
+    # Phase 10's column through the batched pipeline with the rows core.
+    t = np.asarray(col["t"].data)
+    p = np.asarray(col["p"].data)
+    x = np.asarray(col["h2o"].data)
+    fn = make_batched_fn(gas.pack, grid, core_mode="rows", device="cuda")
+    lc.reset_launches()
+    kb, wall, dev = timed_call(torch, lambda: fn(t, p, x))
+    counts = dict(lc.LAUNCHES)
+    print(f"phase 12 make_batched_fn(core_mode='rows'), {t.size} layers: "
+          f"wall {wall:.3f} s (CUDA events {dev:.4f} s), "
+          f"{fn.core_plan.num_instances} instance slots; launches {counts}")
+    check(counts["core_rows"] > 0 and counts["wings_strided"] > 0,
+          "rows batch launched core_rows and the strided wings")
+    check(torch.equal(fn(t, p, x), kb), "rows batch repeat is bit-identical")
+    two = [0, t.size - 1]
+    spectrum_parity(torch, "phase 12 rows batch (layers 0 and 15)",
+                    kb[two].cpu().numpy().astype(np.float64),
+                    gas64.absorption_coefficient_batch(t[two], p[two],
+                                                       x[two], grid))
+    tt, pp, xx = (torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                  for a in (t, p, x))
+    _, core = fn.stage.assemble(tt, pp, xx)
+    exact("core_rows", lambda: fn.core_pass(core),
+          lambda: fn.core_pass(core, plain=True))
+    records["core_rows"]["launches"] = counts["core_rows"]
+
+    # The checked wings on two of the column's layers with one CSR, at the
+    # batched pipeline's stride (its windows, widened by a wavenumber of
+    # pressure shift, fit the tiles).
+    keep = kin["s_idx"].shape[-1]
+    stride = fn.wings_stride
+    check(stride is not None, "the rows batch takes the strided wings")
+    kin2 = kernel_inputs(line_profile_params(gas.pack, t[two], p[two],
+                                             x[two], keep=keep),
+                         internal_grid(grid)[0], npv, CUT_OFF)
+    arrays2 = prepare_kernel_arrays(kin2, npv, np.float32)
+    soa2, num = lc.pack_lines_soa(arrays2, 512)
+    assign = np.clip(arrays2["s_idx"].astype(np.int64).min(axis=0), 0,
+                     None) // stride
+    soa2[:, lc._PAD, :num] = assign.astype(np.float32)
+    soa2[:, lc._PAD, num:] = -1.0
+    st2, nc2 = (torch.as_tensor(a, device="cuda") for a in
+                lc.strided_line_ranges(assign, (n - 1) // stride + 1))
+    soa2 = torch.as_tensor(soa2, device="cuda")
+
+    def checked2(plain=False):
+        fn2 = lc.wings_strided_checked_plain if plain \
+            else lc.wings_strided_checked_pass
+        return fn2(soa2, st2, nc2, n, 1024, stride)
+
+    lc.reset_launches()
+    wings2 = checked2()
+    torch.cuda.synchronize()
+    records["wings_strided_checked"]["launches"] = \
+        lc.LAUNCHES["wings_strided_checked"]
+    exact("wings_strided_checked", checked2, lambda: checked2(True))
+    for b in range(2):
+        one = lc.wings_strided_checked_pass(soa2[b], st2, nc2, n, 1024,
+                                            stride)
+        check(torch.equal(one, wings2[b]), f"batched checked wings layer {b} "
+              "equals its single-layer launch")
+    spectrum_parity(torch, "phase 12 batched checked wings + rows core "
+                    "(layers 0 and 15)",
+                    (wings2 + fn.core_pass(core)[two]).cpu().numpy()
+                    .astype(np.float64),
+                    gas64.absorption_coefficient_batch(t[two], p[two],
+                                                       x[two], grid))
+
+    # The port's tools at the headline size.
+    work = {"pack": gas.pack, "grid": grid, "kin": kin, "arrays": arrays,
+            "npv": npv, "n": n, "keep": keep}
+    lc.reset_launches()
+    kernel_microbench.run(reps=5, work=work)
+    counts = dict(lc.LAUNCHES)
+    print(f"kernel_microbench launches {counts}")
+    for name in ("core_rows_vmem", "wings_strided_checked_single"):
+        check(counts[name] > 0, f"kernel_microbench launched {name}")
+        records[name]["launches"] = counts[name]
+    for core_mode, wings_mode, _, rel, _ in parity_ab.run(work=work):
+        check(rel < PARITY_TOL, f"parity_ab core={core_mode} "
+              f"wings={wings_mode} within {PARITY_TOL} of float64")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -664,6 +849,8 @@ def main():
         torch, P, lc, fixtures, records, card)
     phase_gas_batch(torch, lc, gas, gas64, grid_h, col_a)
     phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records)
+    phase_rows(torch, lc, gas, gas64, grid_h, kin, arrays, npv, n, plan, k64,
+               col_a, records)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and "max_rel_err" in record,
               f"{name} launched on its path and compared with its plain "

@@ -18,6 +18,10 @@
 //   (x^2 + y^2) from the raw rows) and CORR (_correction_line: the per-line
 //   Humlicek correction, class picked from the line's own y, lines with
 //   y >= 70.55 skipped) serve _tile_kernel(_batched) with stride == tile.
+//   OWN is RAW with the line's strength zeroed unless its _PAD row equals
+//   the tile index as float32: the ownership-checked strided wings over a
+//   straddle CSR, where neighbouring tiles read shared chunks (replaces
+//   _tile_kernel_strided(_batched)); a zeroed foreign line adds +0.0.
 //   A single layer is a batch of one.  One block per (tile, layer); 256
 //   threads each own tile/256 output points; each chunk of the 8-row SoA is
 //   staged in shared memory and its lines are walked in order into a
@@ -52,6 +56,19 @@
 //   one-hot matrix product: no tensor cores (TF32 would round the values),
 //   no atomics (runs are bit-identical).  Bound by the Humlicek math.
 //
+// pylbl_rows: the rows core (replaces _rows_kernel, _rows_kernel_batched
+//   and, with a separate [B, 1, G] min-y block, _rows_kernel_vmem).  A
+//   group is 8 instances, one per row of the tile (row r holds points
+//   r*tile/8 .. (r+1)*tile/8 - 1); its parameters are 64 rows, field f of
+//   instance r in row f*8+r, the group's min y in row 56.  One block of 8
+//   warps per (tile, layer): warp r owns row r, lane l its points
+//   l, l+32, ...  Each chunk of 128 groups x 57 rows (29 KB) is staged in
+//   shared memory; per group the class is picked once from the min y
+//   (block-uniform branch; skip at >= 70.55) and instance r's fields reach
+//   warp r as shared-memory broadcasts.  Every point keeps ONE running
+//   accumulator through all groups in order, as _rows_kernel does (no
+//   per-chunk partials).  Bound by the Humlicek math over whole rows.
+//
 // Each entry returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -69,13 +86,18 @@ constexpr int kMaxTile = 1024;
 // SoA rows (lineshape_pallas.py C_INT..E_IDX; Y holds y^2 and PREF holds
 // pref*y/sqrt(pi) in the prepacked layout).
 constexpr int kCInt = 0, kCFrac = 1, kSrw = 2, kY = 3, kPref = 4,
-              kSIdx = 5, kEIdx = 6;
+              kSIdx = 5, kEIdx = 6, kPad = 7;
 // Core parameter rows (SR_SEG0REL..SR_SLOT).
 constexpr int kSeg0Rel = 0, kCoreCFrac = 1, kCoreSrw = 2, kCoreY = 3,
               kCorePref = 4, kSRel = 5, kERel = 6, kSlot = 7;
 
 // Tile-kernel line functions (pylbl_wings' line_fn argument).
-constexpr int kLinePre = 0, kLineRaw = 1, kLineCorr = 2;
+constexpr int kLinePre = 0, kLineRaw = 1, kLineCorr = 2, kLineOwn = 3;
+// Rows core: threads per block (8 warps, one per row), groups per chunk,
+// and the min-y row of a group block.
+constexpr int kRowsThreads = 256;
+constexpr int kRowsChunk = 128;
+constexpr int kYminRow = 56;
 // Segment-pass kinds (pylbl_seg's kind argument).
 constexpr int kSegCore = 0, kSegWings = 1;
 
@@ -275,9 +297,12 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
              long long csr_b, float* __restrict__ out, int num_tiles,
              int tile, int stride, int chunk, int tail)
 {
-    __shared__ float buf[7][kMaxChunk];
+    // OWN also stages the _PAD row (each line's assigned tile).
+    constexpr int kStaged = LINE == kLineOwn ? 8 : 7;
+    __shared__ float buf[kStaged][kMaxChunk];
     const int t = blockIdx.x;
     const int b = blockIdx.y;
+    const float tile_f = (float)t;
     const float* lines = soa + b * soa_b;
     const long long csr = b * csr_b + t;
 
@@ -302,7 +327,8 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
         for (int k = 0; k < count; ++k) {
             const long long line0 = (long long)base + (long long)k * width;
             __syncthreads();
-            for (int i = threadIdx.x; i < 7 * width; i += kWingsThreads) {
+            for (int i = threadIdx.x; i < kStaged * width;
+                 i += kWingsThreads) {
                 const int r = i / width;
                 const int l = i - r * width;
                 buf[r][l] = lines[r * soa_r + line0 + l];
@@ -329,10 +355,17 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
                         part[j] = part[j] + (in ? pref * val : 0.0f);
                     }
                 } else {
-                    // PRE rows carry pref*y/sqrt(pi) and y^2 already.
-                    const float pref_y = LINE == kLineRaw
-                        ? (pref * y) * F(kRsqrpi) : pref;
-                    const float ysq = LINE == kLineRaw ? y * y : y;
+                    // PRE rows carry pref*y/sqrt(pi) and y^2 already; OWN
+                    // is RAW with a foreign line's strength zeroed.
+                    constexpr bool raw = LINE == kLineRaw
+                                         || LINE == kLineOwn;
+                    float strength = pref;
+                    if constexpr (LINE == kLineOwn) {
+                        strength = buf[kPad][l] == tile_f ? pref : 0.0f;
+                    }
+                    const float pref_y = raw
+                        ? (strength * y) * F(kRsqrpi) : pref;
+                    const float ysq = raw ? y * y : y;
 #pragma unroll
                     for (int j = 0; j < PPT; ++j) {
                         const float x = ((point[j] - c_int) - c_frac) * srw;
@@ -536,6 +569,102 @@ seg_kernel(const float* __restrict__ params, long long p_b, long long p_r,
     for (int c = tid; c < tile; c += kCoreThreads) o[c] = acc[c];
 }
 
+// _rows_body: instance r of group g applied to row r's points (warp r).
+template <int CLASS, int PPL>
+__device__ __forceinline__ void rows_group(const float (*grp)[kRowsChunk],
+                                           int g, int r, const float* point,
+                                           float* acc)
+{
+    const float c_int = grp[0 * 8 + r][g];
+    const float c_frac = grp[1 * 8 + r][g];
+    const float srw = grp[2 * 8 + r][g];
+    const float y = grp[3 * 8 + r][g];
+    const float pref = grp[4 * 8 + r][g];
+    const float s = grp[5 * 8 + r][g];
+    const float e = grp[6 * 8 + r][g];
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+        const float x = ((point[j] - c_int) - c_frac) * srw;
+        const float val = correction<CLASS>(x, y);
+        const bool in = (point[j] >= s) && (point[j] <= e);
+        acc[j] = acc[j] + (in ? pref * val : 0.0f);
+    }
+}
+
+// PPL = points per lane = tile / 256 (the row is 32 * PPL points wide).
+// SEP_YMIN: the class comes from the separate min-y block, not row 56.
+template <int PPL, bool SEP_YMIN>
+__global__ void __launch_bounds__(kRowsThreads)
+rows_kernel(const float* __restrict__ groups, long long g_b, long long g_r,
+            const float* __restrict__ ymin, long long y_b,
+            const int* __restrict__ g_start, const int* __restrict__ g_n,
+            float* __restrict__ out, int num_tiles, int tile)
+{
+    __shared__ float grp[kYminRow + 1][kRowsChunk];
+    const int t = blockIdx.x;
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int r = tid >> 5;
+    const int lane = tid & 31;
+    const int row_w = 32 * PPL;
+    const float* gp = groups + b * g_b;
+
+    float point[PPL], acc[PPL];
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+        point[j] = (float)(t * tile + r * row_w + lane + 32 * j);
+        acc[j] = 0.0f;
+    }
+    const int first = g_start[t];
+    const int count = g_n[t];
+    for (int k = 0; k < count; ++k) {
+        const long long col0 = (long long)first + (long long)k * kRowsChunk;
+        __syncthreads();
+        for (int i = tid; i < kYminRow * kRowsChunk; i += kRowsThreads) {
+            const int row = i / kRowsChunk;
+            const int c = i - row * kRowsChunk;
+            grp[row][c] = gp[row * g_r + col0 + c];
+        }
+        if (tid < kRowsChunk) {
+            grp[kYminRow][tid] = SEP_YMIN
+                ? ymin[b * y_b + col0 + tid]
+                : gp[kYminRow * g_r + col0 + tid];
+        }
+        __syncthreads();
+        for (int g = 0; g < kRowsChunk; ++g) {
+            const float ym = grp[kYminRow][g];
+            if (ym >= F(70.55)) continue;   // all-dead / pure-Lorentz group
+            if (ym >= F(8.425)) {
+                rows_group<1, PPL>(grp, g, r, point, acc);
+            } else if (ym >= F(6.8)) {
+                rows_group<2, PPL>(grp, g, r, point, acc);
+            } else if (ym >= F(2.0)) {
+                rows_group<3, PPL>(grp, g, r, point, acc);
+            } else {
+                rows_group<4, PPL>(grp, g, r, point, acc);
+            }
+        }
+    }
+    float* o = out + ((long long)b * num_tiles + t) * tile + r * row_w + lane;
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) o[32 * j] = acc[j];
+}
+
+template <int PPL>
+void launch_rows(dim3 grid, cudaStream_t s, const float* groups,
+                 long long g_b, long long g_r, const float* ymin,
+                 long long y_b, const int* g_start, const int* g_n,
+                 float* out, int num_tiles, int tile)
+{
+    if (ymin != nullptr) {
+        rows_kernel<PPL, true><<<grid, kRowsThreads, 0, s>>>(
+            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile);
+    } else {
+        rows_kernel<PPL, false><<<grid, kRowsThreads, 0, s>>>(
+            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile);
+    }
+}
+
 template <int LINE>
 int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
                  long long soa_b, long long soa_r, const int* w_start,
@@ -599,6 +728,12 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
                                           out, num_tiles, tile, stride,
                                           chunk, tail);
             break;
+        case kLineOwn:
+            err = launch_wings<kLineOwn>(grid, s, ppt, soa, soa_b, soa_r,
+                                         w_start, w_n, t_start, t_n, csr_b,
+                                         out, num_tiles, tile, stride, chunk,
+                                         tail);
+            break;
         default:
             err = (int)cudaErrorInvalidValue;
         }
@@ -643,6 +778,36 @@ int pylbl_seg(const float* params, long long p_b, long long p_r,
             seg_kernel<kSegWings><<<grid, kCoreThreads, 0, s>>>(
                 params, p_b, p_r, tile_start, tile_chunks, chunk_slot, out,
                 num_tiles, tile);
+        }
+    }
+    return (int)cudaGetLastError();
+}
+
+int pylbl_rows(const float* groups, long long g_b, long long g_r,
+               const float* ymin, long long y_b, const int* g_start,
+               const int* g_n, float* out, int num_layers, int num_tiles,
+               int tile, int chunk, void* stream)
+{
+    if (chunk != kRowsChunk)
+        return (int)cudaErrorInvalidValue;
+    if (num_tiles > 0 && num_layers > 0) {
+        const dim3 grid(num_tiles, num_layers);
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        switch (tile) {
+        case 256:
+            launch_rows<1>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
+                           g_n, out, num_tiles, tile);
+            break;
+        case 512:
+            launch_rows<2>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
+                           g_n, out, num_tiles, tile);
+            break;
+        case 1024:
+            launch_rows<4>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
+                           g_n, out, num_tiles, tile);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
         }
     }
     return (int)cudaGetLastError();

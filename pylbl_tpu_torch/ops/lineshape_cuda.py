@@ -4,20 +4,26 @@ Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
 
 1. **Host planners**, copied from the JAX package as numpy (the port cannot
    import it): the SoA packer (:func:`pack_lines_soa`), per-tile line CSRs
-   (:func:`tile_line_ranges`), the overlapped-tile strided wings layout
+   (:func:`tile_line_ranges`, and :func:`strided_line_ranges` over a
+   near-sorted tile assignment), the overlapped-tile strided wings layout
    (:func:`plan_strided_stage` and its helpers), the exact per-layer core
-   windows (:func:`core_instance_windows`) and the segment-32 core plans
-   (:class:`CorePlan` in its "segmix" and "seg" modes,
+   windows (:func:`core_instance_windows`) and the core plans
+   (:class:`CorePlan` in its "segmix", "seg" and "rows" modes,
    :func:`build_core_segments_mixed`, :func:`build_core_segments`,
-   :func:`gather_segment_params`).  Tests hold them byte-identical to the
+   :func:`gather_segment_params`, :func:`build_core_groups`,
+   :func:`gather_group_params`).  Tests hold them byte-identical to the
    JAX planners.
 2. **Kernel wrappers.**  :func:`wings_strided_pass` (strided prepacked
-   wings, with or without the tail chunk class), :func:`tile_pass` (the
-   tile kernel at stride = tile with the prepacked, raw-Lorentz or
-   per-line-correction line function), :func:`core_segmix_pass` (the
-   mixed-slot Humlicek core) and :func:`seg_pass` (the per-stream
-   segment-32 pass, core or wings).  Each takes a layer batch [B, 8, N] or
-   a single layer [8, N] (a batch of one).  On CUDA tensors each launches
+   wings, with or without the tail chunk class),
+   :func:`wings_strided_checked_pass` (strided wings over a straddle CSR
+   with the per-line ownership check), :func:`tile_pass` (the tile kernel
+   at stride = tile with the prepacked, raw-Lorentz or per-line-correction
+   line function), :func:`core_segmix_pass` (the mixed-slot Humlicek
+   core), :func:`seg_pass` (the per-stream segment-32 pass, core or
+   wings), :func:`rows_pass` (the rows core) and :func:`rows_vmem_pass`
+   (the rows core with a separate group-min-y block).  Each takes a layer
+   batch [B, 8, N] (rows: [B, 64, G]) or a single layer [8, N] ([64, G]),
+   a batch of one.  On CUDA tensors each launches
    its hand-written kernel from ``csrc/lineshape.cu`` (built on first use,
    runtime/build.py) and adds one to its entry in :data:`LAUNCHES`; on CPU
    tensors it runs the plain version.  There is no fallback between the
@@ -34,8 +40,9 @@ Kernel source notes (flags: ``-O3 -std=c++17 -gencode
 arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
 
 - Tile kernel (replaces ``_tile_kernel_strided_pre(_tail)(_batched)``
-  lineshape_pallas.py:2148-2257, and ``_tile_kernel(_batched)`` :1528/:1662
-  with ``_lorentz_line_pre`` :2088, ``_lorentz_line`` :110 or
+  lineshape_pallas.py:2148-2257, ``_tile_kernel_strided(_batched)``
+  :2260/:2321, and ``_tile_kernel(_batched)`` :1528/:1662 with
+  ``_lorentz_line_pre`` :2088, ``_lorentz_line`` :110 or
   ``_correction_line`` :119).  One block per (tile, layer); 256 threads own
   the tile's points, chunks of the 8-row SoA are staged in shared memory
   and walked line by line in order.  Bound: one IEEE f32 divide per
@@ -57,6 +64,14 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   :806).  As the mixed-slot core, but a chunk carries one slot, so each
   warp sums its 32 instances into a register and the four warp sums land
   on the chunk's segment; natural point order, no transposed accumulator.
+- Rows core (replaces ``_rows_kernel(_batched)`` :456/:505 and
+  ``_rows_kernel_vmem`` :363).  One block of 8 warps per (tile, layer);
+  warp r owns row r of the tile (tile/8 points), a chunk of 128 groups of
+  57 parameter rows is staged in shared memory, and each group's class is
+  picked from its min-y row (block-uniform branch); instance r's fields
+  are a shared-memory broadcast to warp r.  One running accumulator per
+  point through every group in order (no chunk partials).  Bound: the
+  Humlicek rationals over a full row per instance.
 - ``-fmad=false`` keeps ``a*b + c`` as two rounded operations, so the
   kernels compute the same values, in the same order, as the plain
   versions and the JAX reference's separate multiply and add.
@@ -84,9 +99,17 @@ SEG = 32                  # aligned segment width in points.
 SEGP_ROWS = 8             # param rows per instance.
 (SR_SEG0REL, SR_CFRAC, SR_SRW, SR_Y, SR_PREF, SR_SREL,
  SR_EREL, SR_SLOT) = range(8)
+# Rows-core group block (lineshape_pallas.py:166-171): 7 fields x 8 row
+# slots, then the group's min y, then 7 zero rows.
+ROW = 128                 # points per row at the default tile.
+N_FIELDS = 7              # c_int, c_frac, srw, y, pref, s, e.
+Y_FIELD = 3               # index of y in the group-params field order.
+GROUP_ROWS = 64
+YMIN_ROW = 56
 
 # Production core-pass formulation (lineshape_pallas.py CORE_MODE); "seg"
-# is the per-stream A/B mode, "rows" (ROADMAP Queue 2 K9) is not ported.
+# (per-stream segments) and "rows" (8 instances per group, one per row)
+# are the A/B modes.
 CORE_MODE = "segmix"
 
 # Core-correction classes by min y (lineshape_pallas.py:1102-1110).
@@ -97,12 +120,15 @@ _CORE_SKIP_Y = 70.55
 # Launches of each CUDA kernel wrapper since the last reset_launches():
 # the strided wings, splat wings and mixed-slot core on layer batches,
 # the strided wings and mixed-slot core on single layers ([8, N] inputs),
-# and the tile kernel's raw-Lorentz and correction line functions and the
-# segment passes.
+# the tile kernel's raw-Lorentz and correction line functions, the
+# segment passes, the rows core (batched, single, separate min-y block)
+# and the ownership-checked strided wings (batched, single).
 LAUNCHES = {"wings_strided": 0, "wings_splat": 0, "core_segmix": 0,
             "wings_strided_single": 0, "wings_strided_tail_single": 0,
             "core_segmix_single": 0, "tile_lorentz": 0,
-            "tile_correction": 0, "seg_core": 0, "seg_wings": 0}
+            "tile_correction": 0, "seg_core": 0, "seg_wings": 0,
+            "core_rows": 0, "core_rows_single": 0, "core_rows_vmem": 0,
+            "wings_strided_checked": 0, "wings_strided_checked_single": 0}
 
 
 def reset_launches():
@@ -373,8 +399,123 @@ def core_instance_windows(kernel_arrays, kin, num_points, n_per_v, cut_off):
     return cs, ce
 
 
+def build_core_groups(core_start, core_end, num_points, tile=DEFAULT_TILE,
+                      chunk=ROWS_CHUNK, sort_key=None):
+    """Packs per-line core windows into per-tile groups of 8 row instances.
+
+    Each line becomes one instance per ``tile // 8``-point row its core
+    window touches; instances are packed per tile into groups of 8, one
+    per row slot (rows with fewer instances pad with dead slots), ordered
+    by descending ``sort_key`` within each (tile, row) stream when given
+    (nu order otherwise).
+
+    Returns:
+        (inst_line [8, G_total] int64 with -1 for dead slots,
+         group_start [T] int32, group_chunks [T] int32); G_total is
+        chunk-aligned per tile.
+    """
+    row_width = tile // 8
+    cs = np.clip(core_start, 0, num_points - 1)
+    ce = np.clip(core_end, 0, num_points - 1)
+    valid = (np.asarray(core_end) >= np.asarray(core_start)) \
+        & (np.asarray(core_end) >= 0) & (np.asarray(core_start) < num_points)
+    r0 = cs // row_width
+    r1 = ce // row_width
+    counts = np.where(valid, r1 - r0 + 1, 0).astype(np.int64)
+    num_tiles = -(-num_points // tile)
+
+    inst_of = np.repeat(np.arange(counts.size, dtype=np.int64), counts)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    off = np.arange(inst_of.size, dtype=np.int64) - np.repeat(starts, counts)
+    rows = r0[inst_of] + off
+
+    if sort_key is not None:
+        key = -np.asarray(sort_key, np.float64)[inst_of]   # descending y
+        order = np.lexsort((key, rows))
+    else:
+        order = np.argsort(rows, kind="stable")
+    rows_s = rows[order]
+    lines_s = inst_of[order]
+
+    rows_total = num_tiles * 8
+    row_counts = np.bincount(rows_s, minlength=rows_total)
+    per_tile = row_counts.reshape(num_tiles, 8)
+    groups_t = per_tile.max(axis=1)
+    padded_t = -(-groups_t // chunk) * chunk
+    col_start = np.concatenate(([0], np.cumsum(padded_t)[:-1]))
+    total = int(padded_t.sum())
+
+    inst_line = np.full((8, max(total, chunk)), -1, dtype=np.int64)
+    if rows_s.size:
+        row_first = np.concatenate(([0], np.cumsum(row_counts)[:-1]))
+        pos = np.arange(rows_s.size, dtype=np.int64) - row_first[rows_s]
+        inst_line[rows_s % 8, col_start[rows_s // 8] + pos] = lines_s
+    return (inst_line, col_start.astype(np.int32),
+            (padded_t // chunk).astype(np.int32))
+
+
+# Group-block fields in row order, with their dead-slot fills: an empty
+# window, zero strength, and y above the pure-Lorentz threshold (a dead
+# slot never drags a group's min y below a cheap class).
+_GROUP_FIELDS = (("c_int", 0.0), ("c_frac", 0.0), ("scaled_repwid", 1.0),
+                 ("y", 100.0), ("prefactor", 0.0), ("s_idx", -1.0),
+                 ("e_idx", -2.0))
+
+
+def gather_group_params(kernel_arrays, inst_line, dtype=np.float32):
+    """Builds the ([B,] 64, G) group-parameter block on the host.
+
+    Row f*8 + r holds field f of the instance in row slot r (f < 7); row
+    56 holds the group's min y (dead-slot fills included); rows 57-63 are
+    zero.  One row gather of a stacked [..., N, 8] matrix.  C-contiguous.
+    """
+    mat = np.stack(
+        [kernel_arrays[name].astype(dtype) for name, _ in _GROUP_FIELDS]
+        + [np.zeros_like(kernel_arrays["y"], dtype=dtype)],
+        axis=-1)                                     # [..., N, 8]
+    slots, num_groups = inst_line.shape
+    idx = np.maximum(inst_line, 0).reshape(-1)
+    taken = mat[..., idx, :].reshape(
+        mat.shape[:-2] + (slots, num_groups, 8))     # [..., 8, G, 8]
+    fills = np.asarray([fill for _, fill in _GROUP_FIELDS] + [0.0], dtype)
+    taken = np.where((inst_line < 0)[..., None], fills, taken)
+    blocks = np.moveaxis(taken, -1, -3)              # [..., field, slot, G]
+    blocks = blocks.reshape(mat.shape[:-2]
+                            + (GROUP_ROWS, num_groups))[..., :YMIN_ROW, :]
+    ymin = np.min(blocks[..., Y_FIELD * 8:(Y_FIELD + 1) * 8, :], axis=-2,
+                  keepdims=True)
+    pad = np.zeros(ymin.shape[:-2] + (GROUP_ROWS - YMIN_ROW - 1,)
+                   + ymin.shape[-1:], dtype)
+    return np.ascontiguousarray(np.concatenate([blocks, ymin, pad], axis=-2))
+
+
+def group_min_y(groups):
+    """Per-group minimum y (row YMIN_ROW of the group block), ([B,] 1, G),
+    a view."""
+    return groups[..., YMIN_ROW:YMIN_ROW + 1, :]
+
+
+def strided_line_ranges(assign, num_tiles, chunk=STRIDED_CHUNK):
+    """Per-tile contiguous chunk ranges over a near-sorted tile assignment
+    (the straddle CSR of the ownership-checked strided wings): running
+    min/max envelopes give a contiguous superset range per tile, aligned
+    down to the chunk, so neighbouring tiles read shared chunks and the
+    kernel's ownership check drops the foreign lines."""
+    if assign.size == 0:
+        z = np.zeros(num_tiles, np.int32)
+        return z, z
+    amax = np.maximum.accumulate(assign)
+    amin = np.minimum.accumulate(assign[::-1])[::-1]
+    tiles = np.arange(num_tiles, dtype=np.int64)
+    lo = np.searchsorted(amax, tiles, side="left")
+    hi = np.searchsorted(amin, tiles, side="right")
+    lo_aligned = (lo // chunk) * chunk
+    nchunks = np.maximum(-(-(hi - lo_aligned) // chunk), 0)
+    return lo_aligned.astype(np.int32), nchunks.astype(np.int32)
+
+
 class CorePlan:
-    """Host-built plan for a segment-32 pass (counterpart of the JAX
+    """Host-built plan for a core pass (counterpart of the JAX
     ``CorePlan``)::
 
         plan = CorePlan(cs, ce, num_points, tile, sort_key=y)
@@ -383,9 +524,11 @@ class CorePlan:
         params = plan.seg_params(line_kernel_arrays(inst, ...))
         out = plan.core_pass(params)
 
-    ``mode``: "segmix" (per-tile mixed-slot streams, the production core)
-    or "seg" (per-(tile, slot) streams); "rows" is not ported.  ``kind``:
-    "core" (Humlicek correction) or "wings" (Lorentzian; seg mode only,
+    ``mode``: "segmix" (per-tile mixed-slot streams, the production core),
+    "seg" (per-(tile, slot) streams) or "rows" (per-tile groups of 8 row
+    instances; parameters from :meth:`gather` on the host or
+    :meth:`group_params` from per-line tensors).  ``kind``: "core"
+    (Humlicek correction) or "wings" (Lorentzian; seg mode only,
     parameters from :meth:`wings_params`).
     """
 
@@ -413,9 +556,11 @@ class CorePlan:
                 chunk=chunk, sort_key=sort_key)
             self.c_slot = None
         elif self.mode == "rows":
-            raise NotImplementedError(
-                "core_mode='rows' (the rows core, ROADMAP Queue 2 K9) is "
-                "not ported")
+            self.inst_line, self.g_start, self.g_n = build_core_groups(
+                core_start, core_end, num_points, tile, chunk,
+                sort_key=sort_key)
+            self.slot = self.seg0 = self.t_start = self.t_chunks = \
+                self.c_slot = None
         else:
             raise ValueError(f"unknown core mode {self.mode!r}")
         self._dev = {}
@@ -432,38 +577,76 @@ class CorePlan:
         return self.slot.astype(np.float32)
 
     def _device_consts(self, device):
-        """Instance index, seg0, dead mask, slot row and the chunk CSRs as
-        tensors on ``device``, built once per device."""
+        """Instance index, dead mask and the chunk CSRs (segment modes:
+        also seg0 and the slot row) as tensors on ``device``, built once
+        per device."""
         key = str(device)
         consts = self._dev.get(key)
         if consts is None:
             def dev(a):
                 return None if a is None else torch.as_tensor(a,
                                                                device=device)
-            consts = {"idx": dev(np.maximum(self.inst_line, 0)),
-                      "seg0f": dev(self.seg0.astype(np.float32)),
-                      "dead": dev(self.inst_line < 0),
-                      "slotf": dev(self._slotf),
-                      "t_start": dev(self.t_start),
-                      "t_chunks": dev(self.t_chunks),
-                      "c_slot": dev(self.c_slot)}
+            consts = {"idx": dev(np.maximum(self.inst_line, 0).reshape(-1)),
+                      "dead": dev(self.inst_line < 0)}
+            if self.mode == "rows":
+                consts.update(g_start=dev(self.g_start), g_n=dev(self.g_n))
+            else:
+                consts.update(seg0f=dev(self.seg0.astype(np.float32)),
+                              slotf=dev(self._slotf),
+                              t_start=dev(self.t_start),
+                              t_chunks=dev(self.t_chunks),
+                              c_slot=dev(self.c_slot))
             self._dev[key] = consts
         return consts
+
+    def _require_seg(self, what):
+        if self.mode not in ("seg", "segmix"):
+            raise ValueError(f"{what} requires seg or segmix mode")
 
     def expand_line_arrays(self, arrays):
         """Instance-order copy of per-line tensors (``q_table`` passes
         through), gathered once at build time so each layer's core
         parameters come from running the elementwise line physics directly
         in instance space.  Dead lanes point at line 0 and are overwritten
-        by :meth:`seg_params`' fills."""
+        by :meth:`seg_params`' fills.  Segment modes only (the rows block
+        is gathered per layer by :meth:`group_params`)."""
+        self._require_seg("expand_line_arrays")
         idx = self._device_consts(arrays["nu"].device)["idx"]
         return {k: (v if k == "q_table" else v.index_select(0, idx))
                 for k, v in arrays.items()}
+
+    def group_params(self, ka):
+        """[..., 64, G] rows-core group block from PER-LINE kernel array
+        tensors [..., N] (rows mode): the block :meth:`gather` builds on
+        the host, as one row gather of the stacked [..., N, 8] matrix on
+        the tensors' device, in their float dtype."""
+        if self.mode != "rows":
+            raise ValueError("group_params requires rows mode")
+        c = self._device_consts(ka["c_frac"].device)
+        dtype = ka["c_frac"].dtype
+        ref = torch.broadcast_tensors(*(ka[name] for name, _ in
+                                        _GROUP_FIELDS))
+        mat = torch.stack([r.to(dtype) for r in ref]
+                          + [torch.zeros_like(ref[1], dtype=dtype)], dim=-1)
+        slots, num_groups = self.inst_line.shape
+        taken = mat.index_select(-2, c["idx"]).reshape(
+            mat.shape[:-2] + (slots, num_groups, 8))
+        fills = torch.as_tensor([fill for _, fill in _GROUP_FIELDS] + [0.0],
+                                dtype=dtype, device=mat.device)
+        taken = torch.where(c["dead"][..., None], fills, taken)
+        blocks = taken.movedim(-1, -3).reshape(
+            mat.shape[:-2] + (GROUP_ROWS, num_groups))[..., :YMIN_ROW, :]
+        ymin = blocks[..., Y_FIELD * 8:(Y_FIELD + 1) * 8, :].amin(
+            dim=-2, keepdim=True)
+        pad = ymin.new_zeros(ymin.shape[:-2] + (GROUP_ROWS - YMIN_ROW - 1,
+                                                num_groups))
+        return torch.cat([blocks, ymin, pad], dim=-2).contiguous()
 
     def seg_params(self, ka_inst):
         """[..., 8, I] core parameters from INSTANCE-order kernel arrays
         (tensors): the block :meth:`gather` builds, without the per-layer
         gather."""
+        self._require_seg("seg_params")
         c = self._device_consts(ka_inst["c_frac"].device)
         dtype = ka_inst["c_frac"].dtype
         seg0f = c["seg0f"].to(dtype)
@@ -502,15 +685,19 @@ class CorePlan:
              for f, r in zip(_SEG_FILLS, rows)], axis=-2))
 
     def gather(self, kernel_arrays):
-        """Per-layer segment parameters [..., 8, I] from host kernel
-        arrays, in their float dtype."""
+        """Per-layer core parameters from host kernel arrays, in their
+        float dtype: [..., 8, I] (segment modes) or [..., 64, G] (rows)."""
+        dtype = kernel_arrays["c_frac"].dtype
+        if self.mode == "rows":
+            return gather_group_params(kernel_arrays, self.inst_line, dtype)
         return gather_segment_params(kernel_arrays, self.inst_line,
                                      self.seg0, slot=self._slotf,
-                                     dtype=kernel_arrays["c_frac"].dtype)
+                                     dtype=dtype)
 
     def seg_pass(self, params, plain=False):
         """This plan's segment pass: params [..., 8, I] -> spectrum
         [..., num_points]."""
+        self._require_seg("seg_pass")
         c = self._device_consts(params.device)
         if self.mode == "segmix":
             fn = core_segmix_plain if plain else core_segmix_pass
@@ -522,8 +709,13 @@ class CorePlan:
                   kind=self.kind)
 
     def core_pass(self, params, plain=False):
-        """The core-correction pass alone (either seg mode)."""
-        return self.seg_pass(params, plain)
+        """The core-correction pass alone, any mode."""
+        if self.mode != "rows":
+            return self.seg_pass(params, plain)
+        c = self._device_consts(params.device)
+        fn = rows_plain if plain else rows_pass
+        return fn(params, c["g_start"], c["g_n"], self.num_points, self.tile,
+                  self.chunk)
 
 
 def pick_wings_stride(tile, window_max):
@@ -757,9 +949,12 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v"]
 
 # Tile-kernel line functions by pass kind (lineshape_pallas.py
-# _pass_line_fn): the kernel's line_fn id and the launch counter.
+# _pass_line_fn): the kernel's line_fn id and the launch counter.  Line
+# function 3 (OWN) is the ownership-checked raw Lorentzian of
+# wings_strided_checked_pass.
 _TILE_LINES = {"wings_pre": (0, "wings_splat"), "wings": (1, "tile_lorentz"),
                "core": (2, "tile_correction")}
+_LINE_OWN = 3
 _SEG_KINDS = {"core": 0, "wings": 1}
 
 
@@ -802,6 +997,14 @@ def cuda_library():
             p,                      # out [B, T, tile]
             i32, i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg, kind
             p]                      # stream
+        lib.pylbl_rows.restype = ctypes.c_int
+        lib.pylbl_rows.argtypes = [
+            p, i64, i64,            # groups, batch stride, row stride
+            p, i64,                 # separate min-y block or null, bstride
+            p, p,                   # group_start, group_chunks
+            p,                      # out [B, T, tile]
+            i32, i32, i32, i32,     # B, T, tile, chunk
+            p]                      # stream
         lib._pylbl_bound = True
     return lib
 
@@ -820,14 +1023,18 @@ def _ptr(tensor):
         else ctypes.c_void_p(0)
 
 
-def _check_cuda_inputs(name, data, csr, num_tiles):
-    """Raises unless ``data`` is a contiguous float32 [B, 8, N] tensor and
-    every CSR an int32 [T] or [B, T] tensor on its device."""
+def _check_cuda_inputs(name, data, csr, num_tiles, rows=8):
+    """Raises unless ``data`` is a contiguous float32 [B, rows, N] tensor
+    and every CSR an int32 [T] or [B, T] tensor on its device, the [B, T]
+    ones with one layer stride."""
     if data.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got "
                         f"{data.dtype}")
-    if data.dim() != 3 or data.shape[1] != 8 or not data.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous [B, 8, N] tensor")
+    if data.dim() != 3 or data.shape[1] != rows or not data.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous [B, {rows}, N] "
+                         "tensor")
+    if len({c.stride(0) for c in csr if c is not None and c.dim() == 2}) > 1:
+        raise ValueError(f"{name}: [B, T] CSRs must share one layer stride")
     for c in csr:
         if c is None:
             continue
@@ -922,8 +1129,9 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
     """[B, P, tile] per-chunk partial sums: for each (tile, chunk) pair,
     the chunk's ``width`` lines summed in line order (the first level of
     the two-level summation), in slabs of pairs.  ``line``: "pre"
-    (prepacked Lorentzian), "raw" (Lorentzian from raw rows) or "corr"
-    (per-line Humlicek correction)."""
+    (prepacked Lorentzian), "raw" (Lorentzian from raw rows), "own" (raw,
+    with the strength zeroed unless the line's _PAD row equals the tile
+    index) or "corr" (per-line Humlicek correction)."""
     batch = soa.shape[0]
     dtype = soa.dtype
     pairs = tiles.numel()
@@ -933,14 +1141,18 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
     for lo in range(0, pairs, slab):
         hi = min(lo + slab, pairs)
         point = (tiles[lo:hi, None] * stride + offs[None, :]).to(dtype)
+        tile_f = tiles[lo:hi, None].to(dtype)
         part = soa.new_zeros((batch, hi - lo, tile))
         for j in range(width):
             vals = soa[:, :, line0[lo:hi] + j, None]     # [B, 8, P, 1]
             x = ((point - vals[:, C_INT]) - vals[:, C_FRAC]) * vals[:, SRW]
             y, pref = vals[:, Y], vals[:, PREF]
+            if line == "own":
+                pref = torch.where(vals[:, _PAD] == tile_f, pref,
+                                   torch.zeros_like(pref))
             if line == "corr":
                 val = _line_corrections(x, y, pref)
-            elif line == "raw":
+            elif line in ("raw", "own"):
                 val = ((pref * y) * RSQRPI) / (x * x + y * y)
             else:
                 val = pref / (x * x + y)
@@ -1002,29 +1214,27 @@ def strided_combine(out, num_points, tile, stride):
     return total[:, :num_points]
 
 
-def _shared_csr(csr, device):
-    """A [T] tensor of a layer-shared CSR ([T] or a [B, T] broadcast;
-    numpy or torch)."""
-    if csr is None:
-        return None
-    csr = torch.as_tensor(csr, device=device)
-    if csr.dim() == 1:
-        return csr
-    if not bool((csr == csr[:1]).all()):
-        raise ValueError("plain wings take a CSR shared by all layers")
-    return csr[0]
-
-
 def _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
                 t_start, t_n, tail, line):
+    """The tile kernel's plain version over [T] CSRs or [B, T] ones
+    (numpy or torch); layers whose [B, T] rows differ run one by one, each
+    with its own row, as the kernel's blocks do."""
     soa, single = _as_batch(soa)
     num_tiles = (num_points - 1) // stride + 1
-    d = soa.device
-    tiles = wings_tiles_plain(soa, _shared_csr(w_start, d),
-                              _shared_csr(w_n, d), num_tiles, tile, stride,
-                              chunk, _shared_csr(t_start, d),
-                              _shared_csr(t_n, d), tail, line)
-    return _unbatch(strided_combine(tiles, num_points, tile, stride), single)
+    csr = [None if c is None else torch.as_tensor(c, device=soa.device)
+           for c in (w_start, w_n, t_start, t_n)]
+    per_layer = any(c is not None and c.dim() == 2
+                    and not bool((c == c[:1]).all()) for c in csr)
+    outs = []
+    for b in range(soa.shape[0]) if per_layer else [None]:
+        rows = [None if c is None else c if c.dim() == 1
+                else c[0 if b is None else b] for c in csr]
+        block = soa if b is None else soa[b:b + 1]
+        tiles = wings_tiles_plain(block, rows[0], rows[1], num_tiles, tile,
+                                  stride, chunk, rows[2], rows[3], tail,
+                                  line)
+        outs.append(strided_combine(tiles, num_points, tile, stride))
+    return _unbatch(torch.cat(outs), single)
 
 
 def _tile(soa, w_start, w_n, num_points, tile, stride, chunk, t_start,
@@ -1072,6 +1282,31 @@ def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
     and float dtype."""
     return _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
                        t_start, t_n, tail, "pre")
+
+
+def wings_strided_checked_pass(soa, start, nchunks, num_points, tile, stride,
+                               chunk=STRIDED_CHUNK):
+    """Ownership-checked strided wings (``_pallas_pass_strided`` with
+    ``prepacked=False``) -> [B, num_points] or [num_points].
+
+    ``soa`` carries the raw rows (Y = y, PREF = pref) and, in its _PAD
+    row, each line's assigned tile as float32 (-1 for pad lines);
+    ``start``/``nchunks`` are the straddle CSR of
+    :func:`strided_line_ranges` ([T], shared by every layer), so
+    neighbouring tiles read shared chunks and each tile zeroes the
+    strength of the lines it does not own."""
+    counter = "wings_strided_checked" if soa.dim() == 3 \
+        else "wings_strided_checked_single"
+    return _tile(soa, start, nchunks, num_points, tile, stride, chunk, None,
+                 None, 128, "own", _LINE_OWN, counter)
+
+
+def wings_strided_checked_plain(soa, start, nchunks, num_points, tile,
+                                stride, chunk=STRIDED_CHUNK):
+    """:func:`wings_strided_checked_pass` through the plain version on any
+    device and float dtype."""
+    return _tile_plain(soa, start, nchunks, num_points, tile, stride, chunk,
+                       None, None, 128, "own")
 
 
 _PLAIN_LINES = {"wings_pre": "pre", "wings": "raw", "core": "corr"}
@@ -1361,6 +1596,135 @@ def seg_plain(params, tile_start, tile_chunks, chunk_slot, num_points, tile,
 
 
 # --------------------------------------------------------------------------
+# Rows core (K9): 8 instances per group, one per row of the tile.
+# --------------------------------------------------------------------------
+
+def _launch_rows(groups, g_start, g_n, num_tiles, tile, chunk, ymin=None):
+    _check_cuda_inputs("rows", groups, [g_start, g_n], num_tiles,
+                       rows=GROUP_ROWS)
+    if g_start.dim() != 1 or g_n.dim() != 1:
+        raise ValueError("rows: the group CSR is [T], shared by every "
+                         "layer")
+    if chunk != ROWS_CHUNK or tile not in (256, 512, 1024) \
+            or groups.shape[2] % chunk:
+        raise ValueError("rows kernel takes chunk 128, tile 256/512/1024 "
+                         "and whole chunks of groups")
+    batch = groups.shape[0]
+    if ymin is not None and (
+            ymin.dtype != torch.float32 or ymin.device != groups.device
+            or tuple(ymin.shape) != (batch, 1, groups.shape[2])
+            or ymin.stride(-1) != 1):
+        raise ValueError("rows: the min-y block must be a float32 [B, 1, G] "
+                         "tensor with unit stride along G on the groups' "
+                         "device")
+    out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
+                      device=groups.device)
+    err = cuda_library().pylbl_rows(
+        _ptr(groups), groups.stride(0), groups.stride(1), _ptr(ymin),
+        0 if ymin is None else ymin.stride(0), _ptr(g_start), _ptr(g_n),
+        _ptr(out), batch, num_tiles, tile, chunk, _stream_ptr(groups.device))
+    _check_launch("rows", err)
+    return out
+
+
+def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
+                     chunk=ROWS_CHUNK, ymin=None, max_elems=1 << 24):
+    """Plain version of the rows kernel: [B, 64, G] groups -> [B, T, tile].
+
+    Tile t walks its groups g_start[t] .. g_start[t] + g_n[t]*chunk - 1 in
+    order; point p = r * (tile/8) + c of the tile sits in row r, and a
+    group's instance r applies to row r only.  A group whose min y (row
+    56, or ``ymin`` [B, 1, G]) is >= 70.55 is skipped; otherwise its class
+    (k1, k12, k123 or the full form) is picked from that min y and
+    ``pref * (K_class - K_lorentz)``, window-masked, is added to ONE
+    running accumulator per point (no chunk partials), in group order.
+    Groups are evaluated in slabs; a skipped or absent group adds +0.0,
+    which leaves the (never negative-zero) accumulator unchanged."""
+    device = groups.device
+    dtype = groups.dtype
+    batch = groups.shape[0]
+    row_w = tile // 8
+    start = torch.as_tensor(g_start, device=device).to(torch.int64)
+    count = torch.as_tensor(g_n, device=device).to(torch.int64) * chunk
+    ymin_rows = (groups[:, YMIN_ROW] if ymin is None else ymin[:, 0])
+    point = (torch.arange(num_tiles, device=device)[:, None] * tile
+             + torch.arange(tile, device=device)).to(dtype).reshape(
+                 num_tiles, 8, row_w)
+    acc = groups.new_zeros((batch, num_tiles, 8, row_w))
+    gmax = int(count.max()) if count.numel() else 0
+    per = max(1, max_elems // max(batch * num_tiles * tile, 1))
+    for lo in range(0, gmax, per):
+        gs = torch.arange(lo, min(lo + per, gmax), device=device)
+        live = gs[None, :] < count[:, None]                  # [T, S]
+        col = torch.where(live, start[:, None] + gs[None, :], 0)
+        blk = groups[:, :YMIN_ROW][:, :, col].permute(0, 2, 3, 1)
+        ym = torch.where(live, ymin_rows[:, col], _CORE_SKIP_Y)  # [B, T, S]
+        vals = groups.new_zeros((batch, num_tiles, gs.numel(), 8, row_w))
+        taken = ym >= _CORE_SKIP_Y
+        for threshold, corr_fn in _CORE_CLASSES:
+            cls = (~taken) & (ym >= threshold)
+            taken = taken | cls
+            idx = torch.nonzero(cls)                         # [M, 3]
+            if not idx.numel():
+                continue
+            fld = blk[idx[:, 0], idx[:, 1], idx[:, 2]].reshape(
+                -1, N_FIELDS, 8, 1)
+            c_int, c_frac, srw, y, pref, s, e = fld.unbind(1)
+            pt = point[idx[:, 1]]                            # [M, 8, row_w]
+            x = ((pt - c_int) - c_frac) * srw
+            val = pref * corr_fn(x, y)
+            mask = (pt >= s) & (pt <= e)
+            vals[idx[:, 0], idx[:, 1], idx[:, 2]] = torch.where(
+                mask, val, torch.zeros_like(val))
+        for j in range(gs.numel()):
+            acc = acc + vals[:, :, j]
+    return acc.reshape(batch, num_tiles, tile)
+
+
+def rows_pass(groups, g_start, g_n, num_points, tile, chunk=ROWS_CHUNK):
+    """Rows core pass (``_pallas_rows_pass``) -> [B, num_points] or
+    [num_points] (point = t*tile + r*(tile/8) + c): ``groups`` [B, 64, G]
+    or [64, G] from :meth:`CorePlan.gather` / :meth:`CorePlan.group_params`
+    and the [T] group CSR of :func:`build_core_groups`."""
+    if groups.device.type == "cpu":
+        return rows_plain(groups, g_start, g_n, num_points, tile, chunk)
+    _refuse_device("rows", groups)
+    g, single = _as_batch(groups)
+    tiles = _launch_rows(g, g_start, g_n, -(-num_points // tile), tile,
+                         chunk)
+    LAUNCHES["core_rows_single" if single else "core_rows"] += 1
+    return _unbatch(_core_out(tiles, num_points), single)
+
+
+def rows_plain(groups, g_start, g_n, num_points, tile, chunk=ROWS_CHUNK,
+               ymin=None):
+    """:func:`rows_pass` (with ``ymin``: :func:`rows_vmem_pass`) through
+    the plain version on any device and float dtype."""
+    g, single = _as_batch(groups)
+    y = None if ymin is None else _as_batch(ymin)[0]
+    return _unbatch(_core_out(rows_tiles_plain(
+        g, g_start, g_n, -(-num_points // tile), tile, chunk, y),
+        num_points), single)
+
+
+def rows_vmem_pass(groups, ymin, g_start, g_n, num_points, tile,
+                   chunk=ROWS_CHUNK):
+    """The rows core with the class read from a separate [.., 1, G] min-y
+    block (:func:`group_min_y`; ``_pallas_rows_pass_vmem``), the same
+    kernel staging that block instead of row 56."""
+    if groups.device.type == "cpu":
+        return rows_plain(groups, g_start, g_n, num_points, tile, chunk,
+                          ymin)
+    _refuse_device("rows", groups)
+    g, single = _as_batch(groups)
+    y = _as_batch(ymin)[0]
+    tiles = _launch_rows(g, g_start, g_n, -(-num_points // tile), tile,
+                         chunk, y)
+    LAUNCHES["core_rows_vmem"] += 1
+    return _unbatch(_core_out(tiles, num_points), single)
+
+
+# --------------------------------------------------------------------------
 # Single-layer device plan (lineshape_pallas.py:2588-2735).
 # --------------------------------------------------------------------------
 
@@ -1427,8 +1791,9 @@ def make_device_plan(kernel_arrays, kin, num_points, n_per_v, cut_off,
     ``wings_mode``: None/"auto" picks the strided overlapped-tile wings
     pass when the windows fit (:func:`pick_wings_stride`); "seg" forces the
     segment-32 variant, "tile" the raw Lorentz splat.  ``core_mode``:
-    "segmix" (default) or "seg".  The blocks take the kernel arrays' float
-    dtype (float32 for the kernels).
+    "segmix" (default), "seg" or "rows" (rows core; with ``wings_mode``
+    "seg" it takes the strided branch, as the JAX planner does).  The
+    blocks take the kernel arrays' float dtype (float32 for the kernels).
     """
     dtype = np.dtype(kernel_arrays["c_frac"].dtype)
     s_idx = kernel_arrays["s_idx"].astype(np.int64)
@@ -1516,3 +1881,51 @@ def accumulate_device(kernel_arrays, kin, num_points, n_per_v, cut_off,
     plan = make_device_plan(kernel_arrays, kin, int(num_points), n_per_v,
                             cut_off, tile, chunk, device=device, plain=plain)
     return plan()
+
+
+def accumulate_batched(kernel_arrays, kin, num_points, n_per_v, cut_off,
+                       tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cpu",
+                       plain=False):
+    """Layer-batched two-pass accumulation (``accumulate_tpu_batched``):
+    one launch of each pass for every layer of a gas.
+
+    The raw-Lorentz splat wings run over per-layer tile CSRs ([B, T]); the
+    core plan (the default mode) is shared by the layers, its instances
+    covering the union of the per-layer core windows sized for the widest
+    Doppler width, and the per-layer masks keep each layer exact.
+
+    Args:
+        kernel_arrays: [B, N] host arrays from prepare_kernel_arrays.
+        kin: float64 physics dict ([B, N] leaves; core-window sizing).
+
+    Returns:
+        [B, num_points] tensor on ``device``.
+    """
+    num_layers, num = kernel_arrays["prefactor"].shape
+    if num == 0:
+        return torch.zeros((num_layers, int(num_points)), device=device,
+                           dtype=torch.from_numpy(
+                               kernel_arrays["c_frac"][:, :0]).dtype)
+    soa, _ = pack_lines_soa(kernel_arrays, chunk,
+                            dtype=kernel_arrays["c_frac"].dtype)
+    core_w = core_halfwidths(np.asarray(kin["repwid"]).min(axis=0), n_per_v,
+                             cut_off)
+    s_idx = kernel_arrays["s_idx"].astype(np.int64)
+    e_idx = kernel_arrays["e_idx"].astype(np.int64)
+    w_start, w_n = (np.stack(a) for a in zip(*(
+        tile_line_ranges(s_idx[b], e_idx[b], num_points, tile, chunk)
+        for b in range(num_layers))))
+    center = np.rint(kernel_arrays["c_int"]).astype(np.int64)
+    cs = np.maximum(center - core_w, s_idx).min(axis=0)
+    ce = np.minimum(center + core_w, e_idx).max(axis=0)
+    all_lorentz = (kernel_arrays["y"].astype(np.float32) >= 70.55).all(
+        axis=0)
+    ce = np.where(all_lorentz, cs - 1, ce)
+    plan = CorePlan(cs, ce, int(num_points), tile,
+                    sort_key=np.asarray(kernel_arrays["y"]).min(axis=0))
+    soa, w_start, w_n, params = (torch.as_tensor(a, device=device) for a in
+                                 (soa, w_start, w_n,
+                                  plan.gather(kernel_arrays)))
+    wings = (tile_plain if plain else tile_pass)(
+        soa, w_start, w_n, int(num_points), tile, chunk, "wings")
+    return wings + plan.core_pass(params, plain)

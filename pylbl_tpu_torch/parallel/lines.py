@@ -12,7 +12,7 @@ Counterpart of the single-device part of pylbl_tpu/parallel/lines.py:
   vectorized over the layer batch;
 - :func:`make_multigas_batched_fn` (all gases stacked) and
   :func:`make_batched_fn` (one gas) assemble the wings SoA and the
-  segment-32 core parameters and run the wings and core passes
+  core parameters (segment-32 or rows) and run the wings and core passes
   (ops/lineshape_cuda.py: CUDA kernels on the card, plain versions on the
   CPU, or the plain versions anywhere with ``backend="plain"``);
 - :func:`make_stacked_pedestal_remover` removes the reference pedestal with
@@ -375,9 +375,12 @@ class _LineStage:
     wherever a stride fits the widened windows ``s_wide``/``e_wide``, the
     splat wings otherwise; the core pass of a ``core_mode`` plan over the
     windows ``core_lo``/``core_hi``, its parameters computed directly in
-    instance space.  The wings rows are prepacked (Y = y^2, PREF =
-    pref*y/sqrt(pi)) except for the splat under a "seg" core plan, which
-    takes the raw Lorentzian rows (lineshape_pallas.py ``wings_core``).
+    instance space (segment modes) or gathered into groups from the
+    per-line kernel arrays on the device (rows mode; parallel/lines.py
+    ``_assemble`` of the JAX package).  The wings rows are prepacked (Y =
+    y^2, PREF = pref*y/sqrt(pi)) except for the splat under a "seg" or
+    "rows" core plan, which takes the raw Lorentzian rows
+    (lineshape_pallas.py ``wings_core``).
     """
 
     def __init__(self, arrays_np, static, s_wide, e_wide, core_lo, core_hi,
@@ -414,12 +417,13 @@ class _LineStage:
         self.prepacked = self.wings_stride is not None \
             or self.core_plan.mode == "segmix"
         self.arrays = as_tensors(arrays_np, device, dtype)
-        self.core_inst = self.core_plan.expand_line_arrays(self.arrays)
+        self.core_inst = None if self.core_plan.mode == "rows" \
+            else self.core_plan.expand_line_arrays(self.arrays)
         self.pad = -nlines % chunk
 
     def assemble(self, t, p, x):
         """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
-        [B, 8, I])."""
+        [B, 8, I] or rows groups [B, 64, G])."""
         ka = line_kernel_arrays(self.arrays, self.static, t, p, x)
         y, pref = ka["y"], ka["prefactor"]
         if self.prepacked:
@@ -433,6 +437,8 @@ class _LineStage:
                 -1.0, -2.0, 0.0)
         soa = torch.stack([torch.nn.functional.pad(r, (0, self.pad), value=v)
                            for r, v in zip(rows, fill)], dim=1)
+        if self.core_inst is None:
+            return soa.contiguous(), self.core_plan.group_params(ka)
         ka_i = line_kernel_arrays(self.core_inst, self.static, t, p, x)
         return soa.contiguous(), self.core_plan.seg_params(ka_i).contiguous()
 
@@ -459,6 +465,7 @@ class _LineStage:
 
     def attach(self, fn):
         """Exposes the stage handles on a pipeline function."""
+        fn.stage = self
         fn.core_plan = self.core_plan
         fn.wings_stride = self.wings_stride
         fn.wings_chunk = self.wings_chunk
@@ -473,16 +480,19 @@ class _LineStage:
 def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
                              tile=None, chunk=None, t_max=350.0,
                              p_max_atm=5.0, backend="kernel", device="cpu",
-                             dtype=torch.float32, wings_tail=128):
+                             dtype=torch.float32, wings_tail=128,
+                             core_mode=None):
     """Builds the all-gases batched pipeline for one grid on one device.
 
     One wings pass and one core pass per layer batch cover every gas:
     strided overlapped-tile wings (two chunk classes when ``wings_tail``)
     wherever a stride fits the line windows, the splat wings otherwise,
-    and the mixed-slot segment-32 core pass.
+    and the core pass of ``core_mode`` (the mixed-slot segment-32 core by
+    default).
 
     Args:
         packs: dict name -> LinePack.
+        core_mode: "segmix" (default), "seg" or "rows".
         backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
             plain versions for CPU tensors) or "plain" (plain versions on
             any device, in ``dtype``).
@@ -545,7 +555,7 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     core_lo = off + np.clip(center0 - reach, 0, num_points - 1)
     core_hi = off + np.clip(center0 + reach, 0, num_points - 1)
     stage = _LineStage(arrays_np, static, off + s_loc, off + e_loc, core_lo,
-                       core_hi, y_ref, flat_points, tile, chunk, None,
+                       core_hi, y_ref, flat_points, tile, chunk, core_mode,
                        wings_tail, device, dtype, backend == "plain")
 
     def fn(temperature, pressure, vmr):
@@ -583,7 +593,7 @@ def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
 
     Args:
         pack: LinePack.
-        core_mode: "segmix" (default) or "seg".
+        core_mode: "segmix" (default), "seg" or "rows".
         backend / device / dtype: as :func:`make_multigas_batched_fn`.
 
     Returns:

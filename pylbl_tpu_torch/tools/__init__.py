@@ -1,0 +1,106 @@
+"""Measurement tools of the port, each run as
+``python -m pylbl_tpu_torch.tools.<name>``:
+
+- ``kernel_microbench``: device time of every single-layer pass and
+  formulation on the headline workload;
+- ``parity_ab``: every (core_mode, wings_mode) formulation of the
+  single-layer device plan against the float64 plain plan;
+- ``batched_microbench``: the stage split (physics, assembly, wings, core,
+  full) of the single-gas or stacked batched pipeline.
+
+They time CUDA kernels with CUDA events, so their entry points need a CUDA
+card and exit non-zero without one; there is no CPU fallback.  The
+workload and plan builders run on any device (the tests build them on the
+CPU at a small size).  Every time is printed beside the card's name and
+power limit.
+"""
+import subprocess
+
+import numpy as np
+import torch
+
+from ..database.fixtures import synthetic_line_pack
+
+CUT_OFF = 25
+# The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
+SURFACE = (288.99, 98388.0, 6.637074e-03)
+
+
+class NoCudaError(RuntimeError):
+    """A timing entry point was called without a CUDA card."""
+
+
+def require_cuda(tool):
+    if not torch.cuda.is_available():
+        raise NoCudaError(f"{tool} measures the CUDA kernels and needs a "
+                          "CUDA card (there is no CPU fallback)")
+
+
+def card():
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds of ``fn()`` over ``reps`` warm calls (one
+    warm-up call first), timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def run_main(tool, run, *args):
+    """A tool's command-line entry: ``run(*args)``, or exit code 2 with a
+    message when there is no CUDA card."""
+    try:
+        run(*args)
+    except NoCudaError as exc:
+        print(f"{tool}: {exc}", flush=True)
+        return 2
+    return 0
+
+
+def headline_pack(num_lines=300000, nu_max=5100.0):
+    """The headline line list (bench.py ``build_workload``): synthetic
+    H2O, seed 1, bands at 150/1600/3700/500 cm-1."""
+    return synthetic_line_pack(num_lines=num_lines, nu_min=0.5,
+                               nu_max=nu_max, seed=1,
+                               band_centers=(150.0, 1600.0, 3700.0, 500.0))
+
+
+def layer_workload(pack, grid, cond=SURFACE, dtype=np.float32):
+    """One layer's single-layer inputs on ``grid``: a dict with the float64
+    physics ``kin``, the kernel ``arrays`` in ``dtype``, ``npv``, the
+    internal grid size ``n`` and the kept line count ``keep``."""
+    from ..models.lines import internal_grid
+    from ..models.lines.physics import kernel_inputs, line_profile_params
+    from ..ops.lineshape import prepare_kernel_arrays
+
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, CUT_OFF)
+    kin = kernel_inputs(line_profile_params(pack, *cond, keep=keep), v0, npv,
+                        CUT_OFF)
+    return {"pack": pack, "grid": grid, "kin": kin, "npv": npv, "n": n,
+            "keep": keep, "arrays": prepare_kernel_arrays(kin, npv, dtype)}
+
+
+def headline_workload(num_lines=300000, step=0.1):
+    """The headline layer: 1-5000 cm-1 at ``step``, the surface layer."""
+    return layer_workload(headline_pack(num_lines),
+                          np.arange(1.0, 5000.0, step))
+
+
+def masked_evals(work):
+    """The JAX package's headline unit for one layer: kept lines x
+    ((2 * cut_off + 1) * n_per_v + 1) masked line-point evaluations."""
+    return work["keep"] * ((2 * CUT_OFF + 1) * work["npv"] + 1)

@@ -291,3 +291,106 @@ def test_gas_on_card_matches_cpu(cuda_device, step):
     single = "wings_strided_single" if step > 0.05 else "tile_lorentz"
     assert lc.LAUNCHES[single] > 0 and lc.LAUNCHES["core_segmix_single"] > 0
     assert lc.LAUNCHES["core_segmix"] > 0
+
+
+# --- The rows core (K9) and the ownership-checked strided wings (K6). ---
+
+def rows_setup(device, tile, batched):
+    """The rows plan of a 3000-line H2O pack over the union of two layers'
+    core windows, and its group block ([B, 64, G] or [64, G]) on
+    ``device``."""
+    layers, npv, n = single_gas_layers(0.1)
+    arrays = [a for _, a in layers]
+    cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
+                 for k, a in layers], axis=0)
+    ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
+                 for k, a in layers], axis=0)
+    plan = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"],
+                       mode="rows")
+    groups = torch.as_tensor(plan.gather(batch_of(arrays, batched)),
+                             device=device)
+    return plan, groups, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_rows_kernels_match_plain(cuda_device, tile, batched):
+    """The rows core and its separate-min-y variant equal their plain
+    versions bit for bit, and each other."""
+    plan, groups, n = rows_setup(cuda_device, tile, batched)
+    g_start, g_n = (torch.as_tensor(a, device=cuda_device)
+                    for a in (plan.g_start, plan.g_n))
+    ymin = lc.group_min_y(groups)
+    lc.reset_launches()
+    got = plan.core_pass(groups)
+    want = plan.core_pass(groups, plain=True)
+    vmem = lc.rows_vmem_pass(groups, ymin, g_start, g_n, n, tile)
+    vmem_want = lc.rows_plain(groups, g_start, g_n, n, tile, ymin=ymin)
+    torch.cuda.synchronize()
+    assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(vmem, vmem_want)
+    assert torch.equal(vmem, got)
+    key = "core_rows" if batched else "core_rows_single"
+    assert lc.LAUNCHES[key] == 1 and lc.LAUNCHES["core_rows_vmem"] == 1
+    assert sum(lc.LAUNCHES.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,step", [(256, 0.5), (1024, 0.1)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_checked_strided_wings_match_plain(cuda_device, tile, step,
+                                           batched):
+    """The ownership-checked strided wings on the straddle CSR equal their
+    plain version bit for bit; one CSR serves both layers."""
+    layers, npv, n = single_gas_layers(step)
+    arrays = [a for _, a in layers]
+    soa, num = lc.pack_lines_soa(batch_of(arrays, batched), 512)
+    s = np.min([a["s_idx"] for a in arrays], axis=0).astype(np.int64)
+    e = np.max([a["e_idx"] for a in arrays], axis=0).astype(np.int64)
+    stride = lc.pick_wings_stride(tile, int((e - s).max()) + 1)
+    assert stride is not None
+    assign = np.clip(s, 0, None) // stride
+    soa[..., lc._PAD, :num] = assign.astype(np.float32)
+    soa[..., lc._PAD, num:] = -1.0
+    start, nchunks = (torch.as_tensor(a, device=cuda_device) for a in
+                      lc.strided_line_ranges(assign, (n - 1) // stride + 1))
+    soa = torch.as_tensor(soa, device=cuda_device)
+    lc.reset_launches()
+    got = lc.wings_strided_checked_pass(soa, start, nchunks, n, tile, stride)
+    want = lc.wings_strided_checked_plain(soa, start, nchunks, n, tile,
+                                          stride)
+    torch.cuda.synchronize()
+    assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
+    assert float(want.abs().max()) > 0 and torch.equal(got, want)
+    key = "wings_strided_checked" if batched \
+        else "wings_strided_checked_single"
+    assert lc.LAUNCHES[key] == 1 and sum(lc.LAUNCHES.values()) == 1
+
+
+@pytest.mark.gpu
+def test_rows_and_checked_kernels_refuse_what_they_do_not_take(cuda_device):
+    plan, groups, n = rows_setup(cuda_device, 1024, True)
+    g_start, g_n = (torch.as_tensor(a, device=cuda_device)
+                    for a in (plan.g_start, plan.g_n))
+    with pytest.raises(TypeError, match="float32"):
+        lc.rows_pass(groups.double(), g_start, g_n, n, 1024)
+    wide = torch.cat([groups, groups], dim=-1)[..., :groups.shape[-1]]
+    assert not wide.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.rows_pass(wide, g_start, g_n, n, 1024)
+    with pytest.raises(ValueError, match="min-y"):
+        lc.rows_vmem_pass(groups, lc.group_min_y(groups)[..., :-128],
+                          g_start, g_n, n, 1024)
+    layers, npv, n = single_gas_layers(0.1)
+    soa = torch.as_tensor(lc.pack_lines_soa(layers[0][1], 512)[0],
+                          device=cuda_device)
+    start, nchunks = (torch.zeros((n - 1) // 512 + 1, dtype=torch.int32,
+                                  device=cuda_device) for _ in range(2))
+    with pytest.raises(TypeError, match="float32"):
+        lc.wings_strided_checked_pass(soa.double(), start, nchunks, n, 1024,
+                                      512)
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.wings_strided_checked_pass(soa[:, ::2], start, nchunks, n, 1024,
+                                      512)

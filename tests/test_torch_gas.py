@@ -35,7 +35,8 @@ SURFACE = (288.99, 98388.0, 6.637074e-03)
 T2 = np.asarray([288.99, 227.74], np.float32)
 P2 = np.asarray([98388.0, 1032.0], np.float32)
 X2 = np.asarray([6.637074e-03, 4.763972e-06], np.float32)
-MODES = [(None, None), (None, "tile"), (None, "seg"), ("seg", None)]
+MODES = [(None, None), (None, "tile"), (None, "seg"), ("seg", None),
+         ("rows", None), ("rows", "tile")]
 
 
 def small_pack():
@@ -184,10 +185,52 @@ def test_device_plan_wings_modes_agree():
 
 
 def test_rows_core_mode_is_refused():
+    """core_mode="rows" is no longer refused: with wings_mode="seg" it
+    takes the strided branch (the JAX planner's dispatch) and matches the
+    JAX plan; only the segment-mode methods refuse a rows plan, as the JAX
+    ones do."""
     kin, npv, n = workload()
     arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
-    with pytest.raises(NotImplementedError, match="K9"):
-        lc.make_device_plan(arrays, kin, n, npv, 25, core_mode="rows")
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, core_mode="rows",
+                               wings_mode="seg")
+    want = jlp.make_device_plan(
+        jls.prepare_kernel_arrays(kin, npv, np.float32), kin, n, npv, 25,
+        interpret=True, core_mode="rows", wings_mode="seg")
+    assert plan.wings is None and plan.wings_stride == want.wings_stride
+    assert plan.core.mode == "rows" and plan.groups.shape[0] == 64
+    assert rel_err(plan().numpy(), np.asarray(want())) < 5e-6
+    with pytest.raises(ValueError, match="seg"):
+        plan.core.seg_pass(plan.groups)
+
+
+def test_accumulate_batched_matches_jax():
+    """The layer-batched two-pass (per-layer splat CSRs, one core plan over
+    the union windows) against accumulate_tpu_batched, and each layer
+    against the single-layer device plan."""
+    pack = small_pack()
+    grid = np.arange(50.0, 250.0, 0.2)
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, 25)
+    conds = np.asarray([(250.0, 80000.0, 0.004), SURFACE]).T
+    kin = kernel_inputs(line_profile_params(pack, *conds, keep=keep), v0,
+                        npv, 25)
+    arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
+    assert arrays["y"].shape[0] == 2
+    lc.reset_launches()
+    got = lc.accumulate_batched(arrays, kin, n, npv, 25, tile=256,
+                                chunk=128).numpy()
+    assert sum(lc.LAUNCHES.values()) == 0
+    want = np.asarray(jlp.accumulate_tpu_batched(
+        jls.prepare_kernel_arrays(kin, npv, np.float32), kin, n, npv, 25,
+        tile=256, chunk=128, interpret=True))
+    assert got.shape == want.shape == (2, n)
+    assert rel_err(got, want) < 5e-6
+    for b in range(2):
+        one = {k: v[b] for k, v in arrays.items()}
+        kin_b = {k: np.asarray(v)[b] for k, v in kin.items()}
+        single = lc.accumulate_device(one, kin_b, n, npv, 25, tile=256,
+                                      chunk=128).numpy()
+        assert rel_err(got[b], single) < 5e-6
 
 
 @pytest.mark.parametrize("remove_pedestal", [False, True])
@@ -219,7 +262,8 @@ def test_gas_matches_jax_engine(remove_pedestal):
 
 
 @pytest.mark.parametrize("tile,core_mode", [(256, None), (1024, None),
-                                            (1024, "seg"), (256, "seg")])
+                                            (1024, "seg"), (256, "seg"),
+                                            (1024, "rows"), (256, "rows")])
 def test_batched_fn_matches_jax(tile, core_mode):
     pack = small_pack()
     grid = np.arange(50.0, 250.0, 0.2)
@@ -229,8 +273,8 @@ def test_batched_fn_matches_jax(tile, core_mode):
                                      core_mode=core_mode, interpret=True)
     assert (fn.wings_stride is None) == (jfn.wings_stride is None) \
         == (tile == 256)
-    # The SoA rows are prepacked except for the splat under a "seg" core
-    # (JAX's wings_prepacked handle reports the stride alone).
+    # The SoA rows are prepacked except for the splat under a "seg" or
+    # "rows" core (JAX's wings_prepacked handle reports the stride alone).
     assert fn.wings_prepacked == (tile == 1024 or core_mode is None)
     assert fn.wings_tail_csr is None
     got = fn(T2, P2, X2).numpy()
@@ -240,6 +284,7 @@ def test_batched_fn_matches_jax(tile, core_mode):
     np.testing.assert_array_equal(fn.inner(T2, P2, X2).numpy(), got)
     soa, core = fn.assemble_layer(T2[1], P2[1], X2[1])
     assert soa.dim() == 2 and core.dim() == 2
+    assert core.shape[0] == (64 if core_mode == "rows" else 8)
 
 
 def test_batched_fn_envelope_guard():

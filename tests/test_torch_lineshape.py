@@ -329,3 +329,95 @@ def test_strided_tail_single_layer_matches_pallas():
     np.testing.assert_allclose(out1, out2, rtol=2e-6,
                                atol=abs(out1).max() * 1e-6)
     assert abs(out1).max() > 0
+
+
+# --- The rows core (K9) and the ownership-checked strided wings (K6). ---
+
+def rows_blocks(batched, tile=256):
+    """The rows plan over two layers' union core windows and its group
+    block (one layer or both)."""
+    layers, npv, n = small_layers()
+    arrays = [a for _, a in layers]
+    cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
+                 for k, a in layers], axis=0)
+    ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
+                 for k, a in layers], axis=0)
+    plan = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"],
+                       mode="rows")
+    return plan, plan.gather(stacked(arrays) if batched else arrays[0]), n
+
+
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_rows_pass_matches_pallas(batched, tile):
+    """The rows core (one layer and a two-layer batch over one plan)
+    against ``_pallas_rows_pass``; the core alone to 1e-6 of its scale, as
+    the JAX package's rows-vs-scalar core test holds it."""
+    plan, groups, n = rows_blocks(batched, tile)
+    lc.reset_launches()
+    got = plan.core_pass(torch.as_tensor(groups)).numpy()
+    assert sum(lc.LAUNCHES.values()) == 0
+    want = np.asarray(jlp._pallas_rows_pass(
+        jnp.asarray(groups), plan.g_start, plan.g_n, n, tile, plan.chunk,
+        interpret=True))
+    assert got.shape == want.shape == ((2, n) if batched else (n,))
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_rows_vmem_pass_matches_pallas():
+    """The rows core with the separate min-y block against
+    ``_pallas_rows_pass_vmem``, and against the rows core itself (the
+    same values in the same order)."""
+    plan, groups, n = rows_blocks(False)
+    ymin = lc.group_min_y(groups)
+    got = lc.rows_vmem_pass(torch.as_tensor(groups), torch.as_tensor(ymin),
+                            plan.g_start, plan.g_n, n, 256).numpy()
+    want = np.asarray(jlp._pallas_rows_pass_vmem(
+        jnp.asarray(groups), jnp.asarray(ymin), plan.g_start, plan.g_n, n,
+        256, interpret=True))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    np.testing.assert_array_equal(
+        got, plan.core_pass(torch.as_tensor(groups)).numpy())
+
+
+def test_checked_strided_wings_match_pallas():
+    """Mirrors tests/test_lineshape_pallas.py:322-363: the ownership-checked
+    strided wings on the straddle CSR against ``_pallas_pass_strided(
+    prepacked=False)`` (5e-6), one layer and a two-layer batch sharing the
+    CSR (layer 0 bit-identical to the single-layer pass)."""
+    layers, npv, n = small_layers()
+    arrays = layers[0][1]
+    tile, chunk = 1024, 128
+    soa, num = lc.pack_lines_soa(arrays, chunk)
+    s = arrays["s_idx"].astype(np.int64)
+    e = arrays["e_idx"].astype(np.int64)
+    stride = lc.pick_wings_stride(tile, int((e - s).max()) + 1)
+    assert stride in (256, 512)
+    assign = np.clip(s, 0, None) // stride
+    soa[lc._PAD, :num] = assign.astype(np.float32)
+    soa[lc._PAD, num:] = -1.0
+    st, nc = lc.strided_line_ranges(assign, (n - 1) // stride + 1,
+                                    chunk=chunk)
+    soa_b = np.stack([soa, soa * 1.0])
+    soa_b[1, lc.PREF] *= 0.5
+    lc.reset_launches()
+    got = lc.wings_strided_checked_pass(torch.as_tensor(soa), st, nc, n,
+                                        tile, stride, chunk).numpy()
+    got_b = lc.wings_strided_checked_pass(torch.as_tensor(soa_b), st, nc, n,
+                                          tile, stride, chunk).numpy()
+    assert sum(lc.LAUNCHES.values()) == 0
+    for data, out in ((soa, got), (soa_b, got_b)):
+        want = np.asarray(jlp._pallas_pass_strided(
+            jnp.asarray(data), st, nc, n, tile, stride, chunk=chunk,
+            interpret=True))
+        assert out.shape == want.shape
+        assert rel_err(out, want) < 5e-6
+    np.testing.assert_array_equal(got_b[0], got)
+    # Foreign lines add nothing: the tile splat over the same lines.
+    w_start, w_n = lc.tile_line_ranges(s, e, n, tile, chunk)
+    splat = lc.tile_pass(torch.as_tensor(soa), w_start, w_n, n, tile, chunk,
+                         "wings").numpy()
+    np.testing.assert_allclose(got, splat, atol=np.abs(splat).max() * 1e-6)

@@ -95,6 +95,33 @@ def test_multigas_matches_jax(packs, per_gas_f64, tile, wings_tail):
         assert rel(got[:, g], per_gas_f64[False][:, g], 1e-6) < 5e-4
 
 
+@pytest.mark.parametrize("tile,wings_tail", [(256, None), (512, 128)])
+def test_multigas_rows_core_matches_jax(packs, per_gas_f64, tile,
+                                        wings_tail):
+    """The stacked pipeline with core_mode="rows": the group block gathered
+    from the per-line kernel arrays on the device, raw splat rows when no
+    stride fits; against the JAX pipeline (interpret, 5e-6) and the
+    per-gas float64 path (5e-4)."""
+    tfn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=tile,
+                                          chunk=128, wings_tail=wings_tail,
+                                          core_mode="rows")
+    jfn = jlines.make_multigas_batched_fn(packs[0], GRID, tile=tile,
+                                          chunk=128, wings_tail=wings_tail,
+                                          core_mode="rows", interpret=True)
+    assert tfn.core_plan.mode == "rows"
+    assert (tfn.wings_stride is None) == (jfn.wings_stride is None) \
+        == (tile == 256)
+    assert tfn.wings_prepacked == (tile == 512)
+    soa, core = tfn.assemble(T, P, VMR)
+    assert core.shape[:2] == (2, 64) and core.is_contiguous()
+    got = tfn(*ARGS32).numpy()
+    want = np.asarray(jfn(*ARGS32))
+    assert got.shape == want.shape
+    assert rel(got, want, 1e-7) < 5e-6
+    for g in range(3):
+        assert rel(got[:, g], per_gas_f64[False][:, g], 1e-6) < 5e-4
+
+
 def test_multigas_total_and_envelope_guard(packs):
     fn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=256,
                                          chunk=128)

@@ -205,7 +205,7 @@ def test_layout_builders_identical(stacked):
 # --- Single-gas planners: kernel arrays, SoA, segment plans, device plan. ---
 
 MODES = [(None, None), (None, "tile"), (None, "seg"), ("seg", None),
-         ("seg", "seg")]
+         ("seg", "seg"), ("rows", None), ("rows", "tile")]
 
 
 def small_kin(step=0.2):
@@ -282,7 +282,7 @@ def test_segment_planners_identical(tile, sorted_):
 
 
 @pytest.mark.parametrize("mode,kind", [("seg", "core"), ("segmix", "core"),
-                                       ("seg", "wings")])
+                                       ("seg", "wings"), ("rows", "core")])
 def test_core_plan_modes_identical(mode, kind):
     kin, npv, n = small_kin()
     arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
@@ -296,9 +296,9 @@ def test_core_plan_modes_identical(mode, kind):
     want = jlp.CorePlan(lo, hi, n, 256, sort_key=arrays["y"], mode=mode,
                         kind=kind)
     for field in ("inst_line", "seg0", "t_start", "t_chunks", "slot",
-                  "c_slot"):
+                  "c_slot", "g_start", "g_n"):
         if getattr(want, field, None) is None:
-            assert getattr(got, field) is None
+            assert getattr(got, field, None) is None
         else:
             assert_same(getattr(got, field), getattr(want, field))
     assert got.num_instances == want.num_instances
@@ -310,8 +310,14 @@ def test_core_plan_modes_identical(mode, kind):
         assert_same(got.wings_params(ka), want.wings_params(ka, xp=np))
     else:
         assert_same(got.gather(arrays), want.gather(arrays))
-    with pytest.raises(NotImplementedError, match="K9"):
-        tlc.CorePlan(lo, hi, n, 256, mode="rows")
+    if mode == "rows":
+        # The segment-mode methods refuse a rows plan, as the JAX ones do.
+        tensors = {k: torch.as_tensor(v) for k, v in arrays.items()}
+        for method in (got.expand_line_arrays, got.seg_params):
+            with pytest.raises(ValueError, match="seg"):
+                method(dict(tensors, nu=tensors["y"]))
+        with pytest.raises(ValueError, match="seg"):
+            want.seg_params(arrays, xp=np)
 
 
 @pytest.mark.parametrize("step,tile", [(0.2, 256), (0.2, 1024), (0.02, 256)])
@@ -337,4 +343,48 @@ def test_make_device_plan_host_arrays_identical(step, tile, core_mode,
         if w is not None:
             assert g.mode == w.mode and g.kind == w.kind
             assert_same(g.inst_line, w.inst_line)
-            assert_same(g.t_chunks, w.t_chunks)
+            for field in (("g_start", "g_n") if w.mode == "rows"
+                          else ("t_chunks",)):
+                assert_same(getattr(g, field), getattr(w, field))
+
+
+@pytest.mark.parametrize("tile,sorted_", [(256, True), (1024, True),
+                                          (512, False)])
+def test_rows_planners_identical(tile, sorted_):
+    """build_core_groups, gather_group_params (one layer and a batch) and
+    group_min_y against the JAX planners, and the device gather of
+    CorePlan.group_params against the host block."""
+    kin, npv, n = small_kin()
+    arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    cs, ce = jlp.core_instance_windows(arrays, kin, n, npv, 25)
+    key = arrays["y"] if sorted_ else None
+    got = tlc.build_core_groups(cs, ce, n, tile, sort_key=key)
+    want = jlp.build_core_groups(cs, ce, n, tile, sort_key=key)
+    for g, w in zip(got, want):
+        assert_same(g, w)
+    batched = {k: np.stack([v, v[::-1]]) for k, v in arrays.items()}
+    plan = tlc.CorePlan(cs, ce, n, tile, sort_key=key, mode="rows")
+    for data in (arrays, batched):
+        block = tlc.gather_group_params(data, got[0])
+        assert_same(block, jlp.gather_group_params(data, want[0]))
+        assert block.flags["C_CONTIGUOUS"]
+        assert_same(tlc.group_min_y(block), jlp.group_min_y(block))
+        tensors = {k: torch.as_tensor(v) for k, v in data.items()}
+        assert_same(plan.group_params(tensors).numpy(), block)
+    assert np.all(block[..., tlc.YMIN_ROW + 1:, :] == 0)
+
+
+def test_strided_line_ranges_identical():
+    kin, npv, n = small_kin()
+    s = np.asarray(kin["s_idx"]).astype(np.int64)
+    for stride, chunk in ((256, 128), (512, 256), (128, 128)):
+        assign = np.clip(s, 0, None) // stride
+        num_tiles = (n - 1) // stride + 1
+        for got, want in zip(
+                tlc.strided_line_ranges(assign, num_tiles, chunk),
+                jlp.strided_line_ranges(assign, num_tiles, chunk)):
+            assert_same(got, want)
+    empty = np.zeros(0, np.int64)
+    for got, want in zip(tlc.strided_line_ranges(empty, 5),
+                         jlp.strided_line_ranges(empty, 5)):
+        assert_same(got, want)

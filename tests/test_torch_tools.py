@@ -1,0 +1,136 @@
+"""The port's tools (pylbl_tpu_torch/tools) on the CPU at a small size.
+
+Their workload and plan builders run on any device; their timing entry
+points need a CUDA card and refuse to run without one.  The stages are held
+against each other and against the JAX package's formulations at the
+tolerances of tests/test_torch_lineshape.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pylbl_tpu.ops import lineshape_pallas as jlp
+
+from pylbl_tpu_torch.ops import lineshape_cuda as lc
+from pylbl_tpu_torch.tools import (NoCudaError, batched_microbench,
+                                   headline_pack, kernel_microbench,
+                                   layer_workload, masked_evals, parity_ab)
+
+torch.set_num_threads(1)
+
+
+def rel_err(got, want, floor=1e-7):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.maximum(
+        np.abs(want), np.abs(want).max() * floor)).max())
+
+
+@pytest.fixture(scope="module")
+def work():
+    """The headline pack cut to 3000 lines below 260 cm-1, surface layer,
+    1-220 cm-1 at 0.1."""
+    return layer_workload(headline_pack(3000, nu_max=260.0),
+                          np.arange(1.0, 220.0, 0.1))
+
+
+def test_kernel_microbench_stages_on_cpu(work):
+    stages = kernel_microbench.build_stages(work, "cpu")
+    names = [name for name, _, _ in stages]
+    assert names[:8] == ["wings", "core-scalar", "core-rows",
+                         "core-rows-vmem", "core-seg", "core-segmix",
+                         "two-pass", "two-pass-seg"]
+    stride = lc.pick_wings_stride(1024, (2 * 25 + 1) * 10 + 1)
+    assert names[8:] == [f"wings-strided-checked[{stride}]",
+                         f"wings-strided[{stride}]", "two-pass-strided"]
+    lc.reset_launches()
+    out = {name: fn().numpy() for name, fn, _ in stages}
+    assert sum(lc.LAUNCHES.values()) == 0
+    n = work["n"]
+    assert all(v.shape == (n,) and np.isfinite(v).all()
+               for v in out.values())
+    np.testing.assert_array_equal(out["core-rows-vmem"], out["core-rows"])
+    core_scale = np.abs(out["core-scalar"]).max()
+    assert core_scale > 0
+    for name in ("core-rows", "core-seg", "core-segmix"):
+        np.testing.assert_allclose(out[name], out["core-scalar"], rtol=0,
+                                   atol=core_scale * 1e-6)
+    for name in (f"wings-strided-checked[{stride}]",
+                 f"wings-strided[{stride}]"):
+        assert rel_err(out[name], out["wings"]) < 5e-6
+    for name in ("two-pass", "two-pass-seg", "two-pass-strided"):
+        assert rel_err(out[name], out["wings"] + out["core-segmix"]) < 5e-6
+    assert masked_evals(work) == work["keep"] * 511
+
+
+def test_kernel_microbench_checked_wings_match_pallas(work):
+    """The tool's checked strided stage (assign = clip(s_idx, 0) // stride
+    on the straddle CSR) against the Pallas kernel on the same inputs."""
+    arrays, n = work["arrays"], work["n"]
+    soa, num = lc.pack_lines_soa(arrays, 512)
+    s = arrays["s_idx"].astype(np.int64)
+    stride = 512
+    assign = np.clip(s, 0, None) // stride
+    soa[lc._PAD, :num] = assign.astype(np.float32)
+    soa[lc._PAD, num:] = -1.0
+    st, nc = lc.strided_line_ranges(assign, (n - 1) // stride + 1)
+    want = np.asarray(jlp._pallas_pass_strided(
+        jnp.asarray(soa), st, nc, n, 1024, stride, interpret=True))
+    stages = {name: fn for name, fn, _ in
+              kernel_microbench.build_stages(work, "cpu")}
+    got = stages[f"wings-strided-checked[{stride}]"]().numpy()
+    assert rel_err(got, want) < 5e-6
+
+
+def test_parity_ab_compare_on_cpu(work):
+    records = list(parity_ab.compare(work, "cpu"))
+    assert [(c, w) for c, w, *_ in records] == list(parity_ab.PAIRS)
+    for core_mode, wings_mode, err, rel, _ in records:
+        assert np.isfinite(err) and rel < 5e-6, (core_mode, wings_mode)
+
+
+@pytest.mark.parametrize("core_mode", ["rows", None])
+def test_batched_microbench_stages_on_cpu(core_mode):
+    pack = headline_pack(3000, nu_max=260.0)
+    fn, (t, p, x) = batched_microbench.build(
+        pack, np.arange(1.0, 220.0, 0.1), 2, core_mode=core_mode)
+    stages = dict(batched_microbench.build_stages(fn, t, p, x))
+    assert list(stages)[:2] == ["physics", "assemble(phys+blocks)"]
+    soa, core = stages["assemble(phys+blocks)"]()
+    wings_name, core_name = list(stages)[2:4]
+    assert wings_name == f"wings[{fn.wings_stride}]"
+    assert core_name.startswith(f"core-{core_mode or 'segmix'}[")
+    full = stages["full"]()
+    total = stages[wings_name]() + stages[core_name]()
+    np.testing.assert_array_equal(full.numpy(), total.numpy())
+    assert rel_err(full.numpy(), fn(t, p, x).numpy()) == 0
+
+
+def test_batched_microbench_splat_takes_the_pipelines_pass_kind():
+    """At 0.02 cm-1 no stride fits and a "seg" core takes raw splat rows
+    (``wings_prepacked`` False): the tool's wings stage runs the raw
+    Lorentzian, where the JAX tool's hard-coded "wings_pre" would read the
+    raw rows as prepacked ones."""
+    pack = headline_pack(3000, nu_max=260.0)
+    fn, (t, p, x) = batched_microbench.build(
+        pack, np.arange(1.0, 220.0, 0.02), 2, core_mode="seg")
+    assert fn.wings_stride is None and not fn.wings_prepacked
+    soa, _ = fn.stage.assemble(t, p, x)
+    got = batched_microbench.wings_stage(fn, soa)().numpy()
+    np.testing.assert_array_equal(got, fn.wings_pass(soa).numpy())
+    start, nchunks = fn.wings_csr
+    prepacked = lc.tile_pass(soa, start, nchunks, fn.core_plan.num_points,
+                             fn.core_plan.tile, fn.wings_chunk,
+                             "wings_pre").numpy()
+    assert rel_err(prepacked, got) > 1e-2
+
+
+@pytest.mark.parametrize("tool", [kernel_microbench, parity_ab,
+                                  batched_microbench])
+def test_tools_refuse_to_run_without_cuda(tool, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaError, match="CUDA"):
+        tool.run()
+    assert tool.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().out
