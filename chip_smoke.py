@@ -17,7 +17,8 @@ kernels and the native pedestal scan from this checkout into ``build/``
 4. main path at 0.01 cm-1 (splat wings): the same gases, 4 layers, grid
    1-1000 cm-1 (100k points per gas);
 5. each kernel against its plain PyTorch version on inputs taken from
-   phases 3 and 4 (2 layers), max rel diff below 5e-6, with both times;
+   phases 3 and 4 (2 layers), bit for bit, with both times; the wings and
+   the core of phase 3 also at all 16 layers;
 6. the float32 main path against the plain path in float64 on the card,
    2 layers of phase 3, rel below 5e-4;
 7. phase 3's call run twice gives bit-identical results;
@@ -47,6 +48,20 @@ kernels and the native pedestal scan from this checkout into ``build/``
     CSR, and the port's ``kernel_microbench`` and ``parity_ab`` tools at
     the headline size; each new kernel equals its plain version bit for
     bit.
+
+Every kernel equals its plain version bit for bit.  Each kernel record
+carries its launches on its path, its time and its plain version's, and
+its bound: the larger of the operations its inputs need over 67 TFLOP/s
+(FP32 outside the tensor cores) and its input and output bytes over 3.35
+TB/s (H100 SXM).  Operations are counted per in-window evaluation from
+``pylbl_tpu_torch/csrc/lineshape.cu`` (each add, multiply, divide, sqrt
+and exp one): the Lorentzian 7 (10 in the segment pass, which forms the
+strength per point), a Humlicek k1 correction 28 and a k12/k123/full
+correction 41 (region 1's path, the one beyond xlim1, about nine tenths
+of a core window; the points nearer the center cost more, so the bound
+stays below the work).  No single PyTorch call computes a windowed line
+sum, so ``library_ms`` is null.  The split kernels' records also carry
+their piece counts.
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -105,8 +120,18 @@ KERNELS = {
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
-KERNEL_TOL = 5e-6
 PARITY_TOL = 5e-4
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores and
+# HBM3 bytes per second.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per in-window evaluation (csrc/lineshape.cu): the Lorentzian
+# of the tile kernel, of the segment pass, and the Humlicek correction of
+# class k1 and of the other classes (region 1's path).
+OPS_LORENTZ = 7
+OPS_SEG_LORENTZ = 10
+OPS_K1 = 28
+OPS_REGIONS = 41
 CUT_OFF = 25
 # The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
 SURFACE = (288.99, 98388.0, 6.637074e-03)
@@ -197,6 +222,86 @@ def rel_diff(got, want, floor):
     return float((diff / den).max()), float(diff.max())
 
 
+def class_ops(torch, y):
+    """Operations per evaluated point of the correction class picked from
+    ``y`` (0 where y >= 70.55: skipped)."""
+    ops = torch.where(y >= 8.425, float(OPS_K1), float(OPS_REGIONS))
+    return torch.where(y >= 70.55, 0.0, ops.double())
+
+
+def tile_ops(torch, lc, soa, num_points, line):
+    """Operations the tile kernel's inputs need: each line's in-grid window
+    points (dead lines have empty windows), at the Lorentzian's cost or,
+    for the correction line function, at its own y's class."""
+    s = soa[..., lc.S_IDX, :].double().clamp_min(0)
+    e = soa[..., lc.E_IDX, :].double().clamp_max(num_points - 1)
+    points = (e - s + 1).clamp_min(0)
+    if line == "corr":
+        return float((points * class_ops(torch, soa[..., lc.Y, :])).sum())
+    return OPS_LORENTZ * float(points.sum())
+
+
+def core_ops(torch, lc, params):
+    """Operations of a segment core's parameter block: each instance's
+    in-window offsets of its 32-point segment, at its chunk's class."""
+    blocks = params.reshape(-1, lc.SEGP_ROWS, params.shape[-1] // 128, 128)
+    s = blocks[:, lc.SR_SREL].double().clamp_min(0)
+    e = blocks[:, lc.SR_EREL].double().clamp_max(31)
+    points = (e - s + 1).clamp_min(0).sum(dim=-1)
+    return float((points * class_ops(torch, blocks[:, lc.SR_Y].amin(-1)))
+                 .sum())
+
+
+def seg_wings_ops(torch, lc, params, plan):
+    """Operations of the segment wings: each instance's window points in
+    its chunk's 32-point segment."""
+    dev = params.device
+    chunk_tile = torch.repeat_interleave(
+        torch.arange(plan.t_chunks.size, device=dev),
+        torch.as_tensor(plan.t_chunks, device=dev).long())
+    slot = torch.as_tensor(plan.c_slot[:chunk_tile.numel()], device=dev)
+    lo = (chunk_tile * plan.tile + 32 * slot).double()[:, None]
+    blocks = params.reshape(lc.SEGP_ROWS, -1, 128)[:, :chunk_tile.numel()]
+    s = torch.maximum(blocks[lc.S_IDX].double(), lo)
+    e = torch.minimum(blocks[lc.E_IDX].double(), lo + 31)
+    return OPS_SEG_LORENTZ * float((e - s + 1).clamp_min(0).sum())
+
+
+def rows_ops(torch, lc, groups, g_n, tile):
+    """Operations of the rows core: each group's instance r over the
+    in-window points of row r of its tile, at the group's class."""
+    dev = groups.device
+    g = groups if groups.dim() == 3 else groups[None]
+    row_w = tile // 8
+    tiles = torch.repeat_interleave(
+        torch.arange(len(g_n), device=dev),
+        torch.as_tensor(g_n, device=dev).long() * 128)
+    lo = (tiles[None, :] * tile + row_w * torch.arange(8, device=dev)[:, None]
+          ).double()                                       # [8, G]
+    s = torch.maximum(g[:, 5 * 8:6 * 8].double(), lo)
+    e = torch.minimum(g[:, 6 * 8:7 * 8].double(), lo + row_w - 1)
+    points = (e - s + 1).clamp_min(0).sum(dim=1)           # [B, G]
+    return float((points * class_ops(torch, g[:, lc.YMIN_ROW])).sum())
+
+
+def core_csr(plan, params):
+    """A segment plan's chunk CSR (and per-stream chunk slots) on the
+    parameters' device."""
+    consts = plan._device_consts(params.device)
+    return consts["t_start"], consts["t_chunks"], consts["c_slot"]
+
+
+def set_bound(record, ops, inputs, out):
+    """The record's bound: the larger of its operations over the FP32 peak
+    and its input and output bytes over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs
+                 if t is not None) + out.numel() * out.element_size()
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    record.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  operations=ops, bytes=nbytes)
+
+
 def total_of(result):
     return np.asarray(result["absorption"].data)
 
@@ -255,40 +360,63 @@ def breakdown(torch, spec, dataset):
     stats.sort_stats("cumulative").print_stats(12)
 
 
-def phase_kernels(torch, lc, fn, dataset, kernels, records):
-    """Kernel vs plain on the pipeline's own inputs (first 2 layers)."""
-    t = np.asarray(dataset["t"].data)[:2]
-    p = np.asarray(dataset["p"].data)[:2]
-    x = np.stack([np.asarray(dataset[n.lower()].data)[:2] for n in fn.names],
-                 axis=1)
+def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
+    """Kernel vs plain on the pipeline's own inputs (the first ``layers``
+    layers), with each kernel's bound and piece counts."""
+    t = np.asarray(dataset["t"].data)[:layers]
+    p = np.asarray(dataset["p"].data)[:layers]
+    x = np.stack([np.asarray(dataset[n.lower()].data)[:layers]
+                  for n in fn.names], axis=1)
     soa, core = fn.assemble(t, p, x)
+    stage = fn.stage
     for name in kernels:
-        if name == "core_segmix":
-            run, run_plain = (lambda: fn.core_pass(core),
-                              lambda: fn.core_pass(core, plain=True))
+        if name.startswith("core_segmix"):
+            compare_kernel(torch, name, lambda: fn.core_pass(core),
+                           lambda: fn.core_pass(core, plain=True),
+                           records[name], reps=20,
+                           ops=core_ops(torch, lc, core),
+                           inputs=[core, *core_csr(stage.core_plan, core)],
+                           pieces=stage.core_plan.pieces)
         else:
-            run, run_plain = (lambda: fn.wings_pass(soa),
-                              lambda: fn.wings_pass(soa, plain=True))
-        compare_kernel(torch, name, run, run_plain, records[name], reps=20)
+            compare_kernel(torch, name, lambda: fn.wings_pass(soa),
+                           lambda: fn.wings_pass(soa, plain=True),
+                           records[name], reps=20,
+                           ops=tile_ops(torch, lc, soa, stage.n_out, "pre"),
+                           inputs=[soa, *stage.csr_dev],
+                           pieces=stage.wings_pieces)
 
 
-def compare_kernel(torch, name, run, run_plain, record, reps=10):
-    """One kernel against its plain version on the same inputs: max rel
-    and abs difference, kernel ms (``reps`` after a warm-up) and plain ms
-    (one rep after the call that gives the reference)."""
+def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
+                   inputs=(), pieces=None):
+    """One kernel against its plain version on the same inputs: bit for
+    bit, kernel ms (``reps`` after a warm-up) and plain ms (one rep after
+    the call that gives the reference); with ``ops`` the record's bound
+    over ``inputs`` and the output, with ``pieces`` (a TilePieces) its
+    piece counts."""
     got = run()
     want = run_plain()
     torch.cuda.synchronize()
     rel, err = rel_diff(got, want, 1e-7)
     ms = kernel_ms(torch, run, reps)
     plain_ms = kernel_ms(torch, run_plain, 1, warm=False)
+    record = {} if record is None else record
+    record.update(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                  library_ms=None)
+    if ops is not None:
+        set_bound(record, ops, inputs, got)
+    if pieces is not None:
+        record.update(pieces.stats())
+    bound = (f", bound {record['bound_ms']:.6f} ms ({record['bound_by']}: "
+             f"{record['operations']:.6e} operations, {record['bytes']} "
+             "bytes)") if ops is not None else ""
+    split = (f", {record['pieces']} pieces (most chunks: "
+             f"{record['most_chunks_tile']} in a tile, "
+             f"{record['most_chunks_piece']} in a piece)"
+             if pieces is not None else "")
     print(f"{name}: shape {tuple(got.shape)}, max rel {rel:.3e}, max abs "
-          f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    check(rel < KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain "
-          "version")
-    if record is not None:
-        record.update(max_abs_err=err, max_rel_err=rel, ms=ms,
-                      plain_ms=plain_ms)
+          f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{bound}"
+          f"{split}")
+    check(err == 0, f"{name} equals its plain version bit for bit")
     return got
 
 
@@ -370,12 +498,19 @@ def phase_gas(torch, P, lc, fixtures, records, card):
     check(plan.wings_stride is not None and np.array_equal(
         plan().cpu().numpy().astype(np.float64), k),
         "the device plan gives the Gas spectrum (strided wings)")
-    for name, run, run_plain in (
-            ("wings_strided_single", plan.wings_pass,
-             lambda: plan.wings_pass(plain=True)),
-            ("core_segmix_single", plan.core_pass,
-             lambda: plan.core_pass(plain=True))):
-        compare_kernel(torch, name, run, run_plain, records[name], reps=20)
+    compare_kernel(torch, "wings_strided_single", plan.wings_pass,
+                   lambda: plan.wings_pass(plain=True),
+                   records["wings_strided_single"], reps=20,
+                   ops=tile_ops(torch, lc, plan.soa, n, "pre"),
+                   inputs=[plan.soa, plan.w_start, plan.w_n],
+                   pieces=plan.wings_pieces)
+    compare_kernel(torch, "core_segmix_single", plan.core_pass,
+                   lambda: plan.core_pass(plain=True),
+                   records["core_segmix_single"], reps=20,
+                   ops=core_ops(torch, lc, plan.groups),
+                   inputs=[plan.groups, *core_csr(plan.core, plan.groups)],
+                   pieces=plan.core.pieces)
+    for name in ("wings_strided_single", "core_segmix_single"):
         records[name]["launches"] = counts[name]
     lines_ms = kernel_ms(torch, plan, 20)
     evals = keep * ((2 * CUT_OFF + 1) * npv + 1)
@@ -404,11 +539,17 @@ def phase_gas(torch, P, lc, fixtures, records, card):
     check(plan_f.wings_stride is None, "0.01 cm-1 takes the splat wings")
     compare_kernel(torch, "tile_lorentz", plan_f.wings_pass,
                    lambda: plan_f.wings_pass(plain=True),
-                   records["tile_lorentz"])
+                   records["tile_lorentz"],
+                   ops=tile_ops(torch, lc, plan_f.soa, n_f, "raw"),
+                   inputs=[plan_f.soa, plan_f.w_start, plan_f.w_n],
+                   pieces=plan_f.wings_pieces)
     records["tile_lorentz"]["launches"] = counts9["tile_lorentz"]
     compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
                    plan_f.core_pass, lambda: plan_f.core_pass(plain=True),
-                   None)
+                   None, ops=core_ops(torch, lc, plan_f.groups),
+                   inputs=[plan_f.groups,
+                           *core_csr(plan_f.core, plan_f.groups)],
+                   pieces=plan_f.core.pieces)
     return gas, gas64, grid, kin, arrays, npv, n, plan, k64
 
 
@@ -469,9 +610,21 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                         out.cpu().numpy().astype(np.float64), k64)
         run = alt.core_pass if stage == "core" else alt.wings_pass
         own = name != "tile_lorentz"    # tile_lorentz's record is phase 9's
+        pieces = None
+        if stage == "core":
+            ops = core_ops(torch, lc, alt.groups)
+            inputs = [alt.groups, *core_csr(alt.core, alt.groups)]
+        elif own:
+            ops = seg_wings_ops(torch, lc, alt.soa, alt.wings)
+            inputs = [alt.soa, *core_csr(alt.wings, alt.soa)]
+        else:
+            ops = tile_ops(torch, lc, alt.soa, n, "raw")
+            inputs = [alt.soa, alt.w_start, alt.w_n]
+            pieces = alt.wings_pieces
         compare_kernel(torch, name if own else f"{name} at 0.1 cm-1", run,
                        lambda: run(plain=True),
-                       records[name] if own else None)
+                       records[name] if own else None, ops=ops,
+                       inputs=inputs, pieces=pieces)
         if own:
             records[name]["launches"] = counts[name]
 
@@ -501,7 +654,10 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                     .astype(np.float64), k64)
     compare_kernel(torch, "tile_correction", scalar_core,
                    lambda: scalar_core(plain=True),
-                   records["tile_correction"])
+                   records["tile_correction"],
+                   ops=tile_ops(torch, lc, soa, n, "corr"),
+                   inputs=[soa, c_start, c_n],
+                   pieces=lc.TilePieces.of_csr(c_n))
     records["tile_correction"]["launches"] = counts["tile_correction"]
 
     # The single-layer strided wings on a two-class (tail) layout.
@@ -532,7 +688,10 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                     .astype(np.float64), k64)
     compare_kernel(torch, "wings_strided_tail_single", tail_wings,
                    lambda: tail_wings(plain=True),
-                   records["wings_strided_tail_single"])
+                   records["wings_strided_tail_single"],
+                   ops=tile_ops(torch, lc, soa_t, n, "pre"),
+                   inputs=[soa_t, *csr],
+                   pieces=lc.TilePieces.of_csr(lay.w_n, lay.t_n))
     records["wings_strided_tail_single"]["launches"] = \
         counts["wings_strided_tail_single"]
 
@@ -548,11 +707,9 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     from pylbl_tpu_torch.parallel.lines import make_batched_fn
     from pylbl_tpu_torch.tools import kernel_microbench, parity_ab
 
-    def exact(name, run, run_plain, reps=10):
-        got = compare_kernel(torch, name, run, run_plain, records[name], reps)
-        check(records[name]["max_rel_err"] == 0,
-              f"{name} equals its plain version bit for bit")
-        return got
+    def exact(name, run, run_plain, **work):
+        return compare_kernel(torch, name, run, run_plain, records[name],
+                              **work)
 
     # The headline layer's rows device plans (strided and tile wings).
     rows_plans = {}
@@ -575,7 +732,10 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
                         out.cpu().numpy().astype(np.float64), k64)
         if not rows_plans:
             exact("core_rows_single", alt.core_pass,
-                  lambda: alt.core_pass(plain=True))
+                  lambda: alt.core_pass(plain=True),
+                  ops=rows_ops(torch, lc, alt.groups, alt.core.g_n, 1024),
+                  inputs=[alt.groups, *(torch.as_tensor(a) for a in
+                                        (alt.core.g_start, alt.core.g_n))])
             records["core_rows_single"]["launches"] = \
                 counts["core_rows_single"]
         rows_plans[label] = alt
@@ -593,7 +753,9 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
             return lc.rows_plain(groups, g_start, g_n, n, 1024, ymin=ymin)
         return lc.rows_vmem_pass(groups, ymin, g_start, g_n, n, 1024)
 
-    got = exact("core_rows_vmem", vmem, lambda: vmem(True))
+    got = exact("core_rows_vmem", vmem, lambda: vmem(True),
+                ops=rows_ops(torch, lc, groups, alt.core.g_n, 1024),
+                inputs=[groups, ymin, g_start, g_n])
     check(torch.equal(got, alt.core_pass()), "core_rows_vmem equals the "
           "rows kernel bit for bit")
 
@@ -613,7 +775,8 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
         return fn(soa, st, nc, n, 1024, stride)
 
     got = exact("wings_strided_checked_single", checked,
-                lambda: checked(True))
+                lambda: checked(True), ops=tile_ops(torch, lc, soa, n, "own"),
+                inputs=[soa, st, nc], pieces=lc.TilePieces.of_csr(nc))
     ref = plan.wings_pass()
     rel = float((got - ref).abs().max() / ref.abs().max())
     print(f"phase 12 checked strided wings ({int(nc.sum())} chunk visits "
@@ -646,7 +809,10 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
                   for a in (t, p, x))
     _, core = fn.stage.assemble(tt, pp, xx)
     exact("core_rows", lambda: fn.core_pass(core),
-          lambda: fn.core_pass(core, plain=True))
+          lambda: fn.core_pass(core, plain=True),
+          ops=rows_ops(torch, lc, core, fn.core_plan.g_n, 1024),
+          inputs=[core, *(torch.as_tensor(a) for a in
+                          (fn.core_plan.g_start, fn.core_plan.g_n))])
     records["core_rows"]["launches"] = counts["core_rows"]
 
     # The checked wings on two of the column's layers with one CSR, at the
@@ -678,7 +844,9 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     torch.cuda.synchronize()
     records["wings_strided_checked"]["launches"] = \
         lc.LAUNCHES["wings_strided_checked"]
-    exact("wings_strided_checked", checked2, lambda: checked2(True))
+    exact("wings_strided_checked", checked2, lambda: checked2(True),
+          ops=tile_ops(torch, lc, soa2, n, "own"), inputs=[soa2, st2, nc2],
+          pieces=lc.TilePieces.of_csr(nc2))
     for b in range(2):
         one = lc.wings_strided_checked_pass(soa2[b], st2, nc2, n, 1024,
                                             stride)
@@ -704,6 +872,23 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     for core_mode, wings_mode, _, rel, _ in parity_ab.run(work=work):
         check(rel < PARITY_TOL, f"parity_ab core={core_mode} "
               f"wings={wings_mode} within {PARITY_TOL} of float64")
+
+
+def print_ptxas(log):
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
+    registers, shared memory and spill bytes."""
+    name = None
+    spills = ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            print(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; "
+                  f"{spills}")
+            name, spills = None, ""
 
 
 def main():
@@ -748,9 +933,7 @@ def main():
         native_s = pool.submit(timed_build, native.load)
         print(f"build: CUDA kernels {cuda_s.result():.2f} s, native scan "
               f"{native_s.result():.2f} s (concurrent)")
-    for line in build.BUILD_LOGS.get("liblineshape_cuda.so", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas(build.BUILD_LOGS.get("liblineshape_cuda.so", ""))
 
     records = {name: {"name": name, "route": "cuda",
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
@@ -807,14 +990,22 @@ def main():
           "0.1 cm-1 takes the strided wings, 0.01 cm-1 the splat wings")
     phase_kernels(torch, lc, fn_a, col_a, ["wings_strided", "core_segmix"],
                   records)
-    splat = {"wings_splat": records["wings_splat"],
-             "core_segmix": dict(records["core_segmix"])}
-    phase_kernels(torch, lc, fn_b, col_b, ["wings_splat", "core_segmix"],
-                  splat)
-    print(f"core_segmix at 0.01 cm-1 shapes: max rel "
-          f"{splat['core_segmix']['max_rel_err']:.3e}, kernel "
-          f"{splat['core_segmix']['ms']:.4f} ms, plain "
-          f"{splat['core_segmix']['plain_ms']:.4f} ms")
+    phase_kernels(torch, lc, fn_b, col_b,
+                  ["wings_splat", "core_segmix at 0.01 cm-1"],
+                  {"wings_splat": records["wings_splat"],
+                   "core_segmix at 0.01 cm-1": None})
+    # The same two kernels of phase 3 at all 16 layers: with the chunk
+    # walk split into pieces their time grows with the layers.
+    sixteen = {"wings_strided": {}, "core_segmix": {}}
+    phase_kernels(torch, lc, fn_a, col_a, list(sixteen), sixteen,
+                  layers=16)
+    for name, record in sixteen.items():
+        records[name].update(ms_16_layers=record["ms"],
+                             plain_ms_16_layers=record["plain_ms"],
+                             bound_ms_16_layers=record["bound_ms"])
+    pieces = fn_a.core_plan.pieces
+    print(f"core_segmix scratch at 16 layers: {pieces.num_slots} slots of "
+          f"split tiles per layer, {16 * pieces.num_slots * 1024 * 4} bytes")
 
     # Phase 6: float32 kernels vs the float64 plain path, 2 layers.
     two = sub_column(col_a, [0, 15], P.Dataset)
@@ -852,9 +1043,12 @@ def main():
     phase_rows(torch, lc, gas, gas64, grid_h, kin, arrays, npv, n, plan, k64,
                col_a, records)
     for name, record in records.items():
-        check(record.get("launches", 0) > 0 and "max_rel_err" in record,
-              f"{name} launched on its path and compared with its plain "
-              "version")
+        check(record.get("launches", 0) > 0 and all(
+            key in record for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")),
+              f"{name} launched on its path, compared with its plain "
+              "version and bounded")
 
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     print(card)

@@ -22,14 +22,23 @@
 //   the tile index as float32: the ownership-checked strided wings over a
 //   straddle CSR, where neighbouring tiles read shared chunks (replaces
 //   _tile_kernel_strided(_batched)); a zeroed foreign line adds +0.0.
-//   A single layer is a batch of one.  One block per (tile, layer); 256
-//   threads each own tile/256 output points; each chunk of the 8-row SoA is
-//   staged in shared memory and its lines are walked in order into a
-//   per-chunk partial that then lands in the tile accumulator (two-level
-//   summation).  PRE and RAW are one IEEE f32 divide per line-point: bound
-//   by the divide sequence, every line read once per tile as a shared-
-//   memory broadcast.  CORR is bound by the Humlicek rationals; its point
-//   loop is not unrolled, so the four class bodies are compiled once each.
+//   A single layer is a batch of one.  On this card the work is set by the
+//   in-window line-points (about 7 operations each, one an IEEE f32
+//   divide: compute-bound, tens of microseconds on a layer), but a tile's
+//   chunk count is very uneven (up to ~70 chunks against a mean of ~12 on
+//   the headline layer), so one block per tile made the kernel as long as
+//   its busiest tile's serial walk.  The design: the tile's chunk walk
+//   (main chunks, then tail chunks) is cut into pieces of at most K
+//   chunks (the host's piece list, ops/lineshape_cuda.py TilePieces), one
+//   block of 256 threads per (piece, layer), each thread owning tile/256
+//   output points; chunk k+1 of the 8-row SoA is copied into a 2-stage
+//   shared-memory ring with cp.async while chunk k's lines are walked in
+//   order into a per-chunk partial that lands in the piece accumulator;
+//   a warp skips a (line, point group) whose window misses its 32
+//   consecutive points (the term would add +0.0, so the sums are
+//   unchanged).  Pieces fold into the tile in piece order (piece_store).
+//   CORR is bound by the Humlicek rationals; its point loop is not
+//   unrolled, so the four class bodies are compiled once each.
 //
 // pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
 //   _seg_kernel_batched).  One block of 4 warps per (tile, layer) walks the
@@ -45,16 +54,33 @@
 //
 // pylbl_core_segmix: mixed-slot segment-32 Humlicek core correction
 //   (replaces _seg_kernel_mixed(_batched) with _seg_chunk_accumulate_mixed;
-//   a single layer is a batch of one).
-//   One block of 4 warps per (tile, layer).  Per 128-instance chunk: stage
-//   the 8 parameter rows, reduce min y, pick the correction class once for
-//   the chunk (block-uniform branch), then warp w walks instances
-//   32w..32w+31 in order with lane = point offset in the 32-point segment,
-//   adding pref * (K_class - K_lorentz) into its private [slot][offset]
-//   partial tile in shared memory.  The four partials are summed in warp
-//   order into the tile accumulator.  Direct indexed adds replace the TPU's
-//   one-hot matrix product: no tensor cores (TF32 would round the values),
-//   no atomics (runs are bit-identical).  Bound by the Humlicek math.
+//   a single layer is a batch of one).  Bound on this card by the
+//   Humlicek math of the in-window instance points (microseconds per
+//   layer), but one block per (tile, layer) walked all of its tile's
+//   chunks in order, and the busiest tile holds ~35x the mean (519 of a
+//   mean 15 on the 7-gas 0.1 cm-1 column), so the walk of one tile, with
+//   one warp per scheduler waiting on its dependent chain, set the time.
+//   The design: the tile's chunk walk is cut into pieces of at most K
+//   chunks, one block of 4 warps per (piece, layer).  Per 128-instance
+//   chunk: the 8 parameter rows of chunk k+1 are copied into a 2-stage
+//   shared-memory ring with cp.async while chunk k is worked; reduce min
+//   y, pick the correction class once for the chunk (block-uniform
+//   branch; skip at >= 70.55), then warp w walks instances 32w..32w+31 in
+//   order with lane = point offset in the 32-point segment, adding
+//   pref * (K_class - K_lorentz) into its private [slot][offset] partial
+//   tile in shared memory.  The four partials are summed in warp order
+//   into the piece accumulator (per-chunk partials), and the pieces fold
+//   into the tile in piece order (piece_store).  Direct indexed adds
+//   replace the TPU's one-hot matrix product: no tensor cores (TF32 would
+//   round the values), no float atomics (runs are bit-identical).
+//
+// Piece split (pylbl_wings, pylbl_core_segmix): piece j of tile t walks
+//   chunks jK .. min(jK + K, count) - 1 of the tile's walk.  A tile of one
+//   piece writes its sum directly.  A split tile's pieces each write their
+//   partial tile to a scratch slot, fence, and count themselves on the
+//   tile's integer counter; the block that counts last adds the slots in
+//   piece order, ((0 + P0) + P1) + ..., into the output.  The order is
+//   fixed, so repeated runs are bit-identical.
 //
 // pylbl_rows: the rows core (replaces _rows_kernel, _rows_kernel_batched
 //   and, with a separate [B, 1, G] min-y block, _rows_kernel_vmem).  A
@@ -289,99 +315,184 @@ __device__ __forceinline__ float correction_of_line(float x, float y)
     return correction<4>(x, y);
 }
 
+// ---- Piece split and ordered fold (shared by the tile and core kernels) --
+
+// The host's piece list (ops/lineshape_cuda.py TilePieces): block x of a
+// launch is piece x of tile tile[x]; tile t owns pieces first[t] ..
+// first[t] + count[t] - 1 and, when count[t] > 1, the scratch slots
+// slot[t] .. slot[t] + count[t] - 1 of each layer.  done[B, T] counts the
+// finished pieces of each (layer, tile); the caller zeroes it.
+struct Pieces {
+    const int* tile;
+    const int* first;
+    const int* count;
+    const int* slot;
+    int num_slots;
+    int piece;          // K: chunks per piece
+    float* scratch;     // [B, num_slots, tile]
+    int* done;          // [B, T]
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src)
+{
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for every copy group of this thread but the newest.
+__device__ __forceinline__ void cp_async_wait_prev()
+{
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Where piece j of tile t writes its partial tile: the output tile itself
+// when the tile is one piece, else the piece's scratch slot.
+__device__ __forceinline__ float* piece_dst(const Pieces& pc, float* o,
+                                            int b, int t, int j, int tile)
+{
+    if (pc.count[t] == 1) return o;
+    return pc.scratch + ((long long)b * pc.num_slots + pc.slot[t] + j)
+        * tile;
+}
+
+// After every thread wrote its part of piece_dst: the block that finishes
+// a split tile's last piece adds the slots in piece order into ``o``.
+__device__ __forceinline__ void piece_fold(const Pieces& pc, float* o,
+                                           int b, int t, int num_tiles,
+                                           int tile)
+{
+    __shared__ int last;
+    const int n = pc.count[t];
+    if (n == 1) return;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        last = atomicAdd(pc.done + (long long)b * num_tiles + t, 1) == n - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* s = pc.scratch + ((long long)b * pc.num_slots + pc.slot[t])
+        * tile;
+    for (int c = threadIdx.x; c < tile; c += blockDim.x) {
+        float sum = 0.0f;
+        for (int i = 0; i < n; ++i) sum = sum + __ldcg(s + (long long)i * tile
+                                                       + c);
+        o[c] = sum;
+    }
+}
+
 template <int PPT, int LINE>
 __global__ void __launch_bounds__(kWingsThreads)
 wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
              const int* __restrict__ w_start, const int* __restrict__ w_n,
              const int* __restrict__ t_start, const int* __restrict__ t_n,
              long long csr_b, float* __restrict__ out, int num_tiles,
-             int tile, int stride, int chunk, int tail)
+             int tile, int stride, int chunk, int tail, Pieces pc)
 {
     // OWN also stages the _PAD row (each line's assigned tile).
     constexpr int kStaged = LINE == kLineOwn ? 8 : 7;
-    __shared__ float buf[kStaged][kMaxChunk];
-    const int t = blockIdx.x;
+    __shared__ float buf[2][kStaged][kMaxChunk];
     const int b = blockIdx.y;
+    const int t = pc.tile[blockIdx.x];
+    const int piece = blockIdx.x - pc.first[t];
     const float tile_f = (float)t;
     const float* lines = soa + b * soa_b;
     const long long csr = b * csr_b + t;
+    // The tile's walk: its main chunks, then its tail chunks.
+    const int n_main = w_n[csr];
+    const int n_walk = n_main + (t_start == nullptr ? 0 : t_n[csr]);
+    const int k0 = piece * pc.piece;
+    const int k1 = min(k0 + pc.piece, n_walk);
 
-    float point[PPT], acc[PPT];
+    float point[PPT], lo[PPT], hi[PPT], acc[PPT];
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
         point[j] = (float)(t * stride + threadIdx.x + j * kWingsThreads);
+        // The 32 consecutive points warp (threadIdx.x / 32) holds for j.
+        lo[j] = (float)(t * stride + (int)(threadIdx.x & ~31u)
+                        + j * kWingsThreads);
+        hi[j] = lo[j] + 31.0f;
         acc[j] = 0.0f;
     }
-    for (int cls = 0; cls < 2; ++cls) {
-        int base, count, width;
-        if (cls == 0) {
-            base = w_start[csr];
-            count = w_n[csr];
-            width = chunk;
-        } else {
-            if (t_start == nullptr) break;
-            base = t_start[csr];
-            count = t_n[csr];
-            width = tail;
+    auto width_of = [&](int k) { return k < n_main ? chunk : tail; };
+    auto stage = [&](int k, int s) {
+        const int width = width_of(k);
+        const long long line0 = k < n_main
+            ? (long long)w_start[csr] + (long long)k * chunk
+            : (long long)t_start[csr] + (long long)(k - n_main) * tail;
+        for (int i = threadIdx.x; i < kStaged * width; i += kWingsThreads) {
+            const int r = i / width;
+            const int l = i - r * width;
+            cp_async4(&buf[s][r][l], lines + r * soa_r + line0 + l);
         }
-        for (int k = 0; k < count; ++k) {
-            const long long line0 = (long long)base + (long long)k * width;
-            __syncthreads();
-            for (int i = threadIdx.x; i < kStaged * width;
-                 i += kWingsThreads) {
-                const int r = i / width;
-                const int l = i - r * width;
-                buf[r][l] = lines[r * soa_r + line0 + l];
-            }
-            __syncthreads();
-            float part[PPT];
+    };
+    if (k0 < k1) stage(k0, 0);
+    cp_async_commit();
+    for (int k = k0; k < k1; ++k) {
+        const int s = (k - k0) & 1;
+        if (k + 1 < k1) stage(k + 1, s ^ 1);
+        cp_async_commit();
+        cp_async_wait_prev();
+        __syncthreads();
+        const int width = width_of(k);
+        float part[PPT];
 #pragma unroll
-            for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
-            for (int l = 0; l < width; ++l) {
-                const float c_int = buf[kCInt][l];
-                const float c_frac = buf[kCFrac][l];
-                const float srw = buf[kSrw][l];
-                const float y = buf[kY][l];
-                const float pref = buf[kPref][l];
-                const float s = buf[kSIdx][l];
-                const float e = buf[kEIdx][l];
-                if constexpr (LINE == kLineCorr) {
-                    if (y >= F(70.55)) continue;   // pure Lorentz line
+        for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
+        for (int l = 0; l < width; ++l) {
+            const float c_int = buf[s][kCInt][l];
+            const float c_frac = buf[s][kCFrac][l];
+            const float srw = buf[s][kSrw][l];
+            const float y = buf[s][kY][l];
+            const float pref = buf[s][kPref][l];
+            const float ws = buf[s][kSIdx][l];
+            const float we = buf[s][kEIdx][l];
+            if constexpr (LINE == kLineCorr) {
+                if (y >= F(70.55)) continue;   // pure Lorentz line
 #pragma unroll 1
-                    for (int j = 0; j < PPT; ++j) {
-                        const float x = ((point[j] - c_int) - c_frac) * srw;
-                        const float val = correction_of_line(x, y);
-                        const bool in = (point[j] >= s) && (point[j] <= e);
-                        part[j] = part[j] + (in ? pref * val : 0.0f);
-                    }
-                } else {
-                    // PRE rows carry pref*y/sqrt(pi) and y^2 already; OWN
-                    // is RAW with a foreign line's strength zeroed.
-                    constexpr bool raw = LINE == kLineRaw
-                                         || LINE == kLineOwn;
-                    float strength = pref;
-                    if constexpr (LINE == kLineOwn) {
-                        strength = buf[kPad][l] == tile_f ? pref : 0.0f;
-                    }
-                    const float pref_y = raw
-                        ? (strength * y) * F(kRsqrpi) : pref;
-                    const float ysq = raw ? y * y : y;
+                for (int j = 0; j < PPT; ++j) {
+                    if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
+                    const float x = ((point[j] - c_int) - c_frac) * srw;
+                    const float val = correction_of_line(x, y);
+                    const bool in = (point[j] >= ws) && (point[j] <= we);
+                    part[j] = part[j] + (in ? pref * val : 0.0f);
+                }
+            } else {
+                // PRE rows carry pref*y/sqrt(pi) and y^2 already; OWN is
+                // RAW with a foreign line's strength zeroed.
+                constexpr bool raw = LINE == kLineRaw || LINE == kLineOwn;
+                float strength = pref;
+                if constexpr (LINE == kLineOwn) {
+                    strength = buf[s][kPad][l] == tile_f ? pref : 0.0f;
+                }
+                const float pref_y = raw ? (strength * y) * F(kRsqrpi)
+                                         : pref;
+                const float ysq = raw ? y * y : y;
 #pragma unroll
-                    for (int j = 0; j < PPT; ++j) {
-                        const float x = ((point[j] - c_int) - c_frac) * srw;
-                        const float val = pref_y / (x * x + ysq);
-                        const bool in = (point[j] >= s) && (point[j] <= e);
-                        part[j] = part[j] + (in ? val : 0.0f);
-                    }
+                for (int j = 0; j < PPT; ++j) {
+                    if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
+                    const float x = ((point[j] - c_int) - c_frac) * srw;
+                    const float val = pref_y / (x * x + ysq);
+                    const bool in = (point[j] >= ws) && (point[j] <= we);
+                    part[j] = part[j] + (in ? val : 0.0f);
                 }
             }
-#pragma unroll
-            for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
         }
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
+        __syncthreads();   // the ring slot is restaged next iteration
     }
     float* o = out + ((long long)b * num_tiles + t) * tile;
+    float* dst = piece_dst(pc, o, b, t, piece, tile);
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) o[threadIdx.x + j * kWingsThreads] = acc[j];
+    for (int j = 0; j < PPT; ++j) dst[threadIdx.x + j * kWingsThreads] = acc[j];
+    piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
 template <int CLASS>
@@ -405,14 +516,16 @@ __global__ void __launch_bounds__(kCoreThreads)
 core_segmix_kernel(const float* __restrict__ params, long long p_b,
                    long long p_r, const int* __restrict__ tile_start,
                    const int* __restrict__ tile_chunks,
-                   float* __restrict__ out, int num_tiles, int tile)
+                   float* __restrict__ out, int num_tiles, int tile,
+                   Pieces pc)
 {
-    __shared__ float prm[8][kCoreThreads];
+    __shared__ float prm[2][8][kCoreThreads];
     __shared__ float part[kCoreThreads / 32][kMaxTile];
     __shared__ float acc[kMaxTile];
     __shared__ float wmin[kCoreThreads / 32];
-    const int t = blockIdx.x;
     const int b = blockIdx.y;
+    const int t = pc.tile[blockIdx.x];
+    const int piece = blockIdx.x - pc.first[t];
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
@@ -424,13 +537,25 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
         for (int w = 0; w < kCoreThreads / 32; ++w) part[w][c] = 0.0f;
     }
     const int first = tile_start[t];
-    const int count = tile_chunks[t];
-    for (int k = 0; k < count; ++k) {
+    const int k0 = piece * pc.piece;
+    const int k1 = min(k0 + pc.piece, tile_chunks[t]);
+    auto stage = [&](int k, int s) {
         const long long col = (long long)(first + k) * kCoreThreads + tid;
-        __syncthreads();
 #pragma unroll
-        for (int r = 0; r < 8; ++r) prm[r][tid] = p[r * p_r + col];
-        float m = prm[kCoreY][tid];
+        for (int r = 0; r < 8; ++r) cp_async4(&prm[s][r][tid],
+                                              p + r * p_r + col);
+    };
+    if (k0 < k1) stage(k0, 0);
+    cp_async_commit();
+    for (int k = k0; k < k1; ++k) {
+        const int s = (k - k0) & 1;
+        // Ring slot s ^ 1 was last read before the previous chunk's last
+        // barrier.
+        if (k + 1 < k1) stage(k + 1, s ^ 1);
+        cp_async_commit();
+        cp_async_wait_prev();
+        __syncthreads();
+        float m = prm[s][kCoreY][tid];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -441,13 +566,13 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
         if (ymin >= F(70.55)) continue;   // pure Lorentz chunk: no-op
         float* mine = part[warp];
         if (ymin >= F(8.425)) {
-            core_chunk<1>(prm, mine, warp, lane);
+            core_chunk<1>(prm[s], mine, warp, lane);
         } else if (ymin >= F(6.8)) {
-            core_chunk<2>(prm, mine, warp, lane);
+            core_chunk<2>(prm[s], mine, warp, lane);
         } else if (ymin >= F(2.0)) {
-            core_chunk<3>(prm, mine, warp, lane);
+            core_chunk<3>(prm[s], mine, warp, lane);
         } else {
-            core_chunk<4>(prm, mine, warp, lane);
+            core_chunk<4>(prm[s], mine, warp, lane);
         }
         __syncthreads();
         for (int c = tid; c < tile; c += kCoreThreads) {
@@ -460,7 +585,9 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
     }
     __syncthreads();
     float* o = out + ((long long)b * num_tiles + t) * tile;
-    for (int c = tid; c < tile; c += kCoreThreads) o[c] = acc[c];
+    float* dst = piece_dst(pc, o, b, t, piece, tile);
+    for (int c = tid; c < tile; c += kCoreThreads) dst[c] = acc[c];
+    piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
 // _seg_chunk_accumulate: warp w's 32 instances of a core chunk, summed in
@@ -670,23 +797,23 @@ int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
                  long long soa_b, long long soa_r, const int* w_start,
                  const int* w_n, const int* t_start, const int* t_n,
                  long long csr_b, float* out, int num_tiles, int tile,
-                 int stride, int chunk, int tail)
+                 int stride, int chunk, int tail, const Pieces& pc)
 {
     switch (ppt) {
     case 1:
         wings_kernel<1, LINE><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail);
+            num_tiles, tile, stride, chunk, tail, pc);
         break;
     case 2:
         wings_kernel<2, LINE><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail);
+            num_tiles, tile, stride, chunk, tail, pc);
         break;
     case 4:
         wings_kernel<4, LINE><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail);
+            num_tiles, tile, stride, chunk, tail, pc);
         break;
     default:
         return (int)cudaErrorInvalidValue;
@@ -698,15 +825,26 @@ int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
 
 extern "C" {
 
+// The piece arguments of pylbl_wings and pylbl_core_segmix: the piece
+// list (tile [P]; first, count and slot [T]), the scratch slots per layer,
+// K, the scratch [B, num_slots, tile] and the zeroed counters [B, T].
+// The grid is (num_pieces, num_layers).
 int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
                 const int* w_start, const int* w_n, const int* t_start,
                 const int* t_n, long long csr_b, float* out, int num_layers,
                 int num_tiles, int tile, int stride, int chunk, int tail,
-                int line_fn, void* stream)
+                int line_fn, const int* p_tile, const int* p_first,
+                const int* p_count, const int* p_slot, int num_pieces,
+                int num_slots, int piece, float* scratch, int* done,
+                void* stream)
 {
-    const dim3 grid(num_tiles, num_layers);
+    const dim3 grid(num_pieces, num_layers);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (num_tiles > 0 && num_layers > 0) {
+    const Pieces pc{p_tile, p_first, p_count, p_slot, num_slots, piece,
+                    scratch, done};
+    if (piece < 1 || tail > kMaxChunk || chunk > kMaxChunk)
+        return (int)cudaErrorInvalidValue;
+    if (num_pieces > 0 && num_layers > 0) {
         const int ppt = tile / kWingsThreads;
         int err;
         switch (line_fn) {
@@ -714,25 +852,25 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
             err = launch_wings<kLinePre>(grid, s, ppt, soa, soa_b, soa_r,
                                          w_start, w_n, t_start, t_n, csr_b,
                                          out, num_tiles, tile, stride, chunk,
-                                         tail);
+                                         tail, pc);
             break;
         case kLineRaw:
             err = launch_wings<kLineRaw>(grid, s, ppt, soa, soa_b, soa_r,
                                          w_start, w_n, t_start, t_n, csr_b,
                                          out, num_tiles, tile, stride, chunk,
-                                         tail);
+                                         tail, pc);
             break;
         case kLineCorr:
             err = launch_wings<kLineCorr>(grid, s, ppt, soa, soa_b, soa_r,
                                           w_start, w_n, t_start, t_n, csr_b,
                                           out, num_tiles, tile, stride,
-                                          chunk, tail);
+                                          chunk, tail, pc);
             break;
         case kLineOwn:
             err = launch_wings<kLineOwn>(grid, s, ppt, soa, soa_b, soa_r,
                                          w_start, w_n, t_start, t_n, csr_b,
                                          out, num_tiles, tile, stride, chunk,
-                                         tail);
+                                         tail, pc);
             break;
         default:
             err = (int)cudaErrorInvalidValue;
@@ -745,15 +883,21 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
 int pylbl_core_segmix(const float* params, long long p_b, long long p_r,
                       const int* tile_start, const int* tile_chunks,
                       float* out, int num_layers, int num_tiles, int tile,
-                      int chunk, int seg, void* stream)
+                      int chunk, int seg, const int* p_tile,
+                      const int* p_first, const int* p_count,
+                      const int* p_slot, int num_pieces, int num_slots,
+                      int piece, float* scratch, int* done, void* stream)
 {
-    if (chunk != kCoreThreads || seg != 32 || tile > kMaxTile)
+    if (chunk != kCoreThreads || seg != 32 || tile > kMaxTile || piece < 1)
         return (int)cudaErrorInvalidValue;
-    if (num_tiles > 0 && num_layers > 0) {
-        const dim3 grid(num_tiles, num_layers);
+    const Pieces pc{p_tile, p_first, p_count, p_slot, num_slots, piece,
+                    scratch, done};
+    if (num_pieces > 0 && num_layers > 0) {
+        const dim3 grid(num_pieces, num_layers);
         core_segmix_kernel<<<grid, kCoreThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-            params, p_b, p_r, tile_start, tile_chunks, out, num_tiles, tile);
+            params, p_b, p_r, tile_start, tile_chunks, out, num_tiles, tile,
+            pc);
     }
     return (int)cudaGetLastError();
 }

@@ -48,7 +48,7 @@ class Gas:
         formula: string chemical formula.
     """
 
-    def __init__(self, lines_database, formula, device="cpu",
+    def __init__(self, lines_database, formula, device="cuda",
                  dtype=torch.float32, backend="kernel"):
         """Initializes the engine.
 
@@ -56,7 +56,9 @@ class Gas:
             lines_database: a Database-like object exposing
                 ``line_pack(formula) -> LinePack``, or a LinePack directly.
             formula: string chemical formula.
-            device: torch device of the kernels and their inputs.
+            device: torch device of the kernels and their inputs: the
+                card by default (a call without one raises); "cpu" runs
+                the plain versions on the host.
             dtype: kernel float dtype (the CUDA kernels take float32).
             backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
                 plain versions for CPU tensors) or "plain" (plain versions

@@ -27,11 +27,15 @@ Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
    its hand-written kernel from ``csrc/lineshape.cu`` (built on first use,
    runtime/build.py) and adds one to its entry in :data:`LAUNCHES`; on CPU
    tensors it runs the plain version.  There is no fallback between the
-   two: a CUDA tensor that the kernel does not take raises.
+   two: a CUDA tensor that the kernel does not take raises.  The tile and
+   mixed-slot core kernels split each tile's chunk walk into pieces
+   (:class:`TilePieces`, built once by the plans).
 3. **Plain PyTorch versions** (``*_plain``) with the same plan, tile,
-   chunking and summation order as the kernels (two-level chunk sums, warp
-   partials summed in warp order), in any float dtype and on any device.
-   They work in slabs so they also run at main-path size on the card.
+   chunking and summation order as the kernels (per-chunk partials, then
+   pieces of :data:`PIECE_CHUNKS` chunks, then the tile in piece order for
+   the split kernels; warp partials summed in warp order), in any float
+   dtype and on any device.  They work in slabs so they also run at
+   main-path size on the card.
 4. **The single-layer device plan** (:class:`DevicePlan`,
    :func:`make_device_plan`, :func:`accumulate_device`, counterparts of
    ``DevicePlan``, ``make_device_plan`` and ``accumulate_tpu``).
@@ -43,22 +47,25 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   lineshape_pallas.py:2148-2257, ``_tile_kernel_strided(_batched)``
   :2260/:2321, and ``_tile_kernel(_batched)`` :1528/:1662 with
   ``_lorentz_line_pre`` :2088, ``_lorentz_line`` :110 or
-  ``_correction_line`` :119).  One block per (tile, layer); 256 threads own
-  the tile's points, chunks of the 8-row SoA are staged in shared memory
-  and walked line by line in order.  Bound: one IEEE f32 divide per
-  line-point for the Lorentzian line functions (the instruction rate of the
-  divide sequence, not memory: each line is read once per tile from shared
-  memory as a broadcast); the Humlicek rationals for the correction.
+  ``_correction_line`` :119).  One block per (piece, layer); 256 threads
+  own the tile's points, the piece's chunks of the 8-row SoA are staged
+  into a 2-slot shared-memory ring with ``cp.async`` and walked line by
+  line in order, a warp skipping the lines whose window misses its 32
+  points.  Bound: about 7 operations per in-window line-point, one an
+  IEEE f32 divide, for the Lorentzian line functions (operations, not
+  memory); the Humlicek rationals for the correction.
 - Mixed-slot core (replaces ``_seg_kernel_mixed(_batched)`` :1113/:1148
   with ``_seg_chunk_accumulate_mixed`` :1070).  One block of 4 warps per
-  (tile, layer); per 128-instance chunk the class is picked from the
-  chunk's min y (block-uniform branch), lane = point offset within the
-  32-point segment, each warp walks its 32 instances in order into a
-  private [slot, offset] partial tile in shared memory, and the four
-  partials are summed in warp order into the tile accumulator.  Bound: the
-  Humlicek rationals (CPF12: 12 divides and an exp per point).  No tensor
-  cores and no atomics: the slot scatter is a direct indexed add, so runs
-  are bit-identical.
+  (piece, layer); per 128-instance chunk (the next one staged with
+  ``cp.async``) the class is picked from the chunk's min y (block-uniform
+  branch), lane = point offset within the 32-point segment, each warp
+  walks its 32 instances in order into a private [slot, offset] partial
+  tile in shared memory, and the four partials are summed in warp order
+  into the piece accumulator.  Bound: the Humlicek rationals (CPF12: 12
+  divides and an exp per point).  No tensor cores and no float atomics:
+  the slot scatter is a direct indexed add and a split tile's pieces are
+  folded in piece order by the last of them (an integer counter), so
+  runs are bit-identical.
 - Per-stream segment pass (replaces ``_seg_kernel(_batched)`` :842/:880
   with ``_seg_chunk_accumulate`` :762 or ``_seg_chunk_accumulate_lorentz``
   :806).  As the mixed-slot core, but a chunk carries one slot, so each
@@ -86,6 +93,7 @@ import torch
 from .voigt import (XLIM0_MAX, voigt_correction, voigt_correction_k1,
                     voigt_correction_k12, voigt_correction_k123)
 from ..runtime.build import PACKAGE_DIR, load_library
+from ..runtime.device import resolve_device
 from ..utils.constants import RSQRPI
 
 # SoA row order in the packed (8, N) line block.
@@ -106,6 +114,10 @@ N_FIELDS = 7              # c_int, c_frac, srw, y, pref, s, e.
 Y_FIELD = 3               # index of y in the group-params field order.
 GROUP_ROWS = 64
 YMIN_ROW = 56
+
+# Chunks per piece of the tile and mixed-slot core kernels' split chunk
+# walks (:class:`TilePieces`); the plain versions fold in the same pieces.
+PIECE_CHUNKS = 4
 
 # Production core-pass formulation (lineshape_pallas.py CORE_MODE); "seg"
 # (per-stream segments) and "rows" (8 instances per group, one per row)
@@ -555,6 +567,7 @@ class CorePlan:
                 core_start, core_end, num_points, tile=tile, seg=seg,
                 chunk=chunk, sort_key=sort_key)
             self.c_slot = None
+            self.pieces = TilePieces(self.t_chunks)
         elif self.mode == "rows":
             self.inst_line, self.g_start, self.g_n = build_core_groups(
                 core_start, core_end, num_points, tile, chunk,
@@ -700,9 +713,13 @@ class CorePlan:
         self._require_seg("seg_pass")
         c = self._device_consts(params.device)
         if self.mode == "segmix":
-            fn = core_segmix_plain if plain else core_segmix_pass
-            return fn(params, c["t_start"], c["t_chunks"], self.num_points,
-                      self.tile, self.chunk, self.seg)
+            if plain:
+                return core_segmix_plain(params, c["t_start"], c["t_chunks"],
+                                         self.num_points, self.tile,
+                                         self.chunk, self.seg)
+            return core_segmix_pass(params, c["t_start"], c["t_chunks"],
+                                    self.num_points, self.tile, self.chunk,
+                                    self.seg, self.pieces)
         fn = seg_plain if plain else seg_pass
         return fn(params, c["t_start"], c["t_chunks"], c["c_slot"],
                   self.num_points, self.tile, self.chunk, self.seg,
@@ -970,6 +987,12 @@ def _nvcc_command(sources, out):
     return [nvcc_path(), *NVCC_FLAGS, *map(str, sources), "-o", str(out)]
 
 
+# TilePieces.launch_args: piece tile, first, count and slot; pieces, scratch
+# slots, K; scratch and counters.
+_PIECE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p] * 2
+
+
 def cuda_library():
     """The kernels' shared library, built with nvcc on first use."""
     lib = load_library("liblineshape_cuda.so", [CUDA_SOURCE], _nvcc_command)
@@ -982,6 +1005,7 @@ def cuda_library():
             p,                      # out [B, T, tile]
             i32, i32, i32, i32, i32, i32,  # B, T, tile, stride, chunk, tail
             i32,                    # line function
+            *_PIECE_ARGS,
             p]                      # stream
         lib.pylbl_core_segmix.restype = ctypes.c_int
         lib.pylbl_core_segmix.argtypes = [
@@ -989,6 +1013,7 @@ def cuda_library():
             p, p,                   # tile_start, tile_chunks
             p,                      # out [B, T, tile]
             i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg
+            *_PIECE_ARGS,
             p]                      # stream
         lib.pylbl_seg.restype = ctypes.c_int
         lib.pylbl_seg.argtypes = [
@@ -1007,6 +1032,81 @@ def cuda_library():
             p]                      # stream
         lib._pylbl_bound = True
     return lib
+
+
+class TilePieces:
+    """The piece split of the tile and mixed-slot core kernels' chunk walks
+    (the port's own plan, built on top of the copied CSRs; the planners
+    stay byte-identical to the JAX ones).
+
+    Tile t's walk of ``counts[t]`` chunks is cut into
+    ``max(1, ceil(counts[t] / PIECE_CHUNKS))`` pieces; piece j walks chunks
+    j*K .. min((j+1)*K, count) - 1, one block per (piece, layer).  For
+    [B, T] counts the split follows the most over the layers and each
+    layer's block clips the range to its own count (an empty piece adds
+    +0.0).  Pieces of a split tile own consecutive scratch slots.
+    """
+
+    def __init__(self, counts):
+        counts = np.asarray(counts, np.int64)
+        counts = counts.reshape(-1, counts.shape[-1]).max(axis=0) \
+            if counts.size else np.zeros(counts.shape[-1], np.int64)
+        self.piece = PIECE_CHUNKS
+        self.counts = counts
+        self.per_tile = np.maximum(-(-counts // self.piece), 1)
+        self.first = np.cumsum(self.per_tile) - self.per_tile
+        self.tile = np.repeat(np.arange(counts.size), self.per_tile)
+        slots = np.where(self.per_tile > 1, self.per_tile, 0)
+        self.slot = np.where(slots > 0, np.cumsum(slots) - slots, -1)
+        self.num_slots = int(slots.sum())
+        self._dev = {}
+
+    @classmethod
+    def of_csr(cls, *counts):
+        """Pieces of the walk over one or more chunk classes (the main and
+        tail CSR counts, numpy or tensors, [T] or [B, T])."""
+        total = sum(np.asarray(c.cpu() if isinstance(c, torch.Tensor)
+                               else c, np.int64) for c in counts
+                    if c is not None)
+        return cls(total)
+
+    @property
+    def num_pieces(self):
+        return int(self.tile.size)
+
+    def stats(self):
+        """Pieces, most chunks in one tile and in one piece (the records
+        of chip_smoke.py)."""
+        most = int(self.counts.max(initial=0))
+        return {"pieces": self.num_pieces, "most_chunks_tile": most,
+                "most_chunks_piece": min(most, self.piece)}
+
+    def tensors(self, device):
+        """(tile, first, count, slot) int32 tensors on ``device``, built
+        once per device."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = tuple(
+                torch.as_tensor(a.astype(np.int32), device=device)
+                for a in (self.tile, self.first, self.per_tile, self.slot))
+        return self._dev[key]
+
+    def launch_args(self, batch, num_tiles, tile, device):
+        """The kernels' trailing piece arguments: the piece tensors, the
+        counts, a fresh scratch [B, num_slots, tile] and zeroed [B, T]
+        counters.  Returns (ctypes args, tensors to keep alive)."""
+        if self.counts.size != num_tiles:
+            raise ValueError(f"pieces of {self.counts.size} tiles for a "
+                             f"walk of {num_tiles}")
+        scratch = torch.empty((batch, max(self.num_slots, 1), tile),
+                              dtype=torch.float32, device=device)
+        done = torch.zeros((batch, num_tiles), dtype=torch.int32,
+                           device=device)
+        keep = self.tensors(device) + (scratch, done)
+        args = [_ptr(t) for t in keep[:4]] + [
+            self.num_pieces, self.num_slots, self.piece, _ptr(scratch),
+            _ptr(done)]
+        return args, keep
 
 
 def _check_launch(name, err):
@@ -1072,7 +1172,7 @@ def _refuse_device(name, data):
 # --------------------------------------------------------------------------
 
 def _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
-                  stride, chunk, tail, line_fn):
+                  stride, chunk, tail, line_fn, pieces=None):
     _check_cuda_inputs("wings", soa, [w_start, w_n, t_start, t_n],
                        num_tiles)
     if tile not in (256, 512, 1024) or chunk > 512 or tail > 512 \
@@ -1081,13 +1181,17 @@ def _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
                          "tail <= 512")
     batch = soa.shape[0]
     csr_bstride = w_start.stride(0) if w_start.dim() == 2 else 0
+    if pieces is None:
+        pieces = TilePieces.of_csr(w_n, t_n)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=soa.device)
+    piece_args, _keep = pieces.launch_args(batch, num_tiles, tile,
+                                           soa.device)
     err = cuda_library().pylbl_wings(
         _ptr(soa), soa.stride(0), soa.stride(1),
         _ptr(w_start), _ptr(w_n), _ptr(t_start), _ptr(t_n), csr_bstride,
         _ptr(out), batch, num_tiles, tile, stride, chunk,
-        tail if t_start is not None else 0, line_fn,
+        tail if t_start is not None else 0, line_fn, *piece_args,
         _stream_ptr(soa.device))
     _check_launch("wings", err)
     return out
@@ -1177,11 +1281,29 @@ def _fold_in_order(parts, targets, seq, shape):
     return acc
 
 
+def _fold_pieces(parts, tiles, seq, shape):
+    """The split kernels' three-level order: each piece of PIECE_CHUNKS
+    chunks of a tile's walk sums its chunk partials in walk order, and the
+    tile is ((0 + piece 0) + piece 1) + ...  ``parts`` [B, M, ...] are the
+    chunk partials, ``tiles``/``seq`` each chunk's tile and place in its
+    tile's walk.  A tile of one piece comes out as that piece's sum (0 + P
+    is P: a sum that starts at +0.0 is never -0.0)."""
+    if seq.numel() == 0:
+        return parts.new_zeros(shape)
+    piece = seq // PIECE_CHUNKS
+    span = int(piece.max()) + 1
+    keys, of_piece = torch.unique(tiles * span + piece, return_inverse=True)
+    sums = _fold_in_order(parts, of_piece, seq % PIECE_CHUNKS,
+                          (shape[0], keys.numel()) + tuple(shape[2:]))
+    return _fold_in_order(sums, keys // span, keys % span, shape)
+
+
 def wings_tiles_plain(soa, w_start, w_n, num_tiles, tile, stride, chunk,
                       t_start=None, t_n=None, tail=128, line="pre"):
     """Plain version of the tile kernel: [B, 8, N] SoA and a per-tile
     chunk CSR ([T], shared by every layer) -> [B, T, tile] tile sums;
-    point = t * stride + offset, main chunks then tail chunks."""
+    point = t * stride + offset, main chunks then tail chunks, folded in
+    the kernel's pieces (:func:`_fold_pieces`)."""
     device = soa.device
     zero = torch.zeros(num_tiles, dtype=torch.int64, device=device)
     tiles, line0, seq = _chunk_pairs(w_start, w_n, chunk, zero, device)
@@ -1194,8 +1316,7 @@ def wings_tiles_plain(soa, w_start, w_n, num_tiles, tile, stride, chunk,
         tiles = torch.cat([tiles, tt])
         seq = torch.cat([seq, ts])
         parts = torch.cat([parts, tparts], dim=1)
-    return _fold_in_order(parts, tiles, seq,
-                          (soa.shape[0], num_tiles, tile))
+    return _fold_pieces(parts, tiles, seq, (soa.shape[0], num_tiles, tile))
 
 
 def strided_combine(out, num_points, tile, stride):
@@ -1238,7 +1359,7 @@ def _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
 
 
 def _tile(soa, w_start, w_n, num_points, tile, stride, chunk, t_start,
-          t_n, tail, line, line_fn, counter):
+          t_n, tail, line, line_fn, counter, pieces=None):
     if soa.device.type == "cpu":
         return _tile_plain(soa, w_start, w_n, num_points, tile, stride,
                            chunk, t_start, t_n, tail, line)
@@ -1246,7 +1367,7 @@ def _tile(soa, w_start, w_n, num_points, tile, stride, chunk, t_start,
     soa, single = _as_batch(soa)
     num_tiles = (num_points - 1) // stride + 1
     tiles = _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
-                          stride, chunk, tail, line_fn)
+                          stride, chunk, tail, line_fn, pieces)
     LAUNCHES[counter] += 1
     return _unbatch(strided_combine(tiles, num_points, tile, stride), single)
 
@@ -1260,19 +1381,21 @@ def _strided_counter(soa, t_start):
 
 def wings_strided_pass(soa, w_start, w_n, num_points, tile, stride,
                        chunk=STRIDED_CHUNK, t_start=None, t_n=None,
-                       tail=128):
+                       tail=128, pieces=None):
     """Strided overlapped-tile prepacked wings -> [B, num_points] (or
     [num_points] for a single layer [8, N]).
 
     ``soa`` carries y^2 in the Y row and pref*y/sqrt(pi) in the PREF row;
     ``w_start``/``w_n`` (and optionally the tail class ``t_start``/``t_n``)
     are [T] int32 CSRs over the private per-tile chunks of
-    :func:`padded_strided_layout_tail`."""
+    :func:`padded_strided_layout_tail`.  ``pieces``: the walk's
+    :class:`TilePieces`, built once by a plan (from the CSR counts when
+    None, which reads them back from the card)."""
     if t_start is not None and tail % 128 != 0:
         raise ValueError("tail width must be a multiple of 128")
     return _tile(soa, w_start, w_n, num_points, tile, stride, chunk,
                  t_start, t_n, tail, "pre", 0,
-                 _strided_counter(soa, t_start))
+                 _strided_counter(soa, t_start), pieces)
 
 
 def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
@@ -1313,7 +1436,7 @@ _PLAIN_LINES = {"wings_pre": "pre", "wings": "raw", "core": "corr"}
 
 
 def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
-              pass_kind="wings_pre"):
+              pass_kind="wings_pre", pieces=None):
     """Tile pass at stride = tile (``_pallas_pass(_batched)``) ->
     [B, num_points] or [num_points]: tile t sums its CSR line range
     (:func:`tile_line_ranges`) over points t*tile + offset, window-masked.
@@ -1321,10 +1444,11 @@ def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
     ``pass_kind``: "wings_pre" (prepacked Lorentzian, ``_lorentz_line_pre``),
     "wings" (Lorentzian from raw rows, ``_lorentz_line``) or "core" (the
     per-line Humlicek correction, ``_correction_line``).  The CSR is [T] or
-    a [B, T] broadcast."""
+    [B, T]; ``pieces`` as :func:`wings_strided_pass`."""
     line_fn, counter = _TILE_LINES[pass_kind]
     return _tile(soa, start, nchunks, num_points, tile, tile, chunk, None,
-                 None, 128, _PLAIN_LINES[pass_kind], line_fn, counter)
+                 None, 128, _PLAIN_LINES[pass_kind], line_fn, counter,
+                 pieces)
 
 
 def tile_plain(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
@@ -1391,19 +1515,23 @@ def _class_chunks(blocks):
 
 
 def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
-                 seg):
+                 seg, pieces=None):
     _check_cuda_inputs("core", params, [tile_start, tile_chunks], num_tiles)
     if chunk != 128 or seg != 32 or tile % 128 or not 128 <= tile <= 1024 \
             or params.shape[2] % chunk:
         raise ValueError("core kernel takes chunk 128, seg 32, a tile of "
                          "128..1024 points and whole chunks of instances")
     batch = params.shape[0]
+    if pieces is None:
+        pieces = TilePieces.of_csr(tile_chunks)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=params.device)
+    piece_args, _keep = pieces.launch_args(batch, num_tiles, tile,
+                                           params.device)
     err = cuda_library().pylbl_core_segmix(
         _ptr(params), params.stride(0), params.stride(1),
         _ptr(tile_start), _ptr(tile_chunks), _ptr(out), batch, num_tiles,
-        tile, chunk, seg, _stream_ptr(params.device))
+        tile, chunk, seg, *piece_args, _stream_ptr(params.device))
     _check_launch("core", err)
     return out
 
@@ -1418,7 +1546,7 @@ def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
     window-masked; warp w (instances 32w..32w+31) adds its instances in
     order into a private [slot, offset] partial through a one-hot slot
     select; the chunk sum is ((p0 + p1) + p2) + p3; tiles fold their
-    chunks in order."""
+    chunks in the kernel's pieces (:func:`_fold_pieces`)."""
     device = params.device
     dtype = params.dtype
     batch = params.shape[0]
@@ -1446,8 +1574,8 @@ def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
                 onehot = (slot[:, :, j, None] == onehot_slots).to(dtype)
                 part = part + onehot[..., None] * val[:, :, j, None, :]
             sums[sel[:, 0], sel[:, 1]] = _in_warp_order(part)
-    acc = _fold_in_order(sums, chunk_tile, chunk_seq,
-                         (batch, num_tiles, slots, seg))
+    acc = _fold_pieces(sums, chunk_tile, chunk_seq,
+                       (batch, num_tiles, slots, seg))
     return acc.reshape(batch, num_tiles, tile)
 
 
@@ -1457,17 +1585,18 @@ def _core_out(tiles, num_points):
 
 
 def core_segmix_pass(params, tile_start, tile_chunks, num_points, tile,
-                     chunk=ROWS_CHUNK, seg=SEG):
+                     chunk=ROWS_CHUNK, seg=SEG, pieces=None):
     """Mixed-slot core pass -> [B, num_points] or [num_points] (point =
     t*tile + seg*slot + offset).  ``params`` [B, 8, I] or [8, I] from
-    :meth:`CorePlan.seg_params` / :meth:`CorePlan.gather`."""
+    :meth:`CorePlan.seg_params` / :meth:`CorePlan.gather`; ``pieces`` as
+    :func:`wings_strided_pass`."""
     if params.device.type == "cpu":
         return core_segmix_plain(params, tile_start, tile_chunks, num_points,
                                  tile, chunk, seg)
     _refuse_device("core", params)
     p, single = _as_batch(params)
     tiles = _launch_core(p, tile_start, tile_chunks,
-                         -(-num_points // tile), tile, chunk, seg)
+                         -(-num_points // tile), tile, chunk, seg, pieces)
     LAUNCHES["core_segmix_single" if single else "core_segmix"] += 1
     return _unbatch(_core_out(tiles, num_points), single)
 
@@ -1742,11 +1871,12 @@ class DevicePlan:
 
     def __init__(self, soa, w_start, w_n, core_plan, core_params,
                  num_points, tile, chunk, wings_plan=None, wings_stride=None,
-                 device="cpu", plain=False):
-        device = torch.device(device)
+                 device="cuda", plain=False):
+        device = resolve_device(device)
         self.soa = torch.as_tensor(soa, device=device)
         self.w_start = torch.as_tensor(w_start, device=device)
         self.w_n = torch.as_tensor(w_n, device=device)
+        self.wings_pieces = TilePieces.of_csr(w_n)
         self.core = core_plan
         self.wings = wings_plan
         self.wings_stride = wings_stride
@@ -1765,12 +1895,19 @@ class DevicePlan:
         if self.wings is not None:
             return self.wings.seg_pass(soa, plain)
         if self.wings_stride is not None:
-            fn = wings_strided_plain if plain else wings_strided_pass
-            return fn(soa, self.w_start, self.w_n, self.num_points,
-                      self.tile, self.wings_stride)
-        fn = tile_plain if plain else tile_pass
-        return fn(soa, self.w_start, self.w_n, self.num_points, self.tile,
-                  self.chunk, "wings")
+            if plain:
+                return wings_strided_plain(soa, self.w_start, self.w_n,
+                                           self.num_points, self.tile,
+                                           self.wings_stride)
+            return wings_strided_pass(soa, self.w_start, self.w_n,
+                                      self.num_points, self.tile,
+                                      self.wings_stride,
+                                      pieces=self.wings_pieces)
+        if plain:
+            return tile_plain(soa, self.w_start, self.w_n, self.num_points,
+                              self.tile, self.chunk, "wings")
+        return tile_pass(soa, self.w_start, self.w_n, self.num_points,
+                         self.tile, self.chunk, "wings", self.wings_pieces)
 
     def core_pass(self, groups=None, plain=None):
         groups = self.groups if groups is None else groups
@@ -1784,7 +1921,7 @@ class DevicePlan:
 
 def make_device_plan(kernel_arrays, kin, num_points, n_per_v, cut_off,
                      tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, core_mode=None,
-                     wings_mode=None, device="cpu", plain=False):
+                     wings_mode=None, device="cuda", plain=False):
     """Builds a :class:`DevicePlan` from host kernel arrays (see
     :func:`accumulate_device`).
 
@@ -1794,6 +1931,9 @@ def make_device_plan(kernel_arrays, kin, num_points, n_per_v, cut_off,
     "segmix" (default), "seg" or "rows" (rows core; with ``wings_mode``
     "seg" it takes the strided branch, as the JAX planner does).  The
     blocks take the kernel arrays' float dtype (float32 for the kernels).
+    ``device``: the card by default; without one it raises
+    (runtime/device.resolve_device), and the CPU is taken only when asked
+    for.
     """
     dtype = np.dtype(kernel_arrays["c_frac"].dtype)
     s_idx = kernel_arrays["s_idx"].astype(np.int64)
@@ -1858,7 +1998,7 @@ def make_device_plan(kernel_arrays, kin, num_points, n_per_v, cut_off,
 
 
 def accumulate_device(kernel_arrays, kin, num_points, n_per_v, cut_off,
-                      tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cpu",
+                      tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cuda",
                       plain=False):
     """Two-pass single-layer accumulation (``accumulate_tpu``).
 
@@ -1868,12 +2008,14 @@ def accumulate_device(kernel_arrays, kin, num_points, n_per_v, cut_off,
         kin: float64 physics dict (for core-window sizing).
         num_points: internal grid size.
         n_per_v / cut_off: grid convention parameters.
-        device: torch device of the plan and the result.
+        device: torch device of the plan and the result (the card by
+            default; "cpu" runs the plain versions on the host).
         plain: run the plain versions instead of the wrappers.
 
     Returns:
         [num_points] tensor of absorption cross sections on ``device``.
     """
+    device = resolve_device(device)
     if kernel_arrays["prefactor"].shape[-1] == 0:
         return torch.zeros(int(num_points), device=device,
                            dtype=torch.from_numpy(
@@ -1884,7 +2026,7 @@ def accumulate_device(kernel_arrays, kin, num_points, n_per_v, cut_off,
 
 
 def accumulate_batched(kernel_arrays, kin, num_points, n_per_v, cut_off,
-                       tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cpu",
+                       tile=DEFAULT_TILE, chunk=DEFAULT_CHUNK, device="cuda",
                        plain=False):
     """Layer-batched two-pass accumulation (``accumulate_tpu_batched``):
     one launch of each pass for every layer of a gas.
@@ -1897,10 +2039,12 @@ def accumulate_batched(kernel_arrays, kin, num_points, n_per_v, cut_off,
     Args:
         kernel_arrays: [B, N] host arrays from prepare_kernel_arrays.
         kin: float64 physics dict ([B, N] leaves; core-window sizing).
+        device: as :func:`accumulate_device`.
 
     Returns:
         [B, num_points] tensor on ``device``.
     """
+    device = resolve_device(device)
     num_layers, num = kernel_arrays["prefactor"].shape
     if num == 0:
         return torch.zeros((num_layers, int(num_points)), device=device,
@@ -1923,9 +2067,14 @@ def accumulate_batched(kernel_arrays, kin, num_points, n_per_v, cut_off,
     ce = np.where(all_lorentz, cs - 1, ce)
     plan = CorePlan(cs, ce, int(num_points), tile,
                     sort_key=np.asarray(kernel_arrays["y"]).min(axis=0))
+    pieces = TilePieces(w_n)
     soa, w_start, w_n, params = (torch.as_tensor(a, device=device) for a in
                                  (soa, w_start, w_n,
                                   plan.gather(kernel_arrays)))
-    wings = (tile_plain if plain else tile_pass)(
-        soa, w_start, w_n, int(num_points), tile, chunk, "wings")
+    if plain:
+        wings = tile_plain(soa, w_start, w_n, int(num_points), tile, chunk,
+                           "wings")
+    else:
+        wings = tile_pass(soa, w_start, w_n, int(num_points), tile, chunk,
+                          "wings", pieces)
     return wings + plan.core_pass(params, plain)

@@ -408,6 +408,7 @@ class _LineStage:
                                          sort_key=y_ref, mode=core_mode)
         self.csr = csr
         self.csr_dev = [torch.as_tensor(a, device=device) for a in csr]
+        self.wings_pieces = lc.TilePieces.of_csr(*csr[1::2])
         self.static = static
         self.n_out = n_out
         self.tile = tile
@@ -446,14 +447,22 @@ class _LineStage:
         plain = self.plain if plain is None else plain
         csr = self.csr_dev
         if self.wings_stride is not None:
-            f = lc.wings_strided_plain if plain else lc.wings_strided_pass
             tail_csr = csr[2:] or [None, None]
-            return f(soa, csr[0], csr[1], self.n_out, self.tile,
-                     self.wings_stride, self.wings_chunk, *tail_csr,
-                     tail=self.wings_tail or 128)
-        f = lc.tile_plain if plain else lc.tile_pass
-        return f(soa, csr[0], csr[1], self.n_out, self.tile, self.wings_chunk,
-                 "wings_pre" if self.prepacked else "wings")
+            if plain:
+                return lc.wings_strided_plain(
+                    soa, csr[0], csr[1], self.n_out, self.tile,
+                    self.wings_stride, self.wings_chunk, *tail_csr,
+                    tail=self.wings_tail or 128)
+            return lc.wings_strided_pass(
+                soa, csr[0], csr[1], self.n_out, self.tile, self.wings_stride,
+                self.wings_chunk, *tail_csr, tail=self.wings_tail or 128,
+                pieces=self.wings_pieces)
+        kind = "wings_pre" if self.prepacked else "wings"
+        if plain:
+            return lc.tile_plain(soa, csr[0], csr[1], self.n_out, self.tile,
+                                 self.wings_chunk, kind)
+        return lc.tile_pass(soa, csr[0], csr[1], self.n_out, self.tile,
+                            self.wings_chunk, kind, self.wings_pieces)
 
     def core_pass(self, params, plain=None):
         return self.core_plan.core_pass(
@@ -479,7 +488,7 @@ class _LineStage:
 
 def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
                              tile=None, chunk=None, t_max=350.0,
-                             p_max_atm=5.0, backend="kernel", device="cpu",
+                             p_max_atm=5.0, backend="kernel", device="cuda",
                              dtype=torch.float32, wings_tail=128,
                              core_mode=None):
     """Builds the all-gases batched pipeline for one grid on one device.
@@ -496,7 +505,9 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
             plain versions for CPU tensors) or "plain" (plain versions on
             any device, in ``dtype``).
-        device: torch device of the line constants and outputs.
+        device: torch device of the line constants and outputs: the card
+            by default, raising without one; "cpu" runs the plain
+            versions on the host.
         dtype: float dtype of the pipeline (the CUDA kernels take
             float32).
 
@@ -575,7 +586,7 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
 
 def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
                     chunk=None, t_max=350.0, p_max_atm=5.0, core_mode=None,
-                    wings_tail=None, backend="kernel", device="cpu",
+                    wings_tail=None, backend="kernel", device="cuda",
                     dtype=torch.float32):
     """Builds the single-gas batched pipeline for one (gas, grid) on one
     device (counterpart of ``make_batched_tpu_fn``).

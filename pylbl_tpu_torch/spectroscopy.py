@@ -34,9 +34,10 @@ class MoleculeCache:
     (reference spectroscopy.py:32-69)."""
 
     def __init__(self, name, grid, lines_database, lines_engine,
-                 continua_engine, cross_sections_engine):
+                 continua_engine, cross_sections_engine, lines_kwargs=None):
         try:
-            self.gas = lines_engine(lines_database, name)
+            self.gas = lines_engine(lines_database, name,
+                                    **(lines_kwargs or {}))
         except (AliasNotFoundError, IsotopologuesNotFoundError,
                 TipsDataNotFoundError, TransitionsNotFoundError):
             self.gas = None
@@ -60,7 +61,7 @@ class Spectroscopy:
 
     def __init__(self, atmosphere, grid, database, mapping=None,
                  lines_backend="pyLBL", continua_backend="mt_ckd",
-                 cross_sections_backend="arts_crossfit", device="cpu",
+                 cross_sections_backend="arts_crossfit", device="cuda",
                  dtype=torch.float32, device_mechanisms=None,
                  backend="kernel"):
         """Initializes the object.
@@ -119,18 +120,23 @@ class Spectroscopy:
         self.output = Output(dims=dims, dim_sizes=dim_sizes,
                              mechanisms=mechanisms, units={"units": "m-1"})
 
-    def _batch_kwargs(self, gas):
-        """Extra kwargs for a lines engine's batched entry point (the
-        atmosphere's envelope, device, dtype and backend) when the engine
-        accepts them (third-party engines may not)."""
+    def _accepted(self, fn, envelope=False):
+        """This object's device, dtype and backend (and the atmosphere's
+        envelope) as the keyword arguments ``fn`` accepts (third-party
+        lines engines may take none)."""
         try:
-            params = inspect.signature(
-                gas.absorption_coefficient_batch).parameters
+            params = inspect.signature(fn).parameters
         except (TypeError, ValueError):
             return {}
-        offered = {"envelope": self._envelope, "device": self.device,
-                   "dtype": self.dtype, "backend": self.backend}
+        offered = {"device": self.device, "dtype": self.dtype,
+                   "backend": self.backend}
+        if envelope:
+            offered["envelope"] = self._envelope
         return {k: v for k, v in offered.items() if k in params}
+
+    def _batch_kwargs(self, gas):
+        """Extra kwargs for a lines engine's batched entry point."""
+        return self._accepted(gas.absorption_coefficient_batch, True)
 
     def _device_mechanism_fns(self, name):
         """On-device continuum/xsec evaluators for one gas, built lazily
@@ -349,7 +355,8 @@ class Spectroscopy:
                 self.cache[name] = MoleculeCache(
                     name, self.grid, self.lines_database,
                     self.lines_engine, self.continua_engine,
-                    self.cross_sections_engine)
+                    self.cross_sections_engine,
+                    self._accepted(self.lines_engine))
         vmr_by_gas = {
             name: np.asarray(mf.data, dtype=np.float64).ravel()
             for name, mf in self.atmosphere.gases.items()}

@@ -51,7 +51,7 @@ def column(num_layers, num_gases=None):
     return t, p, np.full((num_layers, num_gases), 1e-4)
 
 
-def build(packs, grid, num_layers, core_mode=None, device="cpu", tile=None,
+def build(packs, grid, num_layers, core_mode=None, device="cuda", tile=None,
           wings_tail=None):
     """(pipeline, (t, p, x) tensors): the single-gas pipeline for one pack,
     the stacked one for a dict of packs; ``wings_tail=None`` keeps each

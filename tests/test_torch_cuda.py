@@ -106,7 +106,7 @@ def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
     atm = Dataset(data_vars=data)
     grid = np.arange(1.0, 220.0, 0.1)
     gpu = Spectroscopy(atm, grid, db, device=cuda_device)
-    cpu = Spectroscopy(atm, grid, db)
+    cpu = Spectroscopy(atm, grid, db, device="cpu")
     got = gpu.compute_absorption(output_format="total")["absorption"].data
     again = gpu.compute_absorption(output_format="total")["absorption"].data
     want = cpu.compute_absorption(output_format="total")["absorption"].data
@@ -266,7 +266,7 @@ def test_gas_on_card_matches_cpu(cuda_device, step):
     pack = packs()["H2O"]
     grid = np.arange(1.0, 220.0 if step > 0.05 else 60.0, step)
     gpu = Gas(pack, "H2O", device=cuda_device)
-    cpu = Gas(pack, "H2O")
+    cpu = Gas(pack, "H2O", device="cpu")
 
     def rel(got, want):
         scale = np.abs(want).max()
@@ -394,3 +394,72 @@ def test_rows_and_checked_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         lc.wings_strided_checked_pass(soa[:, ::2], start, nchunks, n, 1024,
                                       512)
+
+
+# --- The split chunk walks (tests/test_torch_lineshape.py's dense line
+# cluster): more than 2 * PIECE_CHUNKS chunks in one tile. ---
+
+def dense_packs():
+    return {"H2O": synthetic_line_pack("H2O", num_lines=4000, nu_min=100.0,
+                                       nu_max=103.0, seed=31,
+                                       band_centers=(101.5,)),
+            "CO2": packs()["CO2"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [512, 256])
+def test_split_kernels_equal_plain(cuda_device, tile):
+    """Tile 512: strided wings with the tail class; tile 256: the splat.
+    Both with the mixed-slot core; each kernel equals its plain version
+    bit for bit and repeats bit for bit."""
+    fn = make_multigas_batched_fn(dense_packs(), np.arange(1.0, 220.0, 0.2),
+                                  tile=tile, chunk=128, wings_tail=128,
+                                  device=cuda_device)
+    assert (fn.wings_stride is None) == (tile == 256)
+    assert fn.core_plan.pieces.stats()["most_chunks_tile"] \
+        > 2 * lc.PIECE_CHUNKS
+    assert fn.stage.wings_pieces.stats()["most_chunks_tile"] \
+        > 2 * lc.PIECE_CHUNKS
+    soa, core = fn.assemble(T, P, VMR)
+    lc.reset_launches()
+    for run, arg in ((fn.wings_pass, soa), (fn.core_pass, core)):
+        got = run(arg)
+        again = run(arg)
+        want = run(arg, plain=True)
+        torch.cuda.synchronize()
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want) and torch.equal(got, again)
+    key = "wings_splat" if tile == 256 else "wings_strided"
+    assert lc.LAUNCHES[key] == 2 and lc.LAUNCHES["core_segmix"] == 2
+
+
+@pytest.mark.gpu
+def test_split_device_plan_equals_plain(cuda_device):
+    """The single-layer device plan on the dense cluster at 1032 Pa: the
+    strided wings and the core, split into pieces, equal their plain
+    versions bit for bit."""
+    from pylbl_tpu_torch.models.lines import internal_grid
+    from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
+                                                      line_profile_params)
+    from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
+
+    pack = dense_packs()["H2O"]
+    grid = np.arange(50.0, 250.0, 0.2)
+    v0, vn, npv, n = internal_grid(grid)
+    keep = pack.compat_break_filter(v0, vn, 25)
+    kin = kernel_inputs(line_profile_params(pack, 227.74, 1032.0,
+                                            4.763972e-06, keep=keep),
+                        v0, npv, 25)
+    arrays = prepare_kernel_arrays(kin, npv, np.float32)
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, tile=1024, chunk=128,
+                               device=cuda_device)
+    assert plan.wings_stride is not None
+    assert int(plan.core.t_chunks.max()) > 2 * lc.PIECE_CHUNKS
+    lc.reset_launches()
+    for run in (plan.wings_pass, plan.core_pass):
+        got = run()
+        want = run(plain=True)
+        torch.cuda.synchronize()
+        assert float(want.abs().max()) > 0 and torch.equal(got, want)
+    assert lc.LAUNCHES["wings_strided_single"] == 1
+    assert lc.LAUNCHES["core_segmix_single"] == 1

@@ -11,6 +11,7 @@ small workload is the one of tests/test_lineshape_pallas.py:13-22.
 """
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -73,14 +74,14 @@ def test_accumulate_device_matches_jax(step, tile, core_mode, wings_mode):
     jarrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
     if core_mode is None and wings_mode is None:
         got = lc.accumulate_device(arrays, kin, n, npv, 25, tile=tile,
-                                   chunk=128)
+                                   chunk=128, device="cpu")
         want = np.asarray(jlp.accumulate_tpu(jarrays, kin, n, npv, 25,
                                              tile=tile, chunk=128,
                                              interpret=True))
     else:
         got = lc.make_device_plan(arrays, kin, n, npv, 25, tile=tile,
                                   chunk=128, core_mode=core_mode,
-                                  wings_mode=wings_mode)()
+                                  wings_mode=wings_mode, device="cpu")()
         want = np.asarray(jlp.make_device_plan(
             jarrays, kin, n, npv, 25, tile=tile, chunk=128, interpret=True,
             core_mode=core_mode, wings_mode=wings_mode)())
@@ -93,7 +94,7 @@ def test_empty_line_list():
     kin, npv, n = workload()
     empty = {k: v[:0] for k, v in
              tls.prepare_kernel_arrays(kin, npv, np.float32).items()}
-    out = lc.accumulate_device(empty, kin, n, npv, 25)
+    out = lc.accumulate_device(empty, kin, n, npv, 25, device="cpu")
     assert np.array_equal(out.numpy(), np.zeros(n, dtype=np.float32))
 
 
@@ -177,7 +178,8 @@ def test_device_plan_wings_modes_agree():
     kin, npv, n = workload()
     arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
     plans = {mode: lc.make_device_plan(arrays, kin, n, npv, 25, tile=256,
-                                       chunk=128, wings_mode=mode)
+                                       chunk=128, wings_mode=mode,
+                                       device="cpu")
              for mode in ("seg", "tile")}
     assert plans["seg"].wings is not None and plans["tile"].wings is None
     a, b = plans["seg"]().numpy(), plans["tile"]().numpy()
@@ -192,7 +194,7 @@ def test_rows_core_mode_is_refused():
     kin, npv, n = workload()
     arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
     plan = lc.make_device_plan(arrays, kin, n, npv, 25, core_mode="rows",
-                               wings_mode="seg")
+                               wings_mode="seg", device="cpu")
     want = jlp.make_device_plan(
         jls.prepare_kernel_arrays(kin, npv, np.float32), kin, n, npv, 25,
         interpret=True, core_mode="rows", wings_mode="seg")
@@ -218,7 +220,7 @@ def test_accumulate_batched_matches_jax():
     assert arrays["y"].shape[0] == 2
     lc.reset_launches()
     got = lc.accumulate_batched(arrays, kin, n, npv, 25, tile=256,
-                                chunk=128).numpy()
+                                chunk=128, device="cpu").numpy()
     assert sum(lc.LAUNCHES.values()) == 0
     want = np.asarray(jlp.accumulate_tpu_batched(
         jls.prepare_kernel_arrays(kin, npv, np.float32), kin, n, npv, 25,
@@ -229,7 +231,7 @@ def test_accumulate_batched_matches_jax():
         one = {k: v[b] for k, v in arrays.items()}
         kin_b = {k: np.asarray(v)[b] for k, v in kin.items()}
         single = lc.accumulate_device(one, kin_b, n, npv, 25, tile=256,
-                                      chunk=128).numpy()
+                                      chunk=128, device="cpu").numpy()
         assert rel_err(got[b], single) < 5e-6
 
 
@@ -242,7 +244,7 @@ def test_gas_matches_jax_engine(remove_pedestal):
     points that cancel to near zero."""
     pack = small_pack()
     grid = np.arange(50.0, 250.0, 0.2)
-    got = Gas(port_pack(pack), "H2O").absorption_coefficient(
+    got = Gas(port_pack(pack), "H2O", device="cpu").absorption_coefficient(
         *SURFACE, grid, remove_pedestal=remove_pedestal)
     v0, vn, npv, n = internal_grid(grid)
     keep = pack.compat_break_filter(v0, vn, 25)
@@ -268,7 +270,7 @@ def test_batched_fn_matches_jax(tile, core_mode):
     pack = small_pack()
     grid = np.arange(50.0, 250.0, 0.2)
     fn = tlines.make_batched_fn(port_pack(pack), grid, tile=tile, chunk=128,
-                                core_mode=core_mode)
+                                core_mode=core_mode, device="cpu")
     jfn = jlines.make_batched_tpu_fn(pack, grid, tile=tile, chunk=128,
                                      core_mode=core_mode, interpret=True)
     assert (fn.wings_stride is None) == (jfn.wings_stride is None) \
@@ -292,7 +294,7 @@ def test_batched_fn_envelope_guard():
     pack = port_pack(synthetic_line_pack(num_lines=64, nu_min=0.7,
                                          nu_max=60.0, seed=4))
     fn = tlines.make_batched_fn(pack, np.arange(1.0, 50.0, 0.5),
-                                t_max=350.0, p_max_atm=5.0)
+                                t_max=350.0, p_max_atm=5.0, device="cpu")
     with pytest.raises(ValueError, match="t_max"):
         fn(np.asarray([400.0]), np.asarray([1e5]), np.asarray([1e-3]))
     with pytest.raises(ValueError, match="p_max_atm"):
@@ -305,7 +307,7 @@ def test_batched_bitwise_determinism():
     pack = port_pack(synthetic_line_pack(num_lines=400, nu_min=0.5,
                                          nu_max=120.0, seed=3))
     fn = tlines.make_batched_fn(pack, np.arange(1.0, 100.0, 0.1), tile=256,
-                                chunk=128)
+                                chunk=128, device="cpu")
     a, b = fn(T2, P2, X2).numpy(), fn(T2, P2, X2).numpy()
     np.testing.assert_array_equal(a, b)
     assert np.abs(a).max() > 0
@@ -315,7 +317,7 @@ def test_gas_batch_matches_single_layers():
     """The batched pipeline and the single-layer plan give the same
     spectra, with and without the pedestal, and the batch pipeline is
     built once per grid."""
-    gas = Gas(port_pack(small_pack()), "H2O")
+    gas = Gas(port_pack(small_pack()), "H2O", device="cpu")
     grid = np.arange(50.0, 250.0, 0.2)
     for ped in (False, True):
         batch = gas.absorption_coefficient_batch(T2, P2, X2, grid,
@@ -335,9 +337,83 @@ def test_gas_batch_matches_single_layers():
 def test_h2o_golden_scalars_float64_plain(remove_pedestal, log_max, log_sum):
     grid = np.arange(1.0, 3250.0, 0.1)
     gas = Gas(LinePack.load(DATA / "h2o_frozen.lpk.npz"), "H2O",
-              dtype=torch.float64, backend="plain")
+              dtype=torch.float64, backend="plain", device="cpu")
     k = gas.absorption_coefficient(288.99, 98388.0, 6.637074e-03, grid,
                                    remove_pedestal=remove_pedestal)
     k = k[:grid.size]
     assert np.log(k.max()) == pytest.approx(log_max, rel=1e-6)
     assert np.log(np.sum(k * 0.1)) == pytest.approx(log_sum, rel=1e-6)
+
+
+def test_split_device_plan_matches_jax():
+    """The single-layer device plan on a dense line cluster at 1032 Pa
+    (where the cores are not pure Lorentzian), whose core tile and strided
+    wings tile walk more than 2K chunks (several pieces), against the JAX
+    device plan: the core alone to 1e-6 of its scale, the spectrum to
+    5e-6."""
+    dense = synthetic_line_pack(num_lines=4000, nu_min=100.0, nu_max=103.0,
+                                seed=31, band_centers=(101.5,))
+    kin, npv, n = workload(cond=(227.74, 1032.0, 4.763972e-06), pack=dense)
+    arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
+    jarrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, tile=1024, chunk=128,
+                               device="cpu")
+    want = jlp.make_device_plan(jarrays, kin, n, npv, 25, tile=1024,
+                                chunk=128, interpret=True)
+    assert plan.wings_stride is not None
+    assert int(plan.core.t_chunks.max()) > 2 * lc.PIECE_CHUNKS
+    assert int(plan.w_n.max()) > 2 * lc.PIECE_CHUNKS
+    core = plan.core_pass().numpy()
+    want_core = np.asarray(jlp._pallas_seg_pass_mixed(
+        jnp.asarray(plan.groups.numpy()), plan.core.t_start,
+        plan.core.t_chunks, n, 1024, 128, interpret=True))
+    scale = np.abs(want_core).max()
+    assert scale > 0
+    np.testing.assert_allclose(core, want_core, rtol=0, atol=scale * 1e-6)
+    assert rel_err(plan().numpy(), np.asarray(want())) < 5e-6
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+def _entry_calls():
+    """Each public entry point called with its default device."""
+    from pylbl_tpu_torch import Spectroscopy
+
+    kin, npv, n = workload()
+    arrays = tls.prepare_kernel_arrays(kin, npv, np.float32)
+    batch = {k: np.stack([v, v]) for k, v in arrays.items()}
+    kin_b = {k: np.stack([v, v]) for k, v in kin.items()}
+    pack = port_pack(small_pack())
+    grid = np.arange(50.0, 250.0, 0.2)
+    return {
+        "Spectroscopy": lambda: Spectroscopy(None, grid, None),
+        "Gas": lambda: Gas(pack, "H2O").absorption_coefficient(*SURFACE,
+                                                                grid),
+        "Gas batch": lambda: Gas(pack, "H2O").absorption_coefficient_batch(
+            T2, P2, X2, grid),
+        "make_batched_fn": lambda: tlines.make_batched_fn(pack, grid),
+        "make_multigas_batched_fn": lambda: tlines.make_multigas_batched_fn(
+            {"H2O": pack}, grid),
+        "make_device_plan": lambda: lc.make_device_plan(arrays, kin, n, npv,
+                                                        25),
+        "accumulate_device": lambda: lc.accumulate_device(arrays, kin, n, npv,
+                                                          25),
+        "accumulate_batched": lambda: lc.accumulate_batched(batch, kin_b, n,
+                                                            npv, 25),
+    }
+
+
+@pytest.mark.parametrize("entry", ["Spectroscopy", "Gas", "Gas batch",
+                                   "make_batched_fn",
+                                   "make_multigas_batched_fn",
+                                   "make_device_plan", "accumulate_device",
+                                   "accumulate_batched"])
+def test_entry_points_default_to_the_card(no_card, entry):
+    """The public entry points run on the card unless the caller asks for
+    the CPU: without a card their default raises, with no fallback."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_calls()[entry]()

@@ -263,7 +263,8 @@ def test_single_layer_strided_and_segmix_match_pallas():
     ``_pallas_seg_pass_mixed`` on the same single-layer blocks."""
     layers, npv, n = small_layers()
     kin, arrays = layers[0]
-    plan = lc.make_device_plan(arrays, kin, n, npv, 25, tile=1024, chunk=128)
+    plan = lc.make_device_plan(arrays, kin, n, npv, 25, tile=1024, chunk=128,
+                               device="cpu")
     assert plan.wings_stride is not None and plan.soa.dim() == 2
     wings = plan.wings_pass().numpy()
     want = np.asarray(jlp._pallas_pass_strided(
@@ -421,3 +422,166 @@ def test_checked_strided_wings_match_pallas():
     splat = lc.tile_pass(torch.as_tensor(soa), w_start, w_n, n, tile, chunk,
                          "wings").numpy()
     np.testing.assert_allclose(got, splat, atol=np.abs(splat).max() * 1e-6)
+
+
+# --- The split chunk walks: a dense line cluster puts more than
+# 2 * PIECE_CHUNKS chunks into one tile of the wings and the core. ---
+
+def dense_packs():
+    """4000 H2O lines within 100-103 cm-1 (one or two tiles of the core
+    and the wings hold them all) beside the small CO2 pack."""
+    return {
+        "H2O": synthetic_line_pack("H2O", num_lines=4000, nu_min=100.0,
+                                   nu_max=103.0, seed=31,
+                                   band_centers=(101.5,)),
+        "CO2": packs()["CO2"],
+    }
+
+
+def dense_pipeline(tile, tail):
+    fn = make_multigas_batched_fn(dense_packs(), GRID, tile=tile, chunk=128,
+                                  wings_tail=tail, device="cpu")
+    soa, core = fn.assemble(T, P, VMR)
+    return fn, soa, core
+
+
+def most_chunks(*counts):
+    return int(sum(np.asarray(c, np.int64) for c in counts).max())
+
+
+@pytest.mark.parametrize("tile,tail", [(512, 128), (256, 128)])
+def test_split_segmix_core_matches_pallas(tile, tail):
+    """The stacked path's mixed-slot core with a tile of more than 2K
+    chunks (several pieces) against ``_pallas_seg_pass_mixed``, the core
+    alone to 1e-6 of its scale as test_segmix_core_matches_pallas."""
+    fn, _, core = dense_pipeline(tile, tail)
+    plan = fn.core_plan
+    assert most_chunks(plan.t_chunks) > 2 * lc.PIECE_CHUNKS
+    assert plan.pieces.num_slots > 0
+    got = fn.core_pass(core).numpy()
+    want = np.asarray(jlp._pallas_seg_pass_mixed(
+        jnp.asarray(core.numpy()), plan.t_start, plan.t_chunks,
+        plan.num_points, plan.tile, plan.chunk, interpret=True))
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_split_strided_tail_wings_match_pallas():
+    """The strided wings with the tail chunk class, one tile walking more
+    than 2K main and tail chunks, against ``_pallas_pass_strided``."""
+    fn, soa, _ = dense_pipeline(512, 128)
+    assert fn.wings_stride is not None and fn.wings_tail_csr is not None
+    w_start, w_n = fn.wings_csr
+    t_start, t_n = fn.wings_tail_csr
+    assert most_chunks(w_n, t_n) > 2 * lc.PIECE_CHUNKS and t_n.sum() > 0
+    got = fn.wings_pass(soa).numpy()
+    want = np.asarray(jlp._pallas_pass_strided(
+        jnp.asarray(soa.numpy()), w_start, w_n, fn.core_plan.num_points,
+        512, fn.wings_stride, chunk=fn.wings_chunk, interpret=True,
+        prepacked=True, t_start=t_start, t_n=t_n, tail=128))
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_split_splat_wings_match_pallas():
+    """The splat wings, tiles walking more than 2K chunks of 128 lines,
+    against ``_pallas_pass_batched`` with the prepacked line function."""
+    fn, soa, _ = dense_pipeline(256, 128)
+    assert fn.wings_stride is None
+    w_start, w_n = fn.wings_csr
+    assert most_chunks(w_n) > 2 * lc.PIECE_CHUNKS
+    batch = soa.shape[0]
+    got = fn.wings_pass(soa).numpy()
+    want = np.asarray(jlp._pallas_pass_batched(
+        jnp.asarray(soa.numpy()), np.broadcast_to(w_start, (batch,)
+                                                  + w_start.shape),
+        np.broadcast_to(w_n, (batch,) + w_n.shape), fn.core_plan.num_points,
+        256, fn.wings_chunk, "wings_pre", interpret=True))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_one_piece_tile_matches_pallas():
+    """A tile of exactly one full piece writes its sum directly: the walk
+    of the second-densest tile (13 chunks) cut to PIECE_CHUNKS, against the
+    Pallas core on the same cut CSR, and bit for bit the sum of its chunk
+    partials in order.  (The densest tile cut so short ends on a point
+    that cancels, where the TPU kernel's one-hot order and the port's
+    differ by 1.8e-6 of the maximum.)"""
+    fn, _, core = dense_pipeline(512, 128)
+    plan = fn.core_plan
+    t_chunks = plan.t_chunks.copy()
+    dense = int(np.argsort(t_chunks, kind="stable")[-2])
+    assert t_chunks[dense] > lc.PIECE_CHUNKS
+    t_chunks[dense] = lc.PIECE_CHUNKS
+    pieces = lc.TilePieces(t_chunks)
+    assert pieces.per_tile[dense] == 1 and pieces.slot[dense] == -1
+    got = lc.core_segmix_pass(core, torch.as_tensor(plan.t_start),
+                              torch.as_tensor(t_chunks), plan.num_points,
+                              plan.tile).numpy()
+    want = np.asarray(jlp._pallas_seg_pass_mixed(
+        jnp.asarray(core.numpy()), plan.t_start, t_chunks, plan.num_points,
+        plan.tile, plan.chunk, interpret=True))
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    # The same tile through one-chunk walks, added in walk order.
+    tile = plan.tile
+    span = slice(dense * tile, (dense + 1) * tile)
+    total = torch.zeros(core.shape[0], tile)
+    for k in range(lc.PIECE_CHUNKS):
+        one = np.zeros_like(t_chunks)
+        one[dense] = 1
+        start = plan.t_start.copy()
+        start[dense] += k
+        total = total + lc.core_segmix_pass(
+            core, torch.as_tensor(start), torch.as_tensor(one),
+            plan.num_points, tile)[:, span]
+    np.testing.assert_array_equal(got[:, span], total.numpy())
+
+
+def test_tile_pieces_plan():
+    """Pieces of at most K chunks per tile, one for an empty tile, scratch
+    slots only for split tiles; [B, T] counts split by their most."""
+    k = lc.PIECE_CHUNKS
+    counts = np.asarray([0, 1, k, k + 1, 2 * k + 1])
+    pieces = lc.TilePieces(counts)
+    assert list(pieces.per_tile) == [1, 1, 1, 2, 3]
+    assert list(pieces.first) == [0, 1, 2, 3, 5]
+    assert list(pieces.tile) == [0, 1, 2, 3, 3, 4, 4, 4]
+    assert list(pieces.slot) == [-1, -1, -1, 0, 2]
+    assert pieces.num_slots == 5 and pieces.num_pieces == 8
+    assert pieces.stats() == {"pieces": 8, "most_chunks_tile": 2 * k + 1,
+                              "most_chunks_piece": k}
+    layered = lc.TilePieces(np.stack([counts, counts[::-1]]))
+    assert list(layered.per_tile) == [3, 2, 1, 2, 3]
+    both = lc.TilePieces.of_csr(counts, torch.as_tensor(counts))
+    assert list(both.per_tile) == list(lc.TilePieces(2 * counts).per_tile)
+
+
+def test_fold_pieces_is_the_kernels_order():
+    """The plain fold: piece j sums chunks jK.. in order from +0.0, the tile
+    sums its pieces in order from +0.0 (bit for bit against a loop)."""
+    rng = np.random.default_rng(5)
+    k = lc.PIECE_CHUNKS
+    counts = [0, 3 * k + 2, 1, k]
+    tiles = np.repeat(np.arange(len(counts)), counts)
+    seq = np.concatenate([np.arange(c) for c in counts])
+    parts = torch.as_tensor(rng.normal(size=(2, tiles.size, 5))
+                            .astype(np.float32))
+    got = lc._fold_pieces(parts, torch.as_tensor(tiles),
+                          torch.as_tensor(seq), (2, len(counts), 5))
+    want = torch.zeros(2, len(counts), 5)
+    for t, count in enumerate(counts):
+        first = int(np.flatnonzero(tiles == t)[0]) if count else 0
+        acc = torch.zeros(2, 5)
+        for j in range(0, count, k):
+            piece = torch.zeros(2, 5)
+            for c in range(j, min(j + k, count)):
+                piece = piece + parts[:, first + c]
+            acc = acc + piece
+        want[:, t] = acc
+    assert torch.equal(got, want)

@@ -82,7 +82,8 @@ def rel(got, want, floor):
                                              (512, None)])
 def test_multigas_matches_jax(packs, per_gas_f64, tile, wings_tail):
     tfn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=tile,
-                                          chunk=128, wings_tail=wings_tail)
+                                          chunk=128, wings_tail=wings_tail,
+                                          device="cpu")
     got = tfn(*ARGS32).numpy()
     jfn = jlines.make_multigas_batched_fn(packs[0], GRID, tile=tile,
                                           chunk=128, wings_tail=wings_tail,
@@ -104,7 +105,7 @@ def test_multigas_rows_core_matches_jax(packs, per_gas_f64, tile,
     per-gas float64 path (5e-4)."""
     tfn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=tile,
                                           chunk=128, wings_tail=wings_tail,
-                                          core_mode="rows")
+                                          core_mode="rows", device="cpu")
     jfn = jlines.make_multigas_batched_fn(packs[0], GRID, tile=tile,
                                           chunk=128, wings_tail=wings_tail,
                                           core_mode="rows", interpret=True)
@@ -124,7 +125,7 @@ def test_multigas_rows_core_matches_jax(packs, per_gas_f64, tile,
 
 def test_multigas_total_and_envelope_guard(packs):
     fn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=256,
-                                         chunk=128)
+                                         chunk=128, device="cpu")
     per_gas = fn(*ARGS32).numpy().astype(np.float64)
     want = np.einsum("bgn,bg->bn", per_gas,
                      number_density(T[:, None], P[:, None], VMR))
@@ -142,7 +143,7 @@ def test_no_cross_gas_leakage(packs):
     """A gas with zero vmr still sees air-broadened lines, and no other
     gas's window writes into its segment."""
     fn = tlines.make_multigas_batched_fn(packs[1], GRID, tile=512,
-                                         chunk=128)
+                                         chunk=128, device="cpu")
     vmr = VMR.copy()
     vmr[:, 2] = 0.0
     got = fn(T, P, vmr).numpy()
@@ -154,7 +155,7 @@ def test_no_cross_gas_leakage(packs):
 
 def test_pedestal_remover_matches_jax(packs, per_gas_f64):
     k = tlines.make_multigas_batched_fn(packs[1], GRID, tile=512,
-                                        chunk=128)(*ARGS32)
+                                        chunk=128, device="cpu")(*ARGS32)
     got = tlines.make_stacked_pedestal_remover(packs[1], GRID)(
         k, T, P, VMR).numpy()
     want = np.asarray(jlines.make_stacked_pedestal_remover(packs[0], GRID)(
@@ -169,7 +170,7 @@ def test_gas_engine_matches_jax(packs, per_gas_f64, remove_pedestal):
     """The port's Gas (the single-layer device plan and the single-gas
     batched pipeline, each with its pedestal functions) against the
     per-gas float64 "xla" path."""
-    gas = TGas(packs[1]["CO2"], "CO2")
+    gas = TGas(packs[1]["CO2"], "CO2", device="cpu")
     batch = gas.absorption_coefficient_batch(T, P, VMR[:, 1], GRID,
                                              remove_pedestal=remove_pedestal)
     single = gas.absorption_coefficient(T[0], P[0], VMR[0, 1], GRID,
@@ -182,6 +183,6 @@ def test_gas_engine_matches_jax(packs, per_gas_f64, remove_pedestal):
 
 def test_cpu_run_launches_no_kernel(packs):
     lc.reset_launches()
-    fn = tlines.make_multigas_batched_fn(packs[1], GRID)
+    fn = tlines.make_multigas_batched_fn(packs[1], GRID, device="cpu")
     fn(*ARGS32)
     assert all(count == 0 for count in lc.LAUNCHES.values())

@@ -330,7 +330,7 @@ def test_make_device_plan_host_arrays_identical(step, tile, core_mode,
     arrays = jls.prepare_kernel_arrays(kin, npv, np.float32)
     got = tlc.make_device_plan(arrays, kin, n, npv, 25, tile=tile,
                                chunk=128, core_mode=core_mode,
-                               wings_mode=wings_mode)
+                               wings_mode=wings_mode, device="cpu")
     want = jlp.make_device_plan(arrays, kin, n, npv, 25, tile=tile,
                                 chunk=128, core_mode=core_mode,
                                 wings_mode=wings_mode, interpret=True)

@@ -129,7 +129,8 @@ def canonical_dataset():
 
 def test_all_format_matches_jax(database, jax_all):
     got = pylbl_tpu_torch.Spectroscopy(canonical_dataset(), COARSE,
-                                       database[1]).compute_absorption(
+                                       database[1],
+                                       device="cpu").compute_absorption(
         output_format="all")
     assert list(got.data_vars) == list(jax_all.data_vars)
     assert list(got["mechanism"].data) == list(jax_all["mechanism"].data)
@@ -148,7 +149,7 @@ def test_gas_and_total_formats_match_jax(database, jax_all,
                                          device_mechanisms):
     spec = pylbl_tpu_torch.Spectroscopy(
         canonical_dataset(), COARSE, database[1],
-        device_mechanisms=device_mechanisms)
+        device_mechanisms=device_mechanisms, device="cpu")
     per_gas = spec.compute_absorption(output_format="gas")
     total = spec.compute_absorption(output_format="total")
     want_total = 0.0
@@ -175,7 +176,8 @@ def test_unstackable_gases_fall_back_per_gas(database, jax_all, tmp_path):
         canonical_dataset(), COARSE, database[0]).compute_absorption(
         output_format="gas")
     db.ingest_line_pack(pack)
-    spec = pylbl_tpu_torch.Spectroscopy(canonical_dataset(), COARSE, db)
+    spec = pylbl_tpu_torch.Spectroscopy(canonical_dataset(), COARSE, db,
+                                        device="cpu")
     got = spec.compute_absorption(output_format="gas")
     assert "unstackable" in spec._multigas_fns.values()
     for name in ("H2O", "CO2"):
@@ -236,7 +238,7 @@ def test_total_golden_float64(tmp_path):
             "units": "mol mol-1"})
     spec = pylbl_tpu_torch.Spectroscopy(
         pylbl_tpu_torch.Dataset(data_vars=data), COARSE, db,
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     lc.reset_launches()
     a = spec.compute_absorption(output_format=None)["absorption"].data
     assert all(count == 0 for count in lc.LAUNCHES.values())

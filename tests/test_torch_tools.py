@@ -94,7 +94,8 @@ def test_parity_ab_compare_on_cpu(work):
 def test_batched_microbench_stages_on_cpu(core_mode):
     pack = headline_pack(3000, nu_max=260.0)
     fn, (t, p, x) = batched_microbench.build(
-        pack, np.arange(1.0, 220.0, 0.1), 2, core_mode=core_mode)
+        pack, np.arange(1.0, 220.0, 0.1), 2, core_mode=core_mode,
+        device="cpu")
     stages = dict(batched_microbench.build_stages(fn, t, p, x))
     assert list(stages)[:2] == ["physics", "assemble(phys+blocks)"]
     soa, core = stages["assemble(phys+blocks)"]()
@@ -114,7 +115,7 @@ def test_batched_microbench_splat_takes_the_pipelines_pass_kind():
     raw rows as prepacked ones."""
     pack = headline_pack(3000, nu_max=260.0)
     fn, (t, p, x) = batched_microbench.build(
-        pack, np.arange(1.0, 220.0, 0.02), 2, core_mode="seg")
+        pack, np.arange(1.0, 220.0, 0.02), 2, core_mode="seg", device="cpu")
     assert fn.wings_stride is None and not fn.wings_prepacked
     soa, _ = fn.stage.assemble(t, p, x)
     got = batched_microbench.wings_stage(fn, soa)().numpy()
