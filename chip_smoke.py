@@ -35,19 +35,22 @@ kernels and the native pedestal scan from this checkout into ``build/``
     with the pedestal removed: wall time, peak memory, float64 parity on 2
     layers, bit-identical repeat;
 11. the A/B formulations of one headline layer: per-stream segment core,
-    segment wings, raw-Lorentz splat wings and the scalar per-line core,
-    plus the strided wings on a tail-chunk layout; each kernel against its
-    plain version and each spectrum against phase 8's float64 result;
+    segment wings (with their chunk and stream counts), raw-Lorentz splat
+    wings and the scalar per-line core, plus the strided wings on a
+    tail-chunk layout; each kernel against its plain version and each
+    spectrum against phase 8's float64 result;
 12. the rows core and the ownership-checked strided wings: the headline
     layer's ``make_device_plan(core_mode="rows")`` with the strided and
     the tile wings (float64 parity), the rows core with its separate
-    min-y block, the checked strided wings on the layer's straddle CSR
-    (against the prepacked strided pass), phase 10's 16-layer column
-    through ``make_batched_fn(core_mode="rows")`` (float64 parity on
-    layers 0 and 15), the checked wings on two of its layers with one
-    CSR, and the port's ``kernel_microbench`` and ``parity_ab`` tools at
-    the headline size; each new kernel equals its plain version bit for
-    bit.
+    min-y block (both with their piece counts, and the size of the rows
+    core's deviation from one running sum per point), the checked
+    strided wings on the layer's straddle CSR (against the prepacked
+    strided pass), phase 10's 16-layer column through
+    ``make_batched_fn(core_mode="rows")`` and ``core_mode="seg"`` (float64
+    parity on layers 0 and 15; the rows and segment cores timed at 16
+    layers), the checked wings on two of its layers with one CSR, and the
+    port's ``kernel_microbench`` and ``parity_ab`` tools at the headline
+    size; each new kernel equals its plain version bit for bit.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -61,7 +64,7 @@ correction 41 (region 1's path, the one beyond xlim1, about nine tenths
 of a core window; the points nearer the center cost more, so the bound
 stays below the work).  No single PyTorch call computes a windowed line
 sum, so ``library_ms`` is null.  The split kernels' records also carry
-their piece counts.
+their piece counts (the segment pass its chunk and stream counts).
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -391,8 +394,8 @@ def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
     """One kernel against its plain version on the same inputs: bit for
     bit, kernel ms (``reps`` after a warm-up) and plain ms (one rep after
     the call that gives the reference); with ``ops`` the record's bound
-    over ``inputs`` and the output, with ``pieces`` (a TilePieces) its
-    piece counts."""
+    over ``inputs`` and the output, with ``pieces`` (a TilePieces,
+    GroupWalk or SegStreams) its piece or stream counts."""
     got = run()
     want = run_plain()
     torch.cuda.synchronize()
@@ -404,20 +407,35 @@ def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
                   library_ms=None)
     if ops is not None:
         set_bound(record, ops, inputs, got)
+    split = ""
     if pieces is not None:
-        record.update(pieces.stats())
+        stats = pieces.stats()
+        record.update(stats)
+        split = ", " + ", ".join(f"{key} {value}"
+                                 for key, value in stats.items())
     bound = (f", bound {record['bound_ms']:.6f} ms ({record['bound_by']}: "
              f"{record['operations']:.6e} operations, {record['bytes']} "
              "bytes)") if ops is not None else ""
-    split = (f", {record['pieces']} pieces (most chunks: "
-             f"{record['most_chunks_tile']} in a tile, "
-             f"{record['most_chunks_piece']} in a piece)"
-             if pieces is not None else "")
     print(f"{name}: shape {tuple(got.shape)}, max rel {rel:.3e}, max abs "
           f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{bound}"
           f"{split}")
     check(err == 0, f"{name} equals its plain version bit for bit")
     return got
+
+
+def rows_deviation(torch, name, got, run_whole, records):
+    """The rows core's recorded deviation from the JAX order: the
+    kernel's piece-folded sums against the plain version with one running
+    sum per point through the whole walk (``run_whole``), as a share of
+    the maximum; held to 1e-6, the JAX rows test's tolerance."""
+    whole = run_whole()
+    scale = float(whole.double().abs().max())
+    err = float((got.double() - whole.double()).abs().max())
+    print(f"{name} deviation: piece-folded vs one running sum, max abs "
+          f"{err:.3e} = {err / scale:.3e} of the maximum {scale:.3e}")
+    records[name]["deviation_of_max"] = err / scale
+    check(err <= 1e-6 * scale, f"{name} within 1e-6 of the maximum of the "
+          "one-running-sum order")
 
 
 def spectrum_parity(torch, label, got, want):
@@ -610,13 +628,14 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                         out.cpu().numpy().astype(np.float64), k64)
         run = alt.core_pass if stage == "core" else alt.wings_pass
         own = name != "tile_lorentz"    # tile_lorentz's record is phase 9's
-        pieces = None
         if stage == "core":
             ops = core_ops(torch, lc, alt.groups)
             inputs = [alt.groups, *core_csr(alt.core, alt.groups)]
+            pieces = alt.core.streams
         elif own:
             ops = seg_wings_ops(torch, lc, alt.soa, alt.wings)
             inputs = [alt.soa, *core_csr(alt.wings, alt.soa)]
+            pieces = alt.wings.streams
         else:
             ops = tile_ops(torch, lc, alt.soa, n, "raw")
             inputs = [alt.soa, alt.w_start, alt.w_n]
@@ -734,8 +753,8 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
             exact("core_rows_single", alt.core_pass,
                   lambda: alt.core_pass(plain=True),
                   ops=rows_ops(torch, lc, alt.groups, alt.core.g_n, 1024),
-                  inputs=[alt.groups, *(torch.as_tensor(a) for a in
-                                        (alt.core.g_start, alt.core.g_n))])
+                  inputs=[alt.groups, *alt.core.walk.tensors("cuda")],
+                  pieces=alt.core.walk)
             records["core_rows_single"]["launches"] = \
                 counts["core_rows_single"]
         rows_plans[label] = alt
@@ -745,19 +764,22 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     # the rows kernel itself.
     groups = alt.groups
     ymin = lc.group_min_y(groups)
-    g_start, g_n = (torch.as_tensor(a, device="cuda")
-                    for a in (alt.core.g_start, alt.core.g_n))
+    g_start, g_n = alt.core.walk.tensors("cuda")
 
     def vmem(plain=False):
         if plain:
             return lc.rows_plain(groups, g_start, g_n, n, 1024, ymin=ymin)
-        return lc.rows_vmem_pass(groups, ymin, g_start, g_n, n, 1024)
+        return lc.rows_vmem_pass(groups, ymin, alt.core.walk, n, 1024)
 
     got = exact("core_rows_vmem", vmem, lambda: vmem(True),
                 ops=rows_ops(torch, lc, groups, alt.core.g_n, 1024),
-                inputs=[groups, ymin, g_start, g_n])
+                inputs=[groups, ymin, g_start, g_n],
+                pieces=alt.core.walk)
     check(torch.equal(got, alt.core_pass()), "core_rows_vmem equals the "
           "rows kernel bit for bit")
+    rows_deviation(torch, "core_rows_single", got,
+                   lambda: lc.rows_plain(groups, g_start, g_n, n, 1024,
+                                         piece=1 << 30), records)
 
     # The checked strided wings on the headline layer's straddle CSR.
     stride = plan.wings_stride
@@ -801,19 +823,50 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
           "rows batch launched core_rows and the strided wings")
     check(torch.equal(fn(t, p, x), kb), "rows batch repeat is bit-identical")
     two = [0, t.size - 1]
+    ref64 = gas64.absorption_coefficient_batch(t[two], p[two], x[two], grid)
     spectrum_parity(torch, "phase 12 rows batch (layers 0 and 15)",
-                    kb[two].cpu().numpy().astype(np.float64),
-                    gas64.absorption_coefficient_batch(t[two], p[two],
-                                                       x[two], grid))
+                    kb[two].cpu().numpy().astype(np.float64), ref64)
     tt, pp, xx = (torch.as_tensor(a, dtype=torch.float32, device="cuda")
                   for a in (t, p, x))
     _, core = fn.stage.assemble(tt, pp, xx)
-    exact("core_rows", lambda: fn.core_pass(core),
-          lambda: fn.core_pass(core, plain=True),
-          ops=rows_ops(torch, lc, core, fn.core_plan.g_n, 1024),
-          inputs=[core, *(torch.as_tensor(a) for a in
-                          (fn.core_plan.g_start, fn.core_plan.g_n))])
+    got = exact("core_rows", lambda: fn.core_pass(core),
+                lambda: fn.core_pass(core, plain=True),
+                ops=rows_ops(torch, lc, core, fn.core_plan.g_n, 1024),
+                inputs=[core, *fn.core_plan.walk.tensors("cuda")],
+                pieces=fn.core_plan.walk)
     records["core_rows"]["launches"] = counts["core_rows"]
+    rows_deviation(torch, "core_rows", got,
+                   lambda: lc.rows_plain(
+                       core, *fn.core_plan.walk.tensors("cuda"), n, 1024,
+                       piece=1 << 30), records)
+
+    # The same column through the batched pipeline with the per-stream
+    # segment core (the _seg_kernel_batched use).
+    fn_seg = make_batched_fn(gas.pack, grid, core_mode="seg", device="cuda")
+    lc.reset_launches()
+    kb_seg, wall, dev = timed_call(torch, lambda: fn_seg(t, p, x))
+    counts = dict(lc.LAUNCHES)
+    print(f"phase 12 make_batched_fn(core_mode='seg'), {t.size} layers: "
+          f"wall {wall:.3f} s (CUDA events {dev:.4f} s), "
+          f"{fn_seg.core_plan.num_instances} instance slots; launches "
+          f"{counts}")
+    check(counts["seg_core"] > 0, "seg batch launched seg_core")
+    check(torch.equal(fn_seg(t, p, x), kb_seg),
+          "seg batch repeat is bit-identical")
+    spectrum_parity(torch, "phase 12 seg batch (layers 0 and 15)",
+                    kb_seg[two].cpu().numpy().astype(np.float64), ref64)
+    _, core_seg = fn_seg.stage.assemble(tt, pp, xx)
+    sixteen = {}
+    compare_kernel(torch, "seg_core at 16 layers",
+                   lambda: fn_seg.core_pass(core_seg),
+                   lambda: fn_seg.core_pass(core_seg, plain=True), sixteen,
+                   ops=core_ops(torch, lc, core_seg),
+                   inputs=[core_seg, *core_csr(fn_seg.core_plan, core_seg)],
+                   pieces=fn_seg.core_plan.streams)
+    records["seg_core"].update(launches_16_layers=counts["seg_core"],
+                               ms_16_layers=sixteen["ms"],
+                               plain_ms_16_layers=sixteen["plain_ms"],
+                               bound_ms_16_layers=sixteen["bound_ms"])
 
     # The checked wings on two of the column's layers with one CSR, at the
     # batched pipeline's stride (its windows, widened by a wavenumber of
@@ -855,9 +908,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     spectrum_parity(torch, "phase 12 batched checked wings + rows core "
                     "(layers 0 and 15)",
                     (wings2 + fn.core_pass(core)[two]).cpu().numpy()
-                    .astype(np.float64),
-                    gas64.absorption_coefficient_batch(t[two], p[two],
-                                                       x[two], grid))
+                    .astype(np.float64), ref64)
 
     # The port's tools at the headline size.
     work = {"pack": gas.pack, "grid": grid, "kin": kin, "arrays": arrays,

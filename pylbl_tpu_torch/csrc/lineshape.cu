@@ -41,16 +41,26 @@
 //   unrolled, so the four class bodies are compiled once each.
 //
 // pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
-//   _seg_kernel_batched).  One block of 4 warps per (tile, layer) walks the
-//   tile's 128-instance chunks in order; every chunk carries ONE segment
-//   slot.  Lane = offset o in the segment; warp w adds its 32 instances in
-//   order into a register, the four warp sums are added in warp order and
-//   land on points t*tile + 32*slot + o.  CORE (_seg_chunk_accumulate):
-//   seg0-relative x, window mask o in [s_rel, e_rel], class from the
-//   chunk's min y.  WINGS (_seg_chunk_accumulate_lorentz): raw SoA rows in
-//   absolute points, the Lorentzian of every instance, no class branch.
-//   The TPU's transposed (8, tile/8) accumulator is a layout, not carried
-//   over: the output is in natural order, with no atomics.
+//   _seg_kernel_batched).  Every 128-instance chunk carries ONE segment
+//   slot, so it adds to one (tile, slot) stream of 32 points, and a
+//   stream's chunks are folded in walk order.  One block per (tile, layer)
+//   walked a tile's chunks in series (up to 4,359 chunks on the headline
+//   layer's wings, 49 blocks on 132 SMs), so the time was the busiest
+//   tile's walk, not the 165 MB of parameters that bound the wings.  The
+//   design, two launches: seg_chunk_kernel gives every (chunk, layer) one
+//   warp, 4 per block; the warp loads its chunk's 8 x 128 parameters with
+//   coalesced float4 loads into shared memory and computes the chunk sum
+//   in the one order there is, lane = offset o, warp partial w over
+//   instances 32w..32w+31 in order, then ((w0 + w1) + w2) + w3, skipping
+//   an instance whose window misses the segment (its term is +0.0).  CORE
+//   (_seg_chunk_accumulate): seg0-relative x, window mask o in [s_rel,
+//   e_rel], class from the chunk's min y (warp-uniform branch; a chunk at
+//   >= 70.55 sums to +0.0).  WINGS (_seg_chunk_accumulate_lorentz): raw
+//   SoA rows at absolute points 32*stream + o.  The sums go to a scratch
+//   [B, E, 32] in stream order; seg_fold_kernel then gives each output
+//   point one thread that adds its stream's chunk sums in walk order from
+//   +0.0 (a stream of no chunks writes +0.0).  No float atomics, and the
+//   values and their order are the one-block walk's: bit-identical.
 //
 // pylbl_core_segmix: mixed-slot segment-32 Humlicek core correction
 //   (replaces _seg_kernel_mixed(_batched) with _seg_chunk_accumulate_mixed;
@@ -74,8 +84,9 @@
 //   replace the TPU's one-hot matrix product: no tensor cores (TF32 would
 //   round the values), no float atomics (runs are bit-identical).
 //
-// Piece split (pylbl_wings, pylbl_core_segmix): piece j of tile t walks
-//   chunks jK .. min(jK + K, count) - 1 of the tile's walk.  A tile of one
+// Piece split (pylbl_wings, pylbl_core_segmix, pylbl_rows): piece j of
+//   tile t walks units jK .. min(jK + K, count) - 1 of the tile's walk
+//   (chunks; groups for the rows core).  A tile of one
 //   piece writes its sum directly.  A split tile's pieces each write their
 //   partial tile to a scratch slot, fence, and count themselves on the
 //   tile's integer counter; the block that counts last adds the slots in
@@ -86,14 +97,22 @@
 //   and, with a separate [B, 1, G] min-y block, _rows_kernel_vmem).  A
 //   group is 8 instances, one per row of the tile (row r holds points
 //   r*tile/8 .. (r+1)*tile/8 - 1); its parameters are 64 rows, field f of
-//   instance r in row f*8+r, the group's min y in row 56.  One block of 8
-//   warps per (tile, layer): warp r owns row r, lane l its points
-//   l, l+32, ...  Each chunk of 128 groups x 57 rows (29 KB) is staged in
-//   shared memory; per group the class is picked once from the min y
-//   (block-uniform branch; skip at >= 70.55) and instance r's fields reach
-//   warp r as shared-memory broadcasts.  Every point keeps ONE running
-//   accumulator through all groups in order, as _rows_kernel does (no
-//   per-chunk partials).  Bound by the Humlicek math over whole rows.
+//   instance r in row f*8+r, the group's min y in row 56.  Bound by the
+//   Humlicek math of the in-window points, but one block per (tile,
+//   layer) walked up to 43 x 128 groups in series on the headline layer.
+//   The design: the tile's group walk is cut into pieces of K groups
+//   (pieces of the tile kernel's kind, K a multiple of 32), one block of
+//   8 warps per (piece, layer); warp r owns row r, lane l its points
+//   l, l+32, ...  Stages of 32 groups x 57 rows are copied into a 2-slot
+//   shared-memory ring with 16-byte cp.async while the previous stage is
+//   worked; per group the class is picked once from the min y
+//   (block-uniform branch; skip at >= 70.55), instance r's fields reach
+//   warp r as shared-memory broadcasts, and warp r skips point group j
+//   when instance r's window misses its 32 points (dead slots have an
+//   empty window; the term is +0.0).  Each point keeps one running sum
+//   per piece in group order, and the pieces fold in piece order
+//   (piece_fold).  The JAX kernels carry ONE sum per point through the
+//   whole walk, so this order is a recorded deviation of the port.
 //
 // Each entry returns cudaGetLastError() after its launch.
 
@@ -120,12 +139,17 @@ constexpr int kSeg0Rel = 0, kCoreCFrac = 1, kCoreSrw = 2, kCoreY = 3,
 // Tile-kernel line functions (pylbl_wings' line_fn argument).
 constexpr int kLinePre = 0, kLineRaw = 1, kLineCorr = 2, kLineOwn = 3;
 // Rows core: threads per block (8 warps, one per row), groups per chunk,
-// and the min-y row of a group block.
+// groups per piece (ROWS_PIECE_GROUPS, one cp.async stage), and the min-y
+// row of a group block.
 constexpr int kRowsThreads = 256;
 constexpr int kRowsChunk = 128;
+constexpr int kRowsPiece = 32;
 constexpr int kYminRow = 56;
-// Segment-pass kinds (pylbl_seg's kind argument).
+// Segment-pass kinds (pylbl_seg's kind argument), chunks (warps) per block
+// of the chunk-sum kernel and threads per block of the fold.
 constexpr int kSegCore = 0, kSegWings = 1;
+constexpr int kSegWarps = kCoreThreads / 32;
+constexpr int kFoldThreads = 256;
 
 // ---- Humlicek classes (pylbl_tpu_torch/ops/voigt.py, same op order) ----
 
@@ -345,10 +369,24 @@ __device__ __forceinline__ void cp_async_commit()
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 16 bytes; both addresses 16-byte aligned (L2 only, as .cg requires).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src)
+{
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
 // Waits for every copy group of this thread but the newest.
 __device__ __forceinline__ void cp_async_wait_prev()
 {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Waits for every copy group of this thread.
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Where piece j of tile t writes its partial tile: the output tile itself
@@ -590,116 +628,140 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-// _seg_chunk_accumulate: warp w's 32 instances of a core chunk, summed in
-// order at offset o = lane of the chunk's segment.
+// _seg_chunk_accumulate over one core chunk at offset o = lane of its
+// segment: warp partial w adds instances 32w..32w+31 in order, the chunk
+// sum is ((w0 + w1) + w2) + w3.  An instance whose window [s_rel, e_rel]
+// misses offsets 0..31 (dead lanes among them) is skipped: every lane's
+// term would be +0.0.
 template <int CLASS>
-__device__ __forceinline__ float seg_core_sum(const float (*prm)[kCoreThreads],
-                                              int warp, int lane)
+__device__ __forceinline__ float seg_core_chunk(
+    const float (*prm)[kCoreThreads], int lane)
 {
     const float o = (float)lane;
-    float sum = 0.0f;
-    for (int j = 0; j < 32; ++j) {
-        const int i = warp * 32 + j;
-        const float x = ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i])
-                        * prm[kCoreSrw][i];
-        const float val = correction<CLASS>(x, prm[kCoreY][i]);
-        const bool in = (o >= prm[kSRel][i]) && (o <= prm[kERel][i]);
-        sum = sum + (in ? prm[kCorePref][i] * val : 0.0f);
+    float total = 0.0f;
+#pragma unroll 1
+    for (int w = 0; w < kSegWarps; ++w) {
+        float part = 0.0f;
+        for (int j = 0; j < 32; ++j) {
+            const int i = w * 32 + j;
+            const float s_rel = prm[kSRel][i];
+            const float e_rel = prm[kERel][i];
+            if (e_rel < 0.0f || s_rel > 31.0f) continue;   // warp-uniform
+            const float x = ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i])
+                            * prm[kCoreSrw][i];
+            const float val = correction<CLASS>(x, prm[kCoreY][i]);
+            const bool in = (o >= s_rel) && (o <= e_rel);
+            part = part + (in ? prm[kCorePref][i] * val : 0.0f);
+        }
+        total = w == 0 ? part : total + part;
     }
-    return sum;
+    return total;
 }
 
-// _seg_chunk_accumulate_lorentz: the same over raw SoA rows at an absolute
-// grid point.
-__device__ __forceinline__ float seg_wings_sum(const float (*prm)[kCoreThreads],
-                                               int warp, float point)
+// _seg_chunk_accumulate_lorentz over one wings chunk: the same over raw
+// SoA rows at the absolute point lo + lane; an instance whose window
+// misses lo .. lo + 31 is skipped.
+__device__ __forceinline__ float seg_wings_chunk(
+    const float (*prm)[kCoreThreads], float lo, int lane)
 {
-    float sum = 0.0f;
-    for (int j = 0; j < 32; ++j) {
-        const int i = warp * 32 + j;
-        const float y = prm[kY][i];
-        const float pref_y = (prm[kPref][i] * y) * F(kRsqrpi);
-        const float ysq = y * y;
-        const float x = ((point - prm[kCInt][i]) - prm[kCFrac][i])
-                        * prm[kSrw][i];
-        const float val = pref_y / (x * x + ysq);
-        const bool in = (point >= prm[kSIdx][i]) && (point <= prm[kEIdx][i]);
-        sum = sum + (in ? val : 0.0f);
+    const float point = lo + (float)lane;
+    const float hi = lo + 31.0f;
+    float total = 0.0f;
+#pragma unroll 1
+    for (int w = 0; w < kSegWarps; ++w) {
+        float part = 0.0f;
+        for (int j = 0; j < 32; ++j) {
+            const int i = w * 32 + j;
+            const float ws = prm[kSIdx][i];
+            const float we = prm[kEIdx][i];
+            if (we < lo || ws > hi) continue;   // warp-uniform
+            const float y = prm[kY][i];
+            const float pref_y = (prm[kPref][i] * y) * F(kRsqrpi);
+            const float ysq = y * y;
+            const float x = ((point - prm[kCInt][i]) - prm[kCFrac][i])
+                            * prm[kSrw][i];
+            const float val = pref_y / (x * x + ysq);
+            const bool in = (point >= ws) && (point <= we);
+            part = part + (in ? val : 0.0f);
+        }
+        total = w == 0 ? part : total + part;
     }
-    return sum;
+    return total;
 }
 
+// Entry e of the stream-ordered chunk list (chunk ent_chunk[e] of stream
+// ent_stream[e]) is warp e % 4 of block e / 4; its 32-point sum goes to
+// sums[b, e, :].  The caller guarantees 16-byte aligned rows.
 template <int KIND>
 __global__ void __launch_bounds__(kCoreThreads)
-seg_kernel(const float* __restrict__ params, long long p_b, long long p_r,
-           const int* __restrict__ tile_start,
-           const int* __restrict__ tile_chunks,
-           const int* __restrict__ chunk_slot, float* __restrict__ out,
-           int num_tiles, int tile)
+seg_chunk_kernel(const float* __restrict__ params, long long p_b,
+                 long long p_r, const int* __restrict__ ent_chunk,
+                 const int* __restrict__ ent_stream, int num_entries,
+                 float* __restrict__ sums)
 {
-    __shared__ float prm[8][kCoreThreads];
-    __shared__ float wsum[kCoreThreads / 32][32];
-    __shared__ float acc[kMaxTile];
-    __shared__ float wmin[kCoreThreads / 32];
-    const int t = blockIdx.x;
+    __shared__ __align__(16) float prm[kSegWarps][8][kCoreThreads];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int e = blockIdx.x * kSegWarps + warp;
+    if (e >= num_entries) return;
     const int b = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const float* p = params + b * p_b;
-
-    for (int c = tid; c < tile; c += kCoreThreads) acc[c] = 0.0f;
-    const int first = tile_start[t];
-    const int count = tile_chunks[t];
-    for (int k = 0; k < count; ++k) {
-        const int chunk = first + k;
-        const long long col = (long long)chunk * kCoreThreads + tid;
-        __syncthreads();
+    const float* p = params + b * p_b + (long long)ent_chunk[e] * kCoreThreads;
+    float (*mine)[kCoreThreads] = prm[warp];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) prm[r][tid] = p[r * p_r + col];
-        const int slot = chunk_slot[chunk];
-        float sum;
-        if constexpr (KIND == kSegCore) {
-            float m = prm[kCoreY][tid];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-            if (lane == 0) wmin[warp] = m;
-            __syncthreads();
-            const float ymin = fminf(fminf(wmin[0], wmin[1]),
-                                     fminf(wmin[2], wmin[3]));
-            if (ymin >= F(70.55)) continue;   // pure Lorentz chunk: no-op
-            if (ymin >= F(8.425)) {
-                sum = seg_core_sum<1>(prm, warp, lane);
-            } else if (ymin >= F(6.8)) {
-                sum = seg_core_sum<2>(prm, warp, lane);
-            } else if (ymin >= F(2.0)) {
-                sum = seg_core_sum<3>(prm, warp, lane);
-            } else {
-                sum = seg_core_sum<4>(prm, warp, lane);
-            }
-        } else {
-            __syncthreads();
-            sum = seg_wings_sum(prm, warp,
-                                (float)(t * tile + 32 * slot + lane));
-        }
-        wsum[warp][lane] = sum;
-        __syncthreads();
-        if (tid < 32) {
-            float* cell = acc + slot * 32 + tid;
-            *cell = *cell + (((wsum[0][tid] + wsum[1][tid]) + wsum[2][tid])
-                             + wsum[3][tid]);
-        }
+    for (int r = 0; r < 8; ++r) {
+        reinterpret_cast<float4*>(mine[r])[lane] =
+            __ldg(reinterpret_cast<const float4*>(p + r * p_r) + lane);
     }
-    __syncthreads();
-    float* o = out + ((long long)b * num_tiles + t) * tile;
-    for (int c = tid; c < tile; c += kCoreThreads) o[c] = acc[c];
+    __syncwarp();
+    float sum;
+    if constexpr (KIND == kSegCore) {
+        float m = fminf(fminf(mine[kCoreY][lane], mine[kCoreY][lane + 32]),
+                        fminf(mine[kCoreY][lane + 64],
+                              mine[kCoreY][lane + 96]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (m >= F(70.55)) {
+            sum = 0.0f;   // pure Lorentz chunk: adds +0.0
+        } else if (m >= F(8.425)) {
+            sum = seg_core_chunk<1>(mine, lane);
+        } else if (m >= F(6.8)) {
+            sum = seg_core_chunk<2>(mine, lane);
+        } else if (m >= F(2.0)) {
+            sum = seg_core_chunk<3>(mine, lane);
+        } else {
+            sum = seg_core_chunk<4>(mine, lane);
+        }
+    } else {
+        sum = seg_wings_chunk(mine, (float)(32 * ent_stream[e]), lane);
+    }
+    sums[((long long)b * num_entries + e) * 32 + lane] = sum;
 }
 
-// _rows_body: instance r of group g applied to row r's points (warp r).
+// Point p of layer b's [T * tile] output lies in stream p / 32 (tile
+// p / tile, slot p % tile / 32); it adds that stream's entries
+// stream_ptr[s] .. stream_ptr[s + 1] - 1 in order from +0.0.
+__global__ void __launch_bounds__(kFoldThreads)
+seg_fold_kernel(const float* __restrict__ sums, const int* __restrict__ ptr,
+                int num_entries, int num_points, float* __restrict__ out)
+{
+    const int b = blockIdx.y;
+    const int p = blockIdx.x * kFoldThreads + threadIdx.x;
+    if (p >= num_points) return;
+    const int s = p >> 5;
+    const float* src = sums + (long long)b * num_entries * 32 + (p & 31);
+    float acc = 0.0f;
+    for (int e = ptr[s]; e < ptr[s + 1]; ++e)
+        acc = acc + src[(long long)e * 32];
+    out[(long long)b * num_points + p] = acc;
+}
+
+// _rows_body: instance r of group g applied to row r's points (warp r),
+// point group j skipped when the instance's window misses lo[j]..hi[j].
 template <int CLASS, int PPL>
-__device__ __forceinline__ void rows_group(const float (*grp)[kRowsChunk],
+__device__ __forceinline__ void rows_group(const float (*grp)[kRowsPiece],
                                            int g, int r, const float* point,
+                                           const float* lo, const float* hi,
                                            float* acc)
 {
     const float c_int = grp[0 * 8 + r][g];
@@ -711,6 +773,7 @@ __device__ __forceinline__ void rows_group(const float (*grp)[kRowsChunk],
     const float e = grp[6 * 8 + r][g];
 #pragma unroll
     for (int j = 0; j < PPL; ++j) {
+        if (e < lo[j] || s > hi[j]) continue;   // warp-uniform
         const float x = ((point[j] - c_int) - c_frac) * srw;
         const float val = correction<CLASS>(x, y);
         const bool in = (point[j] >= s) && (point[j] <= e);
@@ -720,75 +783,86 @@ __device__ __forceinline__ void rows_group(const float (*grp)[kRowsChunk],
 
 // PPL = points per lane = tile / 256 (the row is 32 * PPL points wide).
 // SEP_YMIN: the class comes from the separate min-y block, not row 56.
+// Piece j of tile t walks groups 32j .. 32j + 31 of the tile's walk of
+// 128 * g_n[t] groups (whole chunks, so every piece of a walk is full; an
+// empty tile's one piece adds nothing).  The caller guarantees 16-byte
+// aligned rows and g_start[t] a multiple of 4 groups, so the piece is
+// staged in whole 16-byte copies.
 template <int PPL, bool SEP_YMIN>
 __global__ void __launch_bounds__(kRowsThreads)
 rows_kernel(const float* __restrict__ groups, long long g_b, long long g_r,
             const float* __restrict__ ymin, long long y_b,
             const int* __restrict__ g_start, const int* __restrict__ g_n,
-            float* __restrict__ out, int num_tiles, int tile)
+            float* __restrict__ out, int num_tiles, int tile, Pieces pc)
 {
-    __shared__ float grp[kYminRow + 1][kRowsChunk];
-    const int t = blockIdx.x;
+    __shared__ __align__(16) float grp[kYminRow + 1][kRowsPiece];
     const int b = blockIdx.y;
+    const int t = pc.tile[blockIdx.x];
+    const int piece = blockIdx.x - pc.first[t];
     const int tid = threadIdx.x;
     const int r = tid >> 5;
     const int lane = tid & 31;
     const int row_w = 32 * PPL;
     const float* gp = groups + b * g_b;
+    const float* yrow = SEP_YMIN ? ymin + b * y_b : gp + kYminRow * g_r;
+    const int g0 = piece * kRowsPiece;
 
-    float point[PPL], acc[PPL];
+    float point[PPL], lo[PPL], hi[PPL], acc[PPL];
 #pragma unroll
     for (int j = 0; j < PPL; ++j) {
-        point[j] = (float)(t * tile + r * row_w + lane + 32 * j);
+        lo[j] = (float)(t * tile + r * row_w + 32 * j);
+        hi[j] = lo[j] + 31.0f;
+        point[j] = lo[j] + (float)lane;
         acc[j] = 0.0f;
     }
-    const int first = g_start[t];
-    const int count = g_n[t];
-    for (int k = 0; k < count; ++k) {
-        const long long col0 = (long long)first + (long long)k * kRowsChunk;
-        __syncthreads();
-        for (int i = tid; i < kYminRow * kRowsChunk; i += kRowsThreads) {
-            const int row = i / kRowsChunk;
-            const int c = i - row * kRowsChunk;
-            grp[row][c] = gp[row * g_r + col0 + c];
+    if (g0 < g_n[t] * kRowsChunk) {   // block-uniform
+        // The piece's 32 groups of the 56 parameter rows and the min-y row.
+        const long long col = (long long)g_start[t] + g0;
+        for (int i = tid; i < (kYminRow + 1) * (kRowsPiece / 4);
+             i += kRowsThreads) {
+            const int row = i / (kRowsPiece / 4);
+            const int q = 4 * (i - row * (kRowsPiece / 4));
+            const float* src = row < kYminRow ? gp + row * g_r : yrow;
+            cp_async16(&grp[row][q], src + col + q);
         }
-        if (tid < kRowsChunk) {
-            grp[kYminRow][tid] = SEP_YMIN
-                ? ymin[b * y_b + col0 + tid]
-                : gp[kYminRow * g_r + col0 + tid];
-        }
+        cp_async_commit();
+        cp_async_wait_all();
         __syncthreads();
-        for (int g = 0; g < kRowsChunk; ++g) {
+        for (int g = 0; g < kRowsPiece; ++g) {
             const float ym = grp[kYminRow][g];
             if (ym >= F(70.55)) continue;   // all-dead / pure-Lorentz group
             if (ym >= F(8.425)) {
-                rows_group<1, PPL>(grp, g, r, point, acc);
+                rows_group<1, PPL>(grp, g, r, point, lo, hi, acc);
             } else if (ym >= F(6.8)) {
-                rows_group<2, PPL>(grp, g, r, point, acc);
+                rows_group<2, PPL>(grp, g, r, point, lo, hi, acc);
             } else if (ym >= F(2.0)) {
-                rows_group<3, PPL>(grp, g, r, point, acc);
+                rows_group<3, PPL>(grp, g, r, point, lo, hi, acc);
             } else {
-                rows_group<4, PPL>(grp, g, r, point, acc);
+                rows_group<4, PPL>(grp, g, r, point, lo, hi, acc);
             }
         }
     }
-    float* o = out + ((long long)b * num_tiles + t) * tile + r * row_w + lane;
+    float* o = out + ((long long)b * num_tiles + t) * tile;
+    float* dst = piece_dst(pc, o, b, t, piece, tile) + r * row_w + lane;
 #pragma unroll
-    for (int j = 0; j < PPL; ++j) o[32 * j] = acc[j];
+    for (int j = 0; j < PPL; ++j) dst[32 * j] = acc[j];
+    piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
 template <int PPL>
 void launch_rows(dim3 grid, cudaStream_t s, const float* groups,
                  long long g_b, long long g_r, const float* ymin,
                  long long y_b, const int* g_start, const int* g_n,
-                 float* out, int num_tiles, int tile)
+                 float* out, int num_tiles, int tile, const Pieces& pc)
 {
     if (ymin != nullptr) {
         rows_kernel<PPL, true><<<grid, kRowsThreads, 0, s>>>(
-            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile);
+            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile,
+            pc);
     } else {
         rows_kernel<PPL, false><<<grid, kRowsThreads, 0, s>>>(
-            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile);
+            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile,
+            pc);
     }
 }
 
@@ -902,53 +976,77 @@ int pylbl_core_segmix(const float* params, long long p_b, long long p_r,
     return (int)cudaGetLastError();
 }
 
+// The stream-ordered chunk list (ops/lineshape_cuda.py SegStreams):
+// entry e is chunk ent_chunk[e] of stream ent_stream[e] (= tile * tile/32
+// + slot), stream s owns entries stream_ptr[s] .. stream_ptr[s + 1] - 1;
+// sums is a [B, max(E, 1), 32] scratch.  Rows 16-byte aligned.
 int pylbl_seg(const float* params, long long p_b, long long p_r,
-              const int* tile_start, const int* tile_chunks,
-              const int* chunk_slot, float* out, int num_layers,
+              const int* ent_chunk, const int* ent_stream, int num_entries,
+              const int* stream_ptr, float* sums, float* out, int num_layers,
               int num_tiles, int tile, int chunk, int seg, int kind,
               void* stream)
 {
     if (chunk != kCoreThreads || seg != 32 || tile > kMaxTile || tile % 32
-            || (kind != kSegCore && kind != kSegWings))
+            || (kind != kSegCore && kind != kSegWings)
+            || reinterpret_cast<uintptr_t>(params) % 16 || p_b % 4
+            || p_r % 4)
         return (int)cudaErrorInvalidValue;
-    if (num_tiles > 0 && num_layers > 0) {
-        const dim3 grid(num_tiles, num_layers);
-        cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (num_entries > 0 && num_layers > 0) {
+        const dim3 grid((num_entries + kSegWarps - 1) / kSegWarps,
+                        num_layers);
         if (kind == kSegCore) {
-            seg_kernel<kSegCore><<<grid, kCoreThreads, 0, s>>>(
-                params, p_b, p_r, tile_start, tile_chunks, chunk_slot, out,
-                num_tiles, tile);
+            seg_chunk_kernel<kSegCore><<<grid, kCoreThreads, 0, s>>>(
+                params, p_b, p_r, ent_chunk, ent_stream, num_entries, sums);
         } else {
-            seg_kernel<kSegWings><<<grid, kCoreThreads, 0, s>>>(
-                params, p_b, p_r, tile_start, tile_chunks, chunk_slot, out,
-                num_tiles, tile);
+            seg_chunk_kernel<kSegWings><<<grid, kCoreThreads, 0, s>>>(
+                params, p_b, p_r, ent_chunk, ent_stream, num_entries, sums);
         }
+        const int err = (int)cudaGetLastError();
+        if (err != 0) return err;
+    }
+    const int num_points = num_tiles * tile;
+    if (num_points > 0 && num_layers > 0) {
+        const dim3 grid((num_points + kFoldThreads - 1) / kFoldThreads,
+                        num_layers);
+        seg_fold_kernel<<<grid, kFoldThreads, 0, s>>>(
+            sums, stream_ptr, num_entries, num_points, out);
     }
     return (int)cudaGetLastError();
 }
 
+// The piece arguments as pylbl_wings' (K in groups, a multiple of 32);
+// groups (and the min-y block) 16-byte aligned with strides of whole
+// float4s.
 int pylbl_rows(const float* groups, long long g_b, long long g_r,
                const float* ymin, long long y_b, const int* g_start,
                const int* g_n, float* out, int num_layers, int num_tiles,
-               int tile, int chunk, void* stream)
+               int tile, int chunk, const int* p_tile, const int* p_first,
+               const int* p_count, const int* p_slot, int num_pieces,
+               int num_slots, int piece, float* scratch, int* done,
+               void* stream)
 {
-    if (chunk != kRowsChunk)
+    if (chunk != kRowsChunk || piece != kRowsPiece
+            || reinterpret_cast<uintptr_t>(groups) % 16 || g_b % 4
+            || g_r % 4 || reinterpret_cast<uintptr_t>(ymin) % 16 || y_b % 4)
         return (int)cudaErrorInvalidValue;
-    if (num_tiles > 0 && num_layers > 0) {
-        const dim3 grid(num_tiles, num_layers);
+    const Pieces pc{p_tile, p_first, p_count, p_slot, num_slots, piece,
+                    scratch, done};
+    if (num_pieces > 0 && num_layers > 0) {
+        const dim3 grid(num_pieces, num_layers);
         cudaStream_t s = static_cast<cudaStream_t>(stream);
         switch (tile) {
         case 256:
             launch_rows<1>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile);
+                           g_n, out, num_tiles, tile, pc);
             break;
         case 512:
             launch_rows<2>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile);
+                           g_n, out, num_tiles, tile, pc);
             break;
         case 1024:
             launch_rows<4>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile);
+                           g_n, out, num_tiles, tile, pc);
             break;
         default:
             return (int)cudaErrorInvalidValue;

@@ -27,15 +27,17 @@ Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
    its hand-written kernel from ``csrc/lineshape.cu`` (built on first use,
    runtime/build.py) and adds one to its entry in :data:`LAUNCHES`; on CPU
    tensors it runs the plain version.  There is no fallback between the
-   two: a CUDA tensor that the kernel does not take raises.  The tile and
-   mixed-slot core kernels split each tile's chunk walk into pieces
-   (:class:`TilePieces`, built once by the plans).
+   two: a CUDA tensor that the kernel does not take raises.  The tile,
+   mixed-slot core and rows kernels split each tile's walk into pieces
+   (:class:`TilePieces`), the segment pass works per chunk and folds per
+   stream (:class:`SegStreams`); the plans build both once.
 3. **Plain PyTorch versions** (``*_plain``) with the same plan, tile,
    chunking and summation order as the kernels (per-chunk partials, then
    pieces of :data:`PIECE_CHUNKS` chunks, then the tile in piece order for
-   the split kernels; warp partials summed in warp order), in any float
-   dtype and on any device.  They work in slabs so they also run at
-   main-path size on the card.
+   the split kernels; the rows core per piece of :data:`ROWS_PIECE_GROUPS`
+   groups; warp partials summed in warp order), in any float dtype and on
+   any device.  They work in slabs so they also run at main-path size on
+   the card.
 4. **The single-layer device plan** (:class:`DevicePlan`,
    :func:`make_device_plan`, :func:`accumulate_device`, counterparts of
    ``DevicePlan``, ``make_device_plan`` and ``accumulate_tpu``).
@@ -68,17 +70,23 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   runs are bit-identical.
 - Per-stream segment pass (replaces ``_seg_kernel(_batched)`` :842/:880
   with ``_seg_chunk_accumulate`` :762 or ``_seg_chunk_accumulate_lorentz``
-  :806).  As the mixed-slot core, but a chunk carries one slot, so each
-  warp sums its 32 instances into a register and the four warp sums land
-  on the chunk's segment; natural point order, no transposed accumulator.
+  :806).  A chunk carries one slot, so it adds to one (tile, slot) stream.
+  One warp per (chunk, layer) loads the chunk with float4 loads and sums
+  it as the one-block walk did (lane = offset, warp partials over 32
+  instances in order, added in warp order), skipping instances whose
+  window misses the segment; a second launch adds each stream's chunk
+  sums in walk order, one thread per point.  Bound: the parameter bytes
+  (wings) or the Humlicek rationals (core).
 - Rows core (replaces ``_rows_kernel(_batched)`` :456/:505 and
-  ``_rows_kernel_vmem`` :363).  One block of 8 warps per (tile, layer);
-  warp r owns row r of the tile (tile/8 points), a chunk of 128 groups of
-  57 parameter rows is staged in shared memory, and each group's class is
-  picked from its min-y row (block-uniform branch); instance r's fields
-  are a shared-memory broadcast to warp r.  One running accumulator per
-  point through every group in order (no chunk partials).  Bound: the
-  Humlicek rationals over a full row per instance.
+  ``_rows_kernel_vmem`` :363).  One block of 8 warps per (piece, layer);
+  warp r owns row r of the tile (tile/8 points), the piece's 32 groups
+  of 57 parameter rows are staged with 16-byte ``cp.async`` copies, each
+  group's class is picked from its min-y row (block-uniform branch),
+  instance r's fields are a shared-memory broadcast to warp r, and a
+  warp skips the point groups outside instance r's window.  One running
+  sum per point and piece, the pieces folded in order: a deviation from
+  the JAX kernels' single running sum (``rows_tiles_plain``).  Bound: the
+  Humlicek rationals of the in-window points.
 - ``-fmad=false`` keeps ``a*b + c`` as two rounded operations, so the
   kernels compute the same values, in the same order, as the plain
   versions and the JAX reference's separate multiply and add.
@@ -118,6 +126,10 @@ YMIN_ROW = 56
 # Chunks per piece of the tile and mixed-slot core kernels' split chunk
 # walks (:class:`TilePieces`); the plain versions fold in the same pieces.
 PIECE_CHUNKS = 4
+# Groups per piece of the rows core's split group walk (the kernel's
+# kRowsPiece): a quarter of a 128-group chunk, staged in one go (PERF.md
+# says why this width).
+ROWS_PIECE_GROUPS = 32
 
 # Production core-pass formulation (lineshape_pallas.py CORE_MODE); "seg"
 # (per-stream segments) and "rows" (8 instances per group, one per row)
@@ -561,6 +573,8 @@ class CorePlan:
                 core_start, core_end, num_points, tile=tile, seg=seg,
                 chunk=chunk, sort_key=sort_key)
             self.slot = None
+            self.streams = SegStreams(self.t_start, self.t_chunks,
+                                      self.c_slot, tile // seg)
         elif self.mode == "segmix":
             (self.inst_line, self.seg0, self.slot, self.t_start,
              self.t_chunks) = build_core_segments_mixed(
@@ -574,6 +588,7 @@ class CorePlan:
                 sort_key=sort_key)
             self.slot = self.seg0 = self.t_start = self.t_chunks = \
                 self.c_slot = None
+            self.walk = GroupWalk(self.g_start, self.g_n, chunk)
         else:
             raise ValueError(f"unknown core mode {self.mode!r}")
         self._dev = {}
@@ -590,9 +605,9 @@ class CorePlan:
         return self.slot.astype(np.float32)
 
     def _device_consts(self, device):
-        """Instance index, dead mask and the chunk CSRs (segment modes:
-        also seg0 and the slot row) as tensors on ``device``, built once
-        per device."""
+        """Instance index, dead mask and (segment modes) seg0, the slot row
+        and the chunk CSRs as tensors on ``device``, built once per
+        device."""
         key = str(device)
         consts = self._dev.get(key)
         if consts is None:
@@ -601,9 +616,7 @@ class CorePlan:
                                                                device=device)
             consts = {"idx": dev(np.maximum(self.inst_line, 0).reshape(-1)),
                       "dead": dev(self.inst_line < 0)}
-            if self.mode == "rows":
-                consts.update(g_start=dev(self.g_start), g_n=dev(self.g_n))
-            else:
+            if self.mode != "rows":
                 consts.update(seg0f=dev(self.seg0.astype(np.float32)),
                               slotf=dev(self._slotf),
                               t_start=dev(self.t_start),
@@ -720,19 +733,21 @@ class CorePlan:
             return core_segmix_pass(params, c["t_start"], c["t_chunks"],
                                     self.num_points, self.tile, self.chunk,
                                     self.seg, self.pieces)
-        fn = seg_plain if plain else seg_pass
-        return fn(params, c["t_start"], c["t_chunks"], c["c_slot"],
-                  self.num_points, self.tile, self.chunk, self.seg,
-                  kind=self.kind)
+        if plain:
+            return seg_plain(params, c["t_start"], c["t_chunks"], c["c_slot"],
+                             self.num_points, self.tile, self.chunk, self.seg,
+                             self.kind)
+        return seg_pass(params, self.streams, self.num_points, self.tile,
+                        self.chunk, self.seg, self.kind)
 
     def core_pass(self, params, plain=False):
         """The core-correction pass alone, any mode."""
         if self.mode != "rows":
             return self.seg_pass(params, plain)
-        c = self._device_consts(params.device)
-        fn = rows_plain if plain else rows_pass
-        return fn(params, c["g_start"], c["g_n"], self.num_points, self.tile,
-                  self.chunk)
+        if plain:
+            return _rows_walk_plain(params, self.walk, self.num_points,
+                                    self.tile)
+        return rows_pass(params, self.walk, self.num_points, self.tile)
 
 
 def pick_wings_stride(tile, window_max):
@@ -1018,8 +1033,8 @@ def cuda_library():
         lib.pylbl_seg.restype = ctypes.c_int
         lib.pylbl_seg.argtypes = [
             p, i64, i64,            # params, batch stride, row stride
-            p, p, p,                # tile_start, tile_chunks, chunk_slot
-            p,                      # out [B, T, tile]
+            p, p, i32, p,           # entry chunk, entry stream, E, ptr
+            p, p,                   # sums [B, E, 32], out [B, T, tile]
             i32, i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg, kind
             p]                      # stream
         lib.pylbl_rows.restype = ctypes.c_int
@@ -1029,29 +1044,37 @@ def cuda_library():
             p, p,                   # group_start, group_chunks
             p,                      # out [B, T, tile]
             i32, i32, i32, i32,     # B, T, tile, chunk
+            *_PIECE_ARGS,
             p]                      # stream
         lib._pylbl_bound = True
     return lib
 
 
+def _host(a):
+    """An int64 numpy copy of a CSR given as numpy or as a tensor."""
+    return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a,
+                      np.int64)
+
+
 class TilePieces:
-    """The piece split of the tile and mixed-slot core kernels' chunk walks
+    """The piece split of the tile, mixed-slot core and rows kernels' walks
     (the port's own plan, built on top of the copied CSRs; the planners
     stay byte-identical to the JAX ones).
 
-    Tile t's walk of ``counts[t]`` chunks is cut into
-    ``max(1, ceil(counts[t] / PIECE_CHUNKS))`` pieces; piece j walks chunks
+    Tile t's walk of ``counts[t]`` units (chunks, or groups for the rows
+    core) is cut into ``max(1, ceil(counts[t] / K))`` pieces of ``K =
+    piece`` units (:data:`PIECE_CHUNKS` by default); piece j walks units
     j*K .. min((j+1)*K, count) - 1, one block per (piece, layer).  For
     [B, T] counts the split follows the most over the layers and each
     layer's block clips the range to its own count (an empty piece adds
     +0.0).  Pieces of a split tile own consecutive scratch slots.
     """
 
-    def __init__(self, counts):
+    def __init__(self, counts, piece=PIECE_CHUNKS):
         counts = np.asarray(counts, np.int64)
         counts = counts.reshape(-1, counts.shape[-1]).max(axis=0) \
             if counts.size else np.zeros(counts.shape[-1], np.int64)
-        self.piece = PIECE_CHUNKS
+        self.piece = int(piece)
         self.counts = counts
         self.per_tile = np.maximum(-(-counts // self.piece), 1)
         self.first = np.cumsum(self.per_tile) - self.per_tile
@@ -1065,21 +1088,19 @@ class TilePieces:
     def of_csr(cls, *counts):
         """Pieces of the walk over one or more chunk classes (the main and
         tail CSR counts, numpy or tensors, [T] or [B, T])."""
-        total = sum(np.asarray(c.cpu() if isinstance(c, torch.Tensor)
-                               else c, np.int64) for c in counts
-                    if c is not None)
+        total = sum(_host(c) for c in counts if c is not None)
         return cls(total)
 
     @property
     def num_pieces(self):
         return int(self.tile.size)
 
-    def stats(self):
-        """Pieces, most chunks in one tile and in one piece (the records
-        of chip_smoke.py)."""
+    def stats(self, unit="chunks"):
+        """Pieces, most units in one tile and in one piece (the records
+        of chip_smoke.py), the keys named after ``unit``."""
         most = int(self.counts.max(initial=0))
-        return {"pieces": self.num_pieces, "most_chunks_tile": most,
-                "most_chunks_piece": min(most, self.piece)}
+        return {"pieces": self.num_pieces, f"most_{unit}_tile": most,
+                f"most_{unit}_piece": min(most, self.piece)}
 
     def tensors(self, device):
         """(tile, first, count, slot) int32 tensors on ``device``, built
@@ -1107,6 +1128,103 @@ class TilePieces:
             self.num_pieces, self.num_slots, self.piece, _ptr(scratch),
             _ptr(done)]
         return args, keep
+
+
+class GroupWalk:
+    """The rows core's walk (the port's own plan over the copied group
+    CSR): tile t walks groups ``g_start[t] .. g_start[t] + g_n[t] * chunk
+    - 1`` in order, cut into :class:`TilePieces` of
+    :data:`ROWS_PIECE_GROUPS` groups.  The kernel and the plain version
+    both read the walk from here: the CSR (numpy, or tensors) and its
+    pieces.
+    """
+
+    def __init__(self, g_start, g_n, chunk=ROWS_CHUNK):
+        self.g_start = _host(g_start)
+        self.g_n = _host(g_n)
+        self.chunk = chunk
+        self.pieces = TilePieces(self.g_n * chunk, piece=ROWS_PIECE_GROUPS)
+        self._dev = {}
+
+    @property
+    def num_tiles(self):
+        return int(self.g_n.size)
+
+    def stats(self):
+        """The pieces' counts in groups (the records of chip_smoke.py)."""
+        return self.pieces.stats("groups")
+
+    def tensors(self, device):
+        """(g_start, g_n) int32 tensors on ``device``, built once per
+        device."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = tuple(
+                torch.as_tensor(a.astype(np.int32), device=device)
+                for a in (self.g_start, self.g_n))
+        return self._dev[key]
+
+
+class SegStreams:
+    """The per-stream walk of the segment kernel (the port's own plan over
+    the copied segment CSRs, which it keeps for the plain version).
+
+    Chunk k of tile t's walk (chunk id ``tile_start[t] + k``) adds to
+    stream ``t * slots + chunk_slot[id]``.  The walked chunks are listed
+    by stream, walk order kept within a stream: entry e is chunk
+    ``chunk[e]`` of stream ``stream[e]``, and stream s owns entries
+    ``ptr[s] .. ptr[s + 1] - 1``.  The kernel sums entry e into scratch
+    row e and folds each stream's rows in order.
+    """
+
+    def __init__(self, tile_start, tile_chunks, chunk_slot, slots):
+        self.tile_start = _host(tile_start)
+        self.tile_chunks = _host(tile_chunks)
+        self.chunk_slot = _host(chunk_slot)
+        self.slots = int(slots)
+        count = self.tile_chunks
+        tiles = np.repeat(np.arange(count.size), count)
+        seq = np.arange(tiles.size) - (np.cumsum(count) - count)[tiles]
+        chunk = self.tile_start[tiles] + seq
+        slot = self.chunk_slot[chunk]
+        if slot.size and (slot.min() < 0 or slot.max() >= slots):
+            raise ValueError(f"a walked chunk's slot is outside 0..{slots-1}")
+        stream = tiles * slots + slot
+        order = np.argsort(stream, kind="stable")
+        self.chunk = chunk[order]
+        self.stream = stream[order]
+        per = np.bincount(stream, minlength=count.size * slots)
+        self.ptr = np.concatenate(([0], np.cumsum(per)))
+        self.num_streams = count.size * slots
+        self._dev = {}
+
+    @property
+    def num_tiles(self):
+        return int(self.tile_chunks.size)
+
+    @property
+    def num_entries(self):
+        return int(self.chunk.size)
+
+    def stats(self):
+        """Chunks, warps' blocks, streams and the longest stream fold (the
+        records of chip_smoke.py)."""
+        return {"chunks": self.num_entries,
+                "blocks": -(-self.num_entries // 4),   # a warp per chunk
+                "streams": self.num_streams,
+                "most_chunks_stream": int(np.diff(self.ptr).max(initial=0))}
+
+    def tensors(self, device):
+        """(chunk, stream, ptr, tile_start, tile_chunks, chunk_slot) int32
+        tensors on ``device``, built once per device: the kernel's stream
+        walk and the plain version's CSR."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = tuple(
+                torch.as_tensor(a.astype(np.int32), device=device)
+                for a in (self.chunk, self.stream, self.ptr, self.tile_start,
+                          self.tile_chunks, self.chunk_slot))
+        return self._dev[key]
 
 
 def _check_launch(name, err):
@@ -1147,6 +1265,14 @@ def _check_cuda_inputs(name, data, csr, num_tiles, rows=8):
                                         != data.shape[0]) or c.dim() > 2:
             raise ValueError(f"{name}: CSR of shape {tuple(c.shape)} for "
                              f"{num_tiles} tiles and {data.shape[0]} layers")
+
+
+def _check_vector_rows(name, data):
+    """Raises unless ``data``'s rows start on 16-byte boundaries (the
+    kernels' float4 loads and 16-byte copies)."""
+    if data.data_ptr() % 16 or any(s % 4 for s in data.stride()[:-1]):
+        raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned "
+                         "rows")
 
 
 def _as_batch(data):
@@ -1612,26 +1738,28 @@ def core_segmix_plain(params, tile_start, tile_chunks, num_points, tile,
                               num_points), single)
 
 
-def _launch_seg(params, tile_start, tile_chunks, chunk_slot, num_tiles,
-                tile, chunk, seg, kind):
-    _check_cuda_inputs("seg", params, [tile_start, tile_chunks], num_tiles)
+def _launch_seg(params, streams, num_tiles, tile, chunk, seg, kind):
+    _check_cuda_inputs("seg", params, [], num_tiles)
     if chunk != 128 or seg != 32 or tile % 32 or not 32 <= tile <= 1024 \
             or params.shape[2] % chunk:
         raise ValueError("segment kernel takes chunk 128, seg 32, a tile of "
                          "32..1024 points and whole chunks of instances")
-    if chunk_slot.device != params.device or chunk_slot.dtype != torch.int32 \
-            or chunk_slot.dim() != 1 or chunk_slot.stride(0) != 1 \
-            or chunk_slot.numel() < params.shape[2] // chunk:
-        raise ValueError("seg: chunk_slot must be a contiguous int32 [C] "
-                         "tensor with one slot per chunk, on the params' "
-                         "device")
+    _check_vector_rows("seg", params)
+    if streams.num_tiles != num_tiles or streams.slots != tile // seg or (
+            streams.num_entries
+            and int(streams.chunk.max()) >= params.shape[2] // chunk):
+        raise ValueError("seg: the stream walk does not fit the tiles or "
+                         "the parameter block")
     batch = params.shape[0]
+    sums = torch.empty((batch, max(streams.num_entries, 1), seg),
+                       dtype=torch.float32, device=params.device)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=params.device)
+    ent_chunk, ent_stream, ptr = streams.tensors(params.device)[:3]
     err = cuda_library().pylbl_seg(
-        _ptr(params), params.stride(0), params.stride(1),
-        _ptr(tile_start), _ptr(tile_chunks), _ptr(chunk_slot), _ptr(out),
-        batch, num_tiles, tile, chunk, seg, _SEG_KINDS[kind],
+        _ptr(params), params.stride(0), params.stride(1), _ptr(ent_chunk),
+        _ptr(ent_stream), streams.num_entries, _ptr(ptr), _ptr(sums),
+        _ptr(out), batch, num_tiles, tile, chunk, seg, _SEG_KINDS[kind],
         _stream_ptr(params.device))
     _check_launch("seg", err)
     return out
@@ -1693,21 +1821,23 @@ def seg_tiles_plain(params, tile_start, tile_chunks, chunk_slot, num_tiles,
     return acc.reshape(batch, num_tiles, tile)
 
 
-def seg_pass(params, tile_start, tile_chunks, chunk_slot, num_points, tile,
-             chunk=ROWS_CHUNK, seg=SEG, kind="core"):
+def seg_pass(params, streams, num_points, tile, chunk=ROWS_CHUNK, seg=SEG,
+             kind="core"):
     """Per-stream segment pass (``_pallas_seg_pass``) -> [B, num_points]
-    or [num_points], natural point order.  ``kind``: "core" (params from
-    :meth:`CorePlan.gather` / :meth:`CorePlan.seg_params`) or "wings"
-    (params from :meth:`CorePlan.wings_params`)."""
+    or [num_points], natural point order, over the plan's
+    :class:`SegStreams` (which keeps its chunk CSR for the plain version).
+    ``kind``: "core" (params from :meth:`CorePlan.gather` /
+    :meth:`CorePlan.seg_params`) or "wings" (params from
+    :meth:`CorePlan.wings_params`)."""
     if kind not in _SEG_KINDS:
         raise ValueError(f"unknown segment pass kind {kind!r}")
     if params.device.type == "cpu":
-        return seg_plain(params, tile_start, tile_chunks, chunk_slot,
+        return seg_plain(params, *streams.tensors(params.device)[3:],
                          num_points, tile, chunk, seg, kind)
     _refuse_device("segment", params)
     p, single = _as_batch(params)
-    tiles = _launch_seg(p, tile_start, tile_chunks, chunk_slot,
-                        -(-num_points // tile), tile, chunk, seg, kind)
+    tiles = _launch_seg(p, streams, -(-num_points // tile), tile, chunk, seg,
+                        kind)
     LAUNCHES["seg_" + kind] += 1
     return _unbatch(_core_out(tiles, num_points), single)
 
@@ -1728,16 +1858,18 @@ def seg_plain(params, tile_start, tile_chunks, chunk_slot, num_points, tile,
 # Rows core (K9): 8 instances per group, one per row of the tile.
 # --------------------------------------------------------------------------
 
-def _launch_rows(groups, g_start, g_n, num_tiles, tile, chunk, ymin=None):
-    _check_cuda_inputs("rows", groups, [g_start, g_n], num_tiles,
-                       rows=GROUP_ROWS)
-    if g_start.dim() != 1 or g_n.dim() != 1:
-        raise ValueError("rows: the group CSR is [T], shared by every "
-                         "layer")
-    if chunk != ROWS_CHUNK or tile not in (256, 512, 1024) \
-            or groups.shape[2] % chunk:
+def _launch_rows(groups, walk, num_tiles, tile, ymin=None):
+    _check_cuda_inputs("rows", groups, [], num_tiles, rows=GROUP_ROWS)
+    if walk.chunk != ROWS_CHUNK or tile not in (256, 512, 1024) \
+            or groups.shape[2] % walk.chunk:
         raise ValueError("rows kernel takes chunk 128, tile 256/512/1024 "
                          "and whole chunks of groups")
+    end = walk.g_start + walk.g_n * walk.chunk
+    if walk.num_tiles != num_tiles or (walk.g_start % 4).any() \
+            or int(end.max(initial=0)) > groups.shape[2]:
+        raise ValueError("rows: the group walk does not fit the tiles or "
+                         "the group block, or a tile's walk does not start "
+                         "on a multiple of 4 groups")
     batch = groups.shape[0]
     if ymin is not None and (
             ymin.dtype != torch.float32 or ymin.device != groups.device
@@ -1746,18 +1878,26 @@ def _launch_rows(groups, g_start, g_n, num_tiles, tile, chunk, ymin=None):
         raise ValueError("rows: the min-y block must be a float32 [B, 1, G] "
                          "tensor with unit stride along G on the groups' "
                          "device")
+    _check_vector_rows("rows", groups)
+    if ymin is not None:
+        _check_vector_rows("rows min-y block", ymin)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=groups.device)
+    g_start, g_n = walk.tensors(groups.device)
+    piece_args, _keep = walk.pieces.launch_args(batch, num_tiles, tile,
+                                                groups.device)
     err = cuda_library().pylbl_rows(
         _ptr(groups), groups.stride(0), groups.stride(1), _ptr(ymin),
         0 if ymin is None else ymin.stride(0), _ptr(g_start), _ptr(g_n),
-        _ptr(out), batch, num_tiles, tile, chunk, _stream_ptr(groups.device))
+        _ptr(out), batch, num_tiles, tile, walk.chunk, *piece_args,
+        _stream_ptr(groups.device))
     _check_launch("rows", err)
     return out
 
 
 def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
-                     chunk=ROWS_CHUNK, ymin=None, max_elems=1 << 24):
+                     chunk=ROWS_CHUNK, ymin=None, max_elems=1 << 24,
+                     piece=ROWS_PIECE_GROUPS):
     """Plain version of the rows kernel: [B, 64, G] groups -> [B, T, tile].
 
     Tile t walks its groups g_start[t] .. g_start[t] + g_n[t]*chunk - 1 in
@@ -1765,10 +1905,12 @@ def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
     group's instance r applies to row r only.  A group whose min y (row
     56, or ``ymin`` [B, 1, G]) is >= 70.55 is skipped; otherwise its class
     (k1, k12, k123 or the full form) is picked from that min y and
-    ``pref * (K_class - K_lorentz)``, window-masked, is added to ONE
-    running accumulator per point (no chunk partials), in group order.
-    Groups are evaluated in slabs; a skipped or absent group adds +0.0,
-    which leaves the (never negative-zero) accumulator unchanged."""
+    ``pref * (K_class - K_lorentz)``, window-masked, is added to a running
+    sum per point and piece of ``piece`` groups of the walk, from +0.0 in
+    group order, and the tile is ((0 + piece 0) + piece 1) + ...  (the
+    JAX kernels keep one running sum through the whole walk).  Groups are
+    evaluated in slabs; a skipped or absent group adds +0.0, which leaves
+    the (never negative-zero) sums unchanged."""
     device = groups.device
     dtype = groups.dtype
     batch = groups.shape[0]
@@ -1780,6 +1922,7 @@ def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
              + torch.arange(tile, device=device)).to(dtype).reshape(
                  num_tiles, 8, row_w)
     acc = groups.new_zeros((batch, num_tiles, 8, row_w))
+    part = torch.zeros_like(acc)
     gmax = int(count.max()) if count.numel() else 0
     per = max(1, max_elems // max(batch * num_tiles * tile, 1))
     for lo in range(0, gmax, per):
@@ -1806,49 +1949,55 @@ def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
             vals[idx[:, 0], idx[:, 1], idx[:, 2]] = torch.where(
                 mask, val, torch.zeros_like(val))
         for j in range(gs.numel()):
-            acc = acc + vals[:, :, j]
-    return acc.reshape(batch, num_tiles, tile)
+            if (lo + j) % piece == 0 and lo + j:
+                acc = acc + part
+                part = torch.zeros_like(acc)
+            part = part + vals[:, :, j]
+    return (acc + part).reshape(batch, num_tiles, tile)
 
 
-def rows_pass(groups, g_start, g_n, num_points, tile, chunk=ROWS_CHUNK):
+def _rows_walk_plain(groups, walk, num_points, tile, ymin=None):
+    """The plain version over a :class:`GroupWalk`."""
+    return rows_plain(groups, *walk.tensors(groups.device), num_points, tile,
+                      walk.chunk, ymin)
+
+
+def rows_pass(groups, walk, num_points, tile):
     """Rows core pass (``_pallas_rows_pass``) -> [B, num_points] or
     [num_points] (point = t*tile + r*(tile/8) + c): ``groups`` [B, 64, G]
     or [64, G] from :meth:`CorePlan.gather` / :meth:`CorePlan.group_params`
-    and the [T] group CSR of :func:`build_core_groups`."""
+    and the plan's :class:`GroupWalk` over the [T] group CSR of
+    :func:`build_core_groups`."""
     if groups.device.type == "cpu":
-        return rows_plain(groups, g_start, g_n, num_points, tile, chunk)
+        return _rows_walk_plain(groups, walk, num_points, tile)
     _refuse_device("rows", groups)
     g, single = _as_batch(groups)
-    tiles = _launch_rows(g, g_start, g_n, -(-num_points // tile), tile,
-                         chunk)
+    tiles = _launch_rows(g, walk, -(-num_points // tile), tile)
     LAUNCHES["core_rows_single" if single else "core_rows"] += 1
     return _unbatch(_core_out(tiles, num_points), single)
 
 
 def rows_plain(groups, g_start, g_n, num_points, tile, chunk=ROWS_CHUNK,
-               ymin=None):
+               ymin=None, piece=ROWS_PIECE_GROUPS):
     """:func:`rows_pass` (with ``ymin``: :func:`rows_vmem_pass`) through
     the plain version on any device and float dtype."""
     g, single = _as_batch(groups)
     y = None if ymin is None else _as_batch(ymin)[0]
     return _unbatch(_core_out(rows_tiles_plain(
-        g, g_start, g_n, -(-num_points // tile), tile, chunk, y),
-        num_points), single)
+        g, g_start, g_n, -(-num_points // tile), tile, chunk, y,
+        piece=piece), num_points), single)
 
 
-def rows_vmem_pass(groups, ymin, g_start, g_n, num_points, tile,
-                   chunk=ROWS_CHUNK):
+def rows_vmem_pass(groups, ymin, walk, num_points, tile):
     """The rows core with the class read from a separate [.., 1, G] min-y
     block (:func:`group_min_y`; ``_pallas_rows_pass_vmem``), the same
     kernel staging that block instead of row 56."""
     if groups.device.type == "cpu":
-        return rows_plain(groups, g_start, g_n, num_points, tile, chunk,
-                          ymin)
+        return _rows_walk_plain(groups, walk, num_points, tile, ymin)
     _refuse_device("rows", groups)
     g, single = _as_batch(groups)
     y = _as_batch(ymin)[0]
-    tiles = _launch_rows(g, g_start, g_n, -(-num_points // tile), tile,
-                         chunk, y)
+    tiles = _launch_rows(g, walk, -(-num_points // tile), tile, y)
     LAUNCHES["core_rows_vmem"] += 1
     return _unbatch(_core_out(tiles, num_points), single)
 

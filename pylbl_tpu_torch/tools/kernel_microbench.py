@@ -67,7 +67,6 @@ def build_stages(work, device, tile=lc.DEFAULT_TILE, chunk=lc.DEFAULT_CHUNK):
     params = {mode: dev(p.gather(arrays)) for mode, p in plans.items()}
     ymin = lc.group_min_y(params["rows"])
     rows = plans["rows"]
-    g_start, g_n = dev(rows.g_start), dev(rows.g_n)
     soa = dev(soa_np)
     ws, wn, cst, cn = map(dev, (w_start, w_n, c_start, c_n))
 
@@ -84,7 +83,7 @@ def build_stages(work, device, tile=lc.DEFAULT_TILE, chunk=lc.DEFAULT_CHUNK):
          int(c_n.sum()) * chunk),
         ("core-rows", core("rows"), rows.num_instances),
         ("core-rows-vmem",
-         lambda: lc.rows_vmem_pass(params["rows"], ymin, g_start, g_n, n,
+         lambda: lc.rows_vmem_pass(params["rows"], ymin, rows.walk, n,
                                    tile),
          rows.num_instances),
         ("core-seg", core("seg"), plans["seg"].num_instances),

@@ -119,16 +119,16 @@ def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
 # --- Single-gas kernels: tile line functions, segment passes, single-layer
 # launches and the Gas engine. ---
 
-def single_gas_layers(step, num_layers=2):
-    """[(kin, kernel arrays)] of a 3000-line H2O pack for ``num_layers``
-    layers, npv, n."""
+def single_gas_layers(step, num_layers=2, pack=None, lo=1.0, hi=220.0):
+    """[(kin, kernel arrays)] of a 3000-line H2O pack (or ``pack``) for
+    ``num_layers`` layers on lo..hi cm-1, npv, n."""
     from pylbl_tpu_torch.models.lines import internal_grid
     from pylbl_tpu_torch.models.lines.physics import (kernel_inputs,
                                                       line_profile_params)
     from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
 
-    pack = packs()["H2O"]
-    grid = np.arange(1.0, 220.0, step)
+    pack = packs()["H2O"] if pack is None else pack
+    grid = np.arange(lo, hi, step)
     v0, vn, npv, n = internal_grid(grid)
     keep = pack.compat_break_filter(v0, vn, 25)
     layers = []
@@ -178,11 +178,10 @@ def test_tile_line_functions_match_plain(cuda_device, tile, batched):
     assert sum(lc.LAUNCHES.values()) == 2
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("tile", [256, 1024])
-@pytest.mark.parametrize("batched", [False, True])
-def test_seg_kernels_match_plain(cuda_device, tile, batched):
-    layers, npv, n = single_gas_layers(0.1)
+def seg_plans(layers, npv, n, tile, batched, device):
+    """The segment core plan (union core windows) and wings plan (union
+    wing windows) of ``layers``, each with its parameter block on
+    ``device`` (the first layer, or all)."""
     arrays = [a for _, a in layers]
     data = batch_of(arrays, batched)
     cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
@@ -194,17 +193,25 @@ def test_seg_kernels_match_plain(cuda_device, tile, batched):
     e = np.max([a["e_idx"] for a in arrays], axis=0).astype(np.int64)
     wings = lc.CorePlan(s, e, n, tile, mode="seg", kind="wings")
     idx = np.maximum(wings.inst_line, 0)
+    wings_params = wings.wings_params({k: v[..., idx]
+                                       for k, v in data.items()})
+    return [(core, torch.as_tensor(core.gather(data), device=device)),
+            (wings, torch.as_tensor(wings_params, device=device))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_seg_kernels_match_plain(cuda_device, tile, batched):
+    layers, npv, n = single_gas_layers(0.1)
     lc.reset_launches()
-    for plan, params in (
-            (core, core.gather(data)),
-            (wings, wings.wings_params({k: v[..., idx]
-                                        for k, v in data.items()}))):
-        params = torch.as_tensor(params, device=cuda_device)
+    for plan, params in seg_plans(layers, npv, n, tile, batched,
+                                  cuda_device):
         got = plan.seg_pass(params)
         want = plan.seg_pass(params, plain=True)
         torch.cuda.synchronize()
         assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
-        assert rel_err(got, want) < 5e-6
+        assert float(want.abs().max()) > 0 and torch.equal(got, want)
     assert lc.LAUNCHES["seg_core"] == 1 and lc.LAUNCHES["seg_wings"] == 1
     assert sum(lc.LAUNCHES.values()) == 2
 
@@ -295,11 +302,11 @@ def test_gas_on_card_matches_cpu(cuda_device, step):
 
 # --- The rows core (K9) and the ownership-checked strided wings (K6). ---
 
-def rows_setup(device, tile, batched):
-    """The rows plan of a 3000-line H2O pack over the union of two layers'
-    core windows, and its group block ([B, 64, G] or [64, G]) on
-    ``device``."""
-    layers, npv, n = single_gas_layers(0.1)
+def rows_setup(device, tile, batched, work=None):
+    """The rows plan of a 3000-line H2O pack (or ``work``, a
+    :func:`single_gas_layers` result) over the union of two layers' core
+    windows, and its group block ([B, 64, G] or [64, G]) on ``device``."""
+    layers, npv, n = work or single_gas_layers(0.1)
     arrays = [a for _, a in layers]
     cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
                  for k, a in layers], axis=0)
@@ -319,13 +326,12 @@ def test_rows_kernels_match_plain(cuda_device, tile, batched):
     """The rows core and its separate-min-y variant equal their plain
     versions bit for bit, and each other."""
     plan, groups, n = rows_setup(cuda_device, tile, batched)
-    g_start, g_n = (torch.as_tensor(a, device=cuda_device)
-                    for a in (plan.g_start, plan.g_n))
+    g_start, g_n = plan.walk.tensors(cuda_device)
     ymin = lc.group_min_y(groups)
     lc.reset_launches()
     got = plan.core_pass(groups)
     want = plan.core_pass(groups, plain=True)
-    vmem = lc.rows_vmem_pass(groups, ymin, g_start, g_n, n, tile)
+    vmem = lc.rows_vmem_pass(groups, ymin, plan.walk, n, tile)
     vmem_want = lc.rows_plain(groups, g_start, g_n, n, tile, ymin=ymin)
     torch.cuda.synchronize()
     assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
@@ -372,17 +378,15 @@ def test_checked_strided_wings_match_plain(cuda_device, tile, step,
 @pytest.mark.gpu
 def test_rows_and_checked_kernels_refuse_what_they_do_not_take(cuda_device):
     plan, groups, n = rows_setup(cuda_device, 1024, True)
-    g_start, g_n = (torch.as_tensor(a, device=cuda_device)
-                    for a in (plan.g_start, plan.g_n))
     with pytest.raises(TypeError, match="float32"):
-        lc.rows_pass(groups.double(), g_start, g_n, n, 1024)
+        lc.rows_pass(groups.double(), plan.walk, n, 1024)
     wide = torch.cat([groups, groups], dim=-1)[..., :groups.shape[-1]]
     assert not wide.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        lc.rows_pass(wide, g_start, g_n, n, 1024)
+        lc.rows_pass(wide, plan.walk, n, 1024)
     with pytest.raises(ValueError, match="min-y"):
         lc.rows_vmem_pass(groups, lc.group_min_y(groups)[..., :-128],
-                          g_start, g_n, n, 1024)
+                          plan.walk, n, 1024)
     layers, npv, n = single_gas_layers(0.1)
     soa = torch.as_tensor(lc.pack_lines_soa(layers[0][1], 512)[0],
                           device=cuda_device)
@@ -463,3 +467,88 @@ def test_split_device_plan_equals_plain(cuda_device):
         assert float(want.abs().max()) > 0 and torch.equal(got, want)
     assert lc.LAUNCHES["wings_strided_single"] == 1
     assert lc.LAUNCHES["core_segmix_single"] == 1
+
+
+# --- The segment pass per chunk and the rows core per piece on the dense
+# cluster (tests/test_torch_lineshape.py's split tests): streams of more
+# than 8 chunks, tiles of more than 2 pieces. ---
+
+def dense_gas_layers():
+    return single_gas_layers(0.2, pack=dense_packs()["H2O"], lo=50.0,
+                             hi=250.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batched", [False, True])
+def test_split_seg_kernels_equal_plain(cuda_device, batched):
+    """The segment core and wings, summed per chunk and folded per
+    stream, equal the unchanged plain version bit for bit and repeat bit
+    for bit."""
+    layers, npv, n = dense_gas_layers()
+    lc.reset_launches()
+    for plan, params in seg_plans(layers, npv, n, 256, batched,
+                                  cuda_device):
+        assert plan.streams.stats()["most_chunks_stream"] > 8
+        got = plan.seg_pass(params)
+        again = plan.seg_pass(params)
+        want = plan.seg_pass(params, plain=True)
+        torch.cuda.synchronize()
+        assert got.shape == ((2, n) if batched else (n,))
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want) and torch.equal(got, again)
+    assert lc.LAUNCHES["seg_core"] == 2 and lc.LAUNCHES["seg_wings"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024])
+@pytest.mark.parametrize("batched", [False, True])
+def test_split_rows_kernels_equal_plain(cuda_device, tile, batched):
+    """The rows core with and without the separate min-y block, its tiles
+    cut into pieces of ROWS_PIECE_GROUPS groups, equals the piece-folded
+    plain version bit for bit and repeats bit for bit."""
+    plan, groups, n = rows_setup(cuda_device, tile, batched,
+                                 dense_gas_layers())
+    walk = plan.walk
+    assert walk.pieces.per_tile.max() > 2
+    g_start, g_n = walk.tensors(cuda_device)
+    ymin = lc.group_min_y(groups)
+    lc.reset_launches()
+    runs = ((lambda: lc.rows_pass(groups, walk, n, tile),
+             lambda: lc.rows_plain(groups, g_start, g_n, n, tile)),
+            (lambda: lc.rows_vmem_pass(groups, ymin, walk, n, tile),
+             lambda: lc.rows_plain(groups, g_start, g_n, n, tile,
+                                   ymin=ymin)))
+    for run, run_plain in runs:
+        got = run()
+        again = run()
+        want = run_plain()
+        torch.cuda.synchronize()
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want) and torch.equal(got, again)
+    key = "core_rows" if batched else "core_rows_single"
+    assert lc.LAUNCHES[key] == 2 and lc.LAUNCHES["core_rows_vmem"] == 2
+
+
+@pytest.mark.gpu
+def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Rows not 16-byte aligned, a group walk off 4-group starts, and a
+    stream walk of other tiles, raise."""
+    plan, groups, n = rows_setup(cuda_device, 1024, True)
+    shifted = torch.empty(groups.numel() + 1, device=cuda_device)[1:]
+    shifted = shifted.view_as(groups).copy_(groups)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        lc.rows_pass(shifted, plan.walk, n, 1024)
+    with pytest.raises(ValueError, match="group walk"):
+        lc.rows_pass(groups, lc.GroupWalk(plan.g_start + 2, plan.g_n), n,
+                     1024)
+    layers, npv, n = single_gas_layers(0.1)
+    (core, params), _ = seg_plans(layers, npv, n, 1024, True, cuda_device)
+    other = lc.SegStreams(core.t_start[:-1], core.t_chunks[:-1], core.c_slot,
+                          32)
+    with pytest.raises(ValueError, match="stream walk"):
+        lc.seg_pass(params, other, n, 1024)
+    shifted = torch.empty(params.numel() + 1, device=cuda_device)[1:]
+    shifted = shifted.view_as(params).copy_(params)
+    with pytest.raises(ValueError, match="aligned"):
+        core.seg_pass(shifted)

@@ -141,21 +141,23 @@ def test_wrappers_refuse_other_devices():
 SMALL_CONDS = [(288.99, 98388.0, 6.637074e-03), (250.0, 80000.0, 0.004)]
 
 
-def small_layers(step=0.2):
-    """[(kin, port kernel arrays)] per layer, npv, n."""
+def small_layers(step=0.2, pack=None, conds=SMALL_CONDS):
+    """[(kin, port kernel arrays)] per layer, npv, n (of a 120-line pack
+    unless ``pack`` is given)."""
     from pylbl_tpu.database.fixtures import synthetic_line_pack as jpack
     from pylbl_tpu.models.lines import internal_grid
     from pylbl_tpu.models.lines.physics import (kernel_inputs,
                                                 line_profile_params)
     from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
 
-    pack = jpack(num_lines=120, nu_min=30.0, nu_max=280.0, seed=11,
-                 band_centers=(150.0,))
+    if pack is None:
+        pack = jpack(num_lines=120, nu_min=30.0, nu_max=280.0, seed=11,
+                     band_centers=(150.0,))
     grid = np.arange(50.0, 250.0, step)
     v0, vn, npv, n = internal_grid(grid)
     keep = pack.compat_break_filter(v0, vn, 25)
     layers = []
-    for cond in SMALL_CONDS:
+    for cond in conds:
         kin = kernel_inputs(line_profile_params(pack, *cond, keep=keep), v0,
                             npv, 25)
         layers.append((kin, prepare_kernel_arrays(kin, npv, np.float32)))
@@ -220,34 +222,37 @@ def test_tile_pass_matches_pallas(pass_kind, batched):
         assert rel_err(got, want) < 5e-6
 
 
-@pytest.mark.parametrize("batched", [False, True])
-@pytest.mark.parametrize("kind", ["core", "wings"])
-def test_seg_pass_matches_pallas(kind, batched):
-    """The per-stream segment-32 pass (core and Lorentzian wings) against
-    ``_pallas_seg_pass``, one layer and a two-layer batch over a shared
-    plan (the core alone to 1e-6 of its scale, as above)."""
-    layers, npv, n = small_layers()
+def union_core_windows(layers, n, npv):
+    """The union over ``layers`` of each line's core-instance window."""
+    windows = [lc.core_instance_windows(a, k, n, npv, 25) for k, a in layers]
+    return (np.min([w[0] for w in windows], axis=0),
+            np.max([w[1] for w in windows], axis=0))
+
+
+def seg_plan_params(layers, npv, n, kind, batched, tile=256, chunk=128):
+    """A segment plan ("core" over the union core windows, "wings" over
+    the union wing windows) of ``layers`` and its parameter block (the
+    first layer, or all)."""
     arrays = [a for _, a in layers]
     data = stacked(arrays) if batched else arrays[0]
-    tile, chunk = 256, 128
     if kind == "core":
-        cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
-                     for k, a in layers], axis=0)
-        ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
-                     for k, a in layers], axis=0)
+        cs, ce = union_core_windows(layers, n, npv)
         plan = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"],
                            mode="seg", chunk=chunk)
-        params = plan.gather(data)
-    else:
-        s, e = union_windows(arrays, "s_idx", "e_idx")
-        plan = lc.CorePlan(s, e, n, tile, mode="seg", kind="wings",
-                           chunk=chunk)
-        idx = np.maximum(plan.inst_line, 0)
-        params = plan.wings_params({k: v[..., idx] for k, v in data.items()})
+        return plan, plan.gather(data)
+    s, e = union_windows(arrays, "s_idx", "e_idx")
+    plan = lc.CorePlan(s, e, n, tile, mode="seg", kind="wings", chunk=chunk)
+    idx = np.maximum(plan.inst_line, 0)
+    return plan, plan.wings_params({k: v[..., idx] for k, v in data.items()})
+
+
+def check_seg_pass(plan, params, n, kind, batched):
+    """The plan's segment pass against ``_pallas_seg_pass``: the core
+    alone to 1e-6 of its scale, the wings to rel 5e-6."""
     got = plan.seg_pass(torch.as_tensor(params)).numpy()
     want = np.asarray(jlp._pallas_seg_pass(
         jnp.asarray(params), plan.t_start, plan.t_chunks, plan.c_slot, n,
-        tile, chunk, interpret=True, kind=kind))
+        plan.tile, plan.chunk, interpret=True, kind=kind))
     assert got.shape == want.shape == ((2, n) if batched else (n,))
     if kind == "core":
         scale = np.abs(want).max()
@@ -255,6 +260,17 @@ def test_seg_pass_matches_pallas(kind, batched):
         np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
     else:
         assert rel_err(got, want) < 5e-6
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("kind", ["core", "wings"])
+def test_seg_pass_matches_pallas(kind, batched):
+    """The per-stream segment-32 pass (core and Lorentzian wings) against
+    ``_pallas_seg_pass``, one layer and a two-layer batch over a shared
+    plan (the core alone to 1e-6 of its scale, as above)."""
+    layers, npv, n = small_layers()
+    plan, params = seg_plan_params(layers, npv, n, kind, batched)
+    check_seg_pass(plan, params, n, kind, batched)
 
 
 def test_single_layer_strided_and_segmix_match_pallas():
@@ -334,15 +350,13 @@ def test_strided_tail_single_layer_matches_pallas():
 
 # --- The rows core (K9) and the ownership-checked strided wings (K6). ---
 
-def rows_blocks(batched, tile=256):
+def rows_blocks(batched, tile=256, work=None):
     """The rows plan over two layers' union core windows and its group
-    block (one layer or both)."""
-    layers, npv, n = small_layers()
+    block (one layer or both); ``work``: :func:`small_layers`' result
+    (the small pack's by default)."""
+    layers, npv, n = work or small_layers()
     arrays = [a for _, a in layers]
-    cs = np.min([lc.core_instance_windows(a, k, n, npv, 25)[0]
-                 for k, a in layers], axis=0)
-    ce = np.max([lc.core_instance_windows(a, k, n, npv, 25)[1]
-                 for k, a in layers], axis=0)
+    cs, ce = union_core_windows(layers, n, npv)
     plan = lc.CorePlan(cs, ce, n, tile, sort_key=arrays[0]["y"],
                        mode="rows")
     return plan, plan.gather(stacked(arrays) if batched else arrays[0]), n
@@ -374,7 +388,7 @@ def test_rows_vmem_pass_matches_pallas():
     plan, groups, n = rows_blocks(False)
     ymin = lc.group_min_y(groups)
     got = lc.rows_vmem_pass(torch.as_tensor(groups), torch.as_tensor(ymin),
-                            plan.g_start, plan.g_n, n, 256).numpy()
+                            plan.walk, n, 256).numpy()
     want = np.asarray(jlp._pallas_rows_pass_vmem(
         jnp.asarray(groups), jnp.asarray(ymin), plan.g_start, plan.g_n, n,
         256, interpret=True))
@@ -585,3 +599,145 @@ def test_fold_pieces_is_the_kernels_order():
             acc = acc + piece
         want[:, t] = acc
     assert torch.equal(got, want)
+
+
+# --- The segment pass per chunk and the rows core per piece, on the dense
+# cluster: at 0.2 cm-1 and tile 256 its densest core stream folds 19
+# chunks and its densest wings stream 32; the rows plan cuts its densest
+# tile into 76 pieces of 32 groups. ---
+
+DENSE_CONDS = [(288.99, 98388.0, 6.637074e-03), (227.74, 1032.0, 4.763972e-06)]
+
+
+def dense_layers():
+    """The dense H2O cluster's kernel arrays at a surface layer and a
+    1032 Pa layer on 50-250 cm-1 @ 0.2: :func:`small_layers`' result."""
+    from pylbl_tpu.database.fixtures import synthetic_line_pack as jpack
+
+    pack = jpack("H2O", num_lines=4000, nu_min=100.0, nu_max=103.0, seed=31,
+                 band_centers=(101.5,))
+    return small_layers(pack=pack, conds=DENSE_CONDS)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("kind", ["core", "wings"])
+def test_split_seg_pass_matches_pallas(kind, batched):
+    """The per-stream segment pass on a plan whose densest stream folds
+    more than 8 chunks, one layer and two, against ``_pallas_seg_pass``
+    at the tolerances of test_seg_pass_matches_pallas."""
+    layers, npv, n = dense_layers()
+    plan, params = seg_plan_params(layers, npv, n, kind, batched)
+    assert plan.streams.stats()["most_chunks_stream"] > 8
+    check_seg_pass(plan, params, n, kind, batched)
+
+
+def test_seg_streams_plan():
+    """The stream walk lists every walked chunk once, by stream, in walk
+    order within a stream (slots interleaved within a tile here), with
+    empty streams and unwalked chunks left out."""
+    tile_start = np.asarray([0, 5, 9])
+    tile_chunks = np.asarray([5, 3, 0])
+    chunk_slot = np.asarray([1, 0, 1, 1, 0, 2, 2, 0, 0, 3])
+    streams = lc.SegStreams(tile_start, tile_chunks, chunk_slot, slots=4)
+    assert list(streams.chunk) == [1, 4, 0, 2, 3, 7, 5, 6]
+    assert list(streams.stream) == [0, 0, 1, 1, 1, 4, 6, 6]
+    assert list(streams.ptr) == [0, 2, 5, 5, 5, 6, 6, 8, 8, 8, 8, 8, 8]
+    assert streams.stats() == {"chunks": 8, "blocks": 2, "streams": 12,
+                               "most_chunks_stream": 3}
+    again = lc.SegStreams(*(torch.as_tensor(a) for a in (
+        tile_start, tile_chunks, chunk_slot)), 4)
+    assert list(again.chunk) == list(streams.chunk)
+    with pytest.raises(ValueError, match="slot"):
+        lc.SegStreams(tile_start, tile_chunks, chunk_slot, slots=2)
+    # A planner's streams are contiguous runs of chunk ids.
+    layers, npv, n = dense_layers()
+    plan, _ = seg_plan_params(layers, npv, n, "core", False)
+    walked = int(plan.t_chunks.sum())
+    assert list(plan.streams.chunk) == list(range(walked))
+    assert plan.streams.ptr[-1] == walked
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_split_rows_pass_matches_pallas(batched):
+    """The rows core, its tiles' group walks cut into pieces of
+    ROWS_PIECE_GROUPS and folded in piece order, against
+    ``_pallas_rows_pass`` (one running sum through the walk) at 1e-6 of
+    the scale, the JAX rows test's tolerance."""
+    plan, groups, n = rows_blocks(batched, work=dense_layers())
+    assert plan.walk.pieces.piece == lc.ROWS_PIECE_GROUPS
+    assert plan.walk.pieces.per_tile.max() > 2
+    got = plan.core_pass(torch.as_tensor(groups)).numpy()
+    want = np.asarray(jlp._pallas_rows_pass(
+        jnp.asarray(groups), plan.g_start, plan.g_n, n, plan.tile,
+        plan.chunk, interpret=True))
+    assert got.shape == want.shape == ((2, n) if batched else (n,))
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_split_rows_vmem_pass_matches_pallas():
+    """The rows core with the separate min-y block on the dense cluster
+    against ``_pallas_rows_pass_vmem`` (1e-6 of the scale), and bit for
+    bit the rows core itself."""
+    plan, groups, n = rows_blocks(False, work=dense_layers())
+    ymin = lc.group_min_y(groups)
+    got = lc.rows_vmem_pass(torch.as_tensor(groups), torch.as_tensor(ymin),
+                            plan.walk, n, plan.tile).numpy()
+    want = np.asarray(jlp._pallas_rows_pass_vmem(
+        jnp.asarray(groups), jnp.asarray(ymin), plan.g_start, plan.g_n, n,
+        plan.tile, interpret=True))
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    np.testing.assert_array_equal(
+        got, plan.core_pass(torch.as_tensor(groups)).numpy())
+
+
+def test_rows_pieces_plan():
+    """Pieces of a width other than PIECE_CHUNKS: the rows core's walk of
+    g_n * 128 groups in pieces of ROWS_PIECE_GROUPS (32), and a generic
+    width of 3 units."""
+    walk = lc.GroupWalk(np.asarray([0, 0, 128, 384]), np.asarray([0, 1, 2, 3]))
+    pieces = walk.pieces
+    assert pieces.piece == lc.ROWS_PIECE_GROUPS == 32
+    assert list(pieces.counts) == [0, 128, 256, 384]
+    assert list(pieces.per_tile) == [1, 4, 8, 12]
+    assert list(pieces.first) == [0, 1, 5, 13]
+    assert list(pieces.slot) == [-1, 0, 4, 12]
+    assert pieces.num_slots == 24 and pieces.num_pieces == 25
+    assert walk.stats() == {"pieces": 25, "most_groups_tile": 384,
+                            "most_groups_piece": 32}
+    assert [list(t) for t in walk.tensors("cpu")] == [[0, 0, 128, 384],
+                                                       [0, 1, 2, 3]]
+    three = lc.TilePieces(np.asarray([0, 1, 3, 4, 7]), piece=3)
+    assert list(three.per_tile) == [1, 1, 1, 2, 3]
+    assert three.stats() == {"pieces": 8, "most_chunks_tile": 7,
+                             "most_chunks_piece": 3}
+
+
+def test_rows_plain_folds_pieces_in_order():
+    """rows_tiles_plain's order: a running sum per piece from +0.0 in
+    group order, the pieces added in order from +0.0.  Pieces of one
+    chunk's worth of groups sum like the tile's chunk partials, so the
+    tile is bit for bit the chunks' passes added in walk order; one piece
+    of the whole walk is the JAX kernels' single running sum."""
+    plan, groups, n = rows_blocks(True, work=dense_layers())
+    dense = int(np.argmax(plan.g_n))
+    tile = plan.tile
+    g = torch.as_tensor(groups)
+    start, count = plan.g_start.copy(), plan.g_n.copy()
+    span = slice(dense * tile, (dense + 1) * tile)
+    got = lc.rows_plain(g, start, count, n, tile, piece=plan.chunk)[:, span]
+    total = torch.zeros(2, tile)
+    for k in range(int(count[dense])):
+        one, first = np.zeros_like(count), start.copy()
+        one[dense], first[dense] = 1, start[dense] + k * plan.chunk
+        total = total + lc.rows_plain(g, first, one, n, tile,
+                                      piece=plan.chunk)[:, span]
+    assert count[dense] > 2 and torch.equal(got, total)
+    whole = lc.rows_plain(g, start, count, n, tile, piece=1 << 30)
+    split = lc.rows_plain(g, start, count, n, tile)
+    scale = float(whole.abs().max())
+    assert float((split - whole).abs().max()) <= scale * 1e-6
+
