@@ -7,7 +7,8 @@ kernels and the native pedestal scan from this checkout into ``build/``
 (the two builds run concurrently) and imports nothing of JAX or
 ``pylbl_tpu``.  Phases:
 
-1. device and toolchain (card name and power limit from nvidia-smi);
+1. device and toolchain (card name and power limit from nvidia-smi), and
+   whether h5py and netCDF4 import on this host (a fact, not a check);
 2. build of the CUDA kernels and the native library;
 3. main path at 0.1 cm-1: seven gases' synthetic line lists (H2O 300k
    lines, six gases x 20k, 0.5-5100 cm-1) in a port Database, a 16-layer
@@ -50,7 +51,17 @@ kernels and the native pedestal scan from this checkout into ``build/``
     parity on layers 0 and 15; the rows and segment cores timed at 16
     layers), the checked wings on two of its layers with one CSR, and the
     port's ``kernel_microbench`` and ``parity_ab`` tools at the headline
-    size; each new kernel equals its plain version bit for bit.
+    size; each new kernel equals its plain version bit for bit;
+13. the portable two-pass backend, which runs no hand kernel: the
+    headline layer through ``Gas(..., backend="xla")`` cold and warm
+    (float64 parity, a bit-identical repeat, its gap to phase 8's kernel
+    spectrum), ``Gas(dtype=np.float32)`` bit-identical to
+    ``torch.float32``, phase 3's 16 layers through
+    ``make_multigas_batched_fn(backend="xla")`` (wall times beside the
+    kernel pipeline's, peak memory, float64 parity on layers 0 and 15, a
+    bit-identical repeat), the ``metrics`` snapshot of the phase's ``Gas``
+    calls, a ``profiler_trace`` of one warm call, and the npz pack cache
+    (sqlite, then npz, the packs equal).
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -568,7 +579,7 @@ def phase_gas(torch, P, lc, fixtures, records, card):
                    inputs=[plan_f.groups,
                            *core_csr(plan_f.core, plan_f.groups)],
                    pieces=plan_f.core.pieces)
-    return gas, gas64, grid, kin, arrays, npv, n, plan, k64
+    return gas, gas64, grid, kin, arrays, npv, n, plan, k64, k
 
 
 def phase_gas_batch(torch, lc, gas, gas64, grid, col):
@@ -925,6 +936,170 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
               f"wings={wings_mode} within {PARITY_TOL} of float64")
 
 
+def optional_modules(names):
+    """Whether each module imports on this host, with its version (a fact
+    for the streaming layer, which writes through h5py; not a check)."""
+    import importlib
+
+    found = []
+    for name in names:
+        try:
+            module = importlib.import_module(name)
+        except ImportError as exc:
+            found.append(f"{name} does not import ({exc})")
+        else:
+            found.append(f"{name} {getattr(module, '__version__', '?')}")
+    return "optional modules: " + ", ".join(found)
+
+
+def device_busy_seconds(torch, prof):
+    """Seconds in which a profiled region kept the card busy: the union of
+    its device events' spans, or None when the profile holds none."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, spans[0][0]
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e6
+
+
+def phase_portable(torch, P, lc, db_path, gas, grid, k64, k_kernel, spec_a,
+                   col, grid_a, card):
+    """Phase 13: the portable two-pass backend (``backend="xla"``), the
+    dtype spellings, the metrics and profiler hooks and the pack cache."""
+    from pylbl_tpu_torch.models.lines import internal_grid
+    from pylbl_tpu_torch.parallel.lines import make_multigas_batched_fn
+    from pylbl_tpu_torch.utils.observability import metrics, profiler_trace
+
+    v0, vn, npv, num_points = internal_grid(grid)
+    keep = gas.pack.compat_break_filter(v0, vn, CUT_OFF)
+    window = (2 * CUT_OFF + 1) * npv + 1
+    metrics.reset()
+    calls = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xla = P.Gas(gas.pack, "H2O", device="cuda", backend="xla")
+    lc.reset_launches()
+    k, cold, _ = timed_call(
+        torch, lambda: xla.absorption_coefficient(*SURFACE, grid))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    again, warm, _ = timed_call(
+        torch, lambda: xla.absorption_coefficient(*SURFACE, grid))
+    calls += 2
+    launches = sum(lc.LAUNCHES.values())
+    gap, gap_abs = rel_diff(torch.as_tensor(k), torch.as_tensor(k_kernel),
+                            1e-6)
+    chunk_c = int(np.clip(2 ** int(np.log2(4.0e6 / window)), 128, 2048))
+    steps_c = -(-keep // chunk_c)
+    print(f"phase 13 C through Gas(backend='xla'), float32: wall cold "
+          f"{cold:.4f} s, warm {warm:.4f} s ({steps_c} steps of {chunk_c} "
+          f"lines, {warm / steps_c * 1e3:.4f} ms per step), peak device "
+          f"memory above the resident {peak:.4f} GiB, hand-kernel launches "
+          f"{launches}; gap to the kernel path's phase 8 spectrum: max rel "
+          f"{gap:.3e}, max abs {gap_abs:.3e}")
+    check(np.array_equal(k, again), "phase 13 C (xla) repeat is "
+          "bit-identical")
+    check_spectrum(k, k64.shape, "phase 13 C (xla) spectrum", False)
+    spectrum_parity(torch, "phase 13 C (xla)", k, k64)
+
+    spelled = P.Gas(gas.pack, "H2O", device="cuda", dtype=np.float32)
+    check(spelled.backend == "kernel" and spelled.dtype == torch.float32,
+          "Gas(dtype=np.float32) is the float32 kernel path")
+    check(np.array_equal(spelled.absorption_coefficient(*SURFACE, grid),
+                         k_kernel),
+          "Gas(dtype=np.float32) equals torch.float32 bit for bit")
+    calls += 1
+
+    # A's 16 layers through the portable stacked pipeline.
+    t = np.asarray(col["t"].data)
+    p = np.asarray(col["p"].data)
+    fn_kernel = stacked_fn(spec_a)
+    x = np.stack([np.asarray(col[n.lower()].data) for n in fn_kernel.names],
+                 axis=1)
+    packs = {name: spec_a.cache[name].gas.pack for name in fn_kernel.names}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn = make_multigas_batched_fn(packs, grid_a, backend="xla",
+                                  device="cuda")
+    ka, cold_a, dev_a = timed_call(torch, lambda: fn(t, p, x))
+    peak_a = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    again_a, warm_a, warm_dev_a = timed_call(torch, lambda: fn(t, p, x))
+    _, kernel_a, kernel_dev_a = timed_call(torch, lambda: fn_kernel(t, p, x))
+    core_w = min(128, (CUT_OFF + 1) * npv)
+    points = t.size * lc.DEFAULT_CHUNK * (window + 2 * core_w + 1)
+    v0a, vna, _, _ = internal_grid(grid_a)
+    steps_a = -(-sum(pack.compat_break_filter(v0a, vna, CUT_OFF)
+                     for pack in packs.values()) // lc.DEFAULT_CHUNK)
+    print(f"phase 13 A through make_multigas_batched_fn(backend='xla'), "
+          f"{t.size} layers: wall cold {cold_a:.4f} s (CUDA events "
+          f"{dev_a:.4f}), warm {warm_a:.4f} s ({warm_dev_a:.4f}; {steps_a} "
+          f"steps, {warm_a / steps_a * 1e3:.4f} ms per step); the kernel "
+          f"pipeline warm {kernel_a:.4f} s ({kernel_dev_a:.4f}); peak device "
+          f"memory above the resident {peak_a:.4f} GiB, "
+          f"{peak_a * 2 ** 30 / points:.2f} bytes per candidate point of a "
+          f"{lc.DEFAULT_CHUNK}-line step ({points} points) on {card}")
+    check(torch.equal(ka, again_a), "phase 13 A (xla) repeat is "
+          "bit-identical")
+    check(tuple(ka.shape) == (t.size, len(packs), num_points)
+          and bool(torch.isfinite(ka).all()),
+          "phase 13 A (xla) finite, [16 layers, 7 gases, points]")
+    two = [0, t.size - 1]
+    fn64 = make_multigas_batched_fn(packs, grid_a, backend="plain",
+                                    dtype=torch.float64, device="cuda")
+    k64a = fn64(t[two], p[two], x[two])
+    worst = max(rel_diff(ka[two, g], k64a[:, g], 1e-6)[0]
+                for g in range(len(packs)))
+    print(f"phase 13 A (xla) layers 0 and 15 vs the float64 plain path: "
+          f"worst gas max rel {worst:.3e}")
+    check(worst < PARITY_TOL, f"phase 13 A (xla) within {PARITY_TOL} of "
+          "float64 on every gas")
+
+    with profiler_trace(WORK / "trace") as prof:
+        _, traced, _ = timed_call(
+            torch, lambda: xla.absorption_coefficient(*SURFACE, grid))
+    calls += 1
+    traces = [f for f in (WORK / "trace").glob("*.pt.trace.json*")
+              if f.stat().st_size > 0]
+    busy = device_busy_seconds(torch, prof)
+    share = "not measured (no device events)" if busy is None else \
+        f"{busy:.4f} s busy, idle share {1 - busy / traced:.4f}"
+    print(f"phase 13 profiler trace of one warm C call: {len(traces)} "
+          f"file(s), {sum(f.stat().st_size for f in traces)} bytes; traced "
+          f"wall {traced:.4f} s, device {share}")
+    check(len(traces) >= 1, "profiler_trace wrote a trace file")
+
+    snap = metrics.snapshot()
+    print(f"phase 13 metrics: {json.dumps(snap, sort_keys=True)}; "
+          f"lines.point_evals / lines.absorption seconds "
+          f"{metrics.rate('lines.point_evals', 'lines.absorption'):.6e}/s")
+    check(snap["timers"]["lines.absorption"]["calls"] == calls
+          and snap["counters"] == {
+              "lines.processed": calls * keep,
+              "lines.point_evals": calls * keep * window,
+              "lines.grid_points": calls * num_points},
+          f"metrics count the phase's {calls} Gas calls")
+
+    # The pack cache: sqlite once, then the npz.
+    cache = WORK / "packs"
+    for old in cache.glob("*.lpk.npz"):
+        old.unlink()
+    first, from_sqlite, _ = timed_call(torch, lambda: P.Database(
+        db_path, pack_cache_dir=cache).line_pack("H2O"))
+    second, from_npz, _ = timed_call(torch, lambda: P.Database(
+        db_path, pack_cache_dir=cache).line_pack("H2O"))
+    print(f"phase 13 pack cache, H2O ({first.num_lines} lines): sqlite "
+          f"(and the npz written) {from_sqlite:.4f} s, npz {from_npz:.4f} s")
+    check(second.meta["source"].endswith("H2O.lpk.npz") and all(
+        np.array_equal(getattr(first, f), getattr(second, f))
+        for f in first._ARRAY_FIELDS),
+        "the npz pack equals the sqlite pack")
+
+
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     registers, shared memory and spill bytes."""
@@ -971,6 +1146,7 @@ def main():
           f"CUDA {torch.version.cuda}, nvcc: {nvcc[-1]}")
     print(f"devices: {torch.cuda.device_count()} x "
           f"{torch.cuda.get_device_name(0)}")
+    print(optional_modules(("h5py", "netCDF4")))
 
     # Phase 2: build, the nvcc and g++ builds started together.
     t0 = time.perf_counter()
@@ -1087,12 +1263,14 @@ def main():
     breakdown(torch, spec_a, col_a)
 
     # Phases 8-11: the single-gas engine.
-    gas, gas64, grid_h, kin, arrays, npv, n, plan, k64 = phase_gas(
+    gas, gas64, grid_h, kin, arrays, npv, n, plan, k64, k_c = phase_gas(
         torch, P, lc, fixtures, records, card)
     phase_gas_batch(torch, lc, gas, gas64, grid_h, col_a)
     phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records)
     phase_rows(torch, lc, gas, gas64, grid_h, kin, arrays, npv, n, plan, k64,
                col_a, records)
+    phase_portable(torch, P, lc, db_path, gas, grid_h, k64, k_c, spec_a,
+                   col_a, grid_a, card)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

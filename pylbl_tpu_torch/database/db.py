@@ -6,17 +6,20 @@ pyLBL/database.py:130-506): tables molecule / isotopologue / molecule_alias
 taxonomy, so either package opens the other's files.  It covers queries,
 :meth:`Database.line_pack` (a molecule's lines packed once into the
 structure-of-arrays the device pipeline consumes) and the offline
-ingestion of LinePacks and cross-section directories.  Downloading from
-the HITRAN/TIPS web services (``create``) is not ported.
+ingestion of LinePacks and cross-section directories, with an optional
+on-disk npz cache of the packs.  Downloading from the HITRAN/TIPS web
+services (``create``) is not ported.
 """
 import sqlite3
 from os import listdir
 from os.path import abspath, join
+from pathlib import Path
 from re import match
 
 import numpy as np
 
 from ..models.lines.physics import LinePack
+from ..models.tips import TotalPartitionFunction
 
 SCHEMA = """
 CREATE TABLE IF NOT EXISTS molecule (
@@ -96,13 +99,18 @@ class Database:
         path: path to the sqlite file.
     """
 
-    def __init__(self, path):
+    def __init__(self, path, echo=False, pack_cache_dir=None):
         """Connects to the database and creates tables.
 
         Args:
             path: path to the sqlite file.
+            echo: print SQL statements.
+            pack_cache_dir: optional directory for on-disk LinePack npz
+                caches (sqlite is then queried once per molecule ever).
         """
         self.path = str(path)
+        self.echo = echo
+        self.pack_cache_dir = pack_cache_dir
         con = self._connect()
         con.executescript(SCHEMA)
         con.commit()
@@ -110,7 +118,10 @@ class Database:
         self._pack_cache = {}
 
     def _connect(self):
-        return sqlite3.connect(self.path)
+        con = sqlite3.connect(self.path)
+        if self.echo:
+            con.set_trace_callback(print)
+        return con
 
     # ------------------------------ ingest ------------------------------
 
@@ -164,6 +175,34 @@ class Database:
         finally:
             con.close()
 
+    def gas(self, name):
+        """(formula, masses, transitions, TotalPartitionFunction) for a
+        molecule (reference database.py:350-367)."""
+        con = self._connect()
+        try:
+            molecule_id = self._molecule_id(con, name)
+            formula = con.execute(
+                "SELECT ordinary_formula FROM molecule WHERE id == ?",
+                (molecule_id,)).fetchone()[0]
+            mass = [r[0] for r in con.execute(
+                "SELECT mass FROM isotopologue WHERE molecule_id == ?",
+                (molecule_id,))]
+            if not mass:
+                raise IsotopologuesNotFoundError(
+                    f"isotopologues not found for molecule {molecule_id}.")
+            transitions = con.execute(
+                "SELECT nu, sw, gamma_air, gamma_self, n_air, elower, "
+                "delta_air, local_iso_id FROM transition "
+                "WHERE molecule_id == ? ORDER BY id", (molecule_id,)
+            ).fetchall()
+            if not transitions:
+                raise TransitionsNotFoundError(
+                    f"transitions not found for molecule {molecule_id}.")
+        finally:
+            con.close()
+        return formula, mass, transitions, \
+            TotalPartitionFunction(name, *self.tips(name))
+
     def tips(self, name):
         """(temperature[nT], data[nIso, nT]) for a molecule
         (reference database.py:369-395)."""
@@ -209,11 +248,18 @@ class Database:
         Replaces the reference C path's per-call sqlite reads (reference
         absorption.c:44-73, spectral_database.c:49-180): transitions, the
         32-slot isotopologue mass array (with the isoid 0 -> 10 remap) and
-        the TIPS matrix are read once and cached.
+        the TIPS matrix are read once and cached, in memory and, with a
+        ``pack_cache_dir``, as ``<dir>/<name>.lpk.npz``.
         """
         cached = self._pack_cache.get(name)
         if cached is not None:
             return cached
+        disk = None if self.pack_cache_dir is None \
+            else Path(self.pack_cache_dir) / f"{name}.lpk.npz"
+        if disk is not None and disk.exists():
+            pack = LinePack.load(disk)
+            self._pack_cache[name] = pack
+            return pack
         con = self._connect()
         try:
             molecule_id = self._molecule_id(con, name)
@@ -250,6 +296,9 @@ class Database:
             mass_slots=mass_slots, q_table=q_table,
             q_temperature=temperature, meta={"source": self.path})
         self._pack_cache[name] = pack
+        if disk is not None:
+            disk.parent.mkdir(parents=True, exist_ok=True)
+            pack.save(disk)
         return pack
 
     def ingest_line_pack(self, pack, molecule_id=None, aliases=()):

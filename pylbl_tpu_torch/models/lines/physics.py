@@ -66,9 +66,17 @@ class LinePack:
                      "delta_air", "elower", "iso", "mass_slots", "q_table",
                      "q_temperature")
 
+    def save(self, path):
+        """Caches the pack as a compressed npz (the packed-array artifact:
+        sqlite is touched once, reloads skip requerying), with the JAX
+        package's keys, so either package loads the other's packs."""
+        np.savez_compressed(
+            path, formula=self.formula,
+            **{name: getattr(self, name) for name in self._ARRAY_FIELDS})
+
     @classmethod
     def load(cls, path):
-        """Reads a pack saved by the JAX package's ``LinePack.save``."""
+        """Reads a pack saved by :meth:`save` or the JAX package's."""
         with np.load(path, allow_pickle=False) as data:
             return cls(formula=str(data["formula"]),
                        **{name: data[name] for name in cls._ARRAY_FIELDS},

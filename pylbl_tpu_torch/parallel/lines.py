@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..ops import lineshape_cuda as lc
-from ..runtime.device import resolve_device
+from ..ops.lineshape import accumulate_segment
+from ..runtime.device import resolve_backend, resolve_device, resolve_dtype
 from ..utils import constants as c
 
 
@@ -50,12 +51,14 @@ def as_tensors(arrays, device, dtype=None):
         arrays: dict of numpy arrays (:func:`device_line_pack`,
             :func:`stack_device_packs`, or a LinePack's array fields).
         device: torch device.
-        dtype: float dtype for the floating fields (default: keep theirs);
+        dtype: float dtype for the floating fields (default: keep theirs),
+            a torch or numpy spelling (runtime/device.resolve_dtype);
             integer fields keep their type.
 
     Returns:
         dict name -> tensor.
     """
+    dtype = None if dtype is None else resolve_dtype(dtype)
     out = {}
     for key, value in arrays.items():
         value = np.asarray(value)
@@ -323,7 +326,21 @@ def derive_envelope(temperature, pressure, t_quantum=5.0,
 
 def _layer_tensor(value, device, dtype):
     return torch.as_tensor(np.asarray(value) if not isinstance(
-        value, torch.Tensor) else value, device=device).to(dtype)
+        value, torch.Tensor) else value, device=device).to(
+            resolve_dtype(dtype))
+
+
+def _pad_to_chunk(kernel_arrays, chunk):
+    """Pads the line axis of [B, N] kernel tensors to a multiple of
+    ``chunk`` with dead lines (zero strength, window [-1, -2])."""
+    pad = -kernel_arrays["prefactor"].shape[-1] % chunk
+    if pad == 0:
+        return kernel_arrays
+    fill = {"c_int": 0, "c_frac": 0.0, "scaled_repwid": 1.0, "y": 1.0,
+            "prefactor": 0.0, "s_idx": -1, "e_idx": -2}
+    return {name: torch.nn.functional.pad(kernel_arrays[name], (0, pad),
+                                          value=value)
+            for name, value in fill.items()}
 
 
 def _envelope_guard(t_max, p_max_atm):
@@ -503,22 +520,27 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         packs: dict name -> LinePack.
         core_mode: "segmix" (default), "seg" or "rows".
         backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
-            plain versions for CPU tensors) or "plain" (plain versions on
-            any device, in ``dtype``).
+            plain versions for CPU tensors), "plain" (plain versions on
+            any device, in ``dtype``), "xla" (the portable two-pass path,
+            ops/lineshape.py ``accumulate_segment``, over every layer at
+            once, in ``dtype``; no envelope guard, as it sizes no windows
+            ahead) or a spelling runtime/device.resolve_backend maps to
+            one of them.
         device: torch device of the line constants and outputs: the card
             by default, raising without one; "cpu" runs the plain
             versions on the host.
-        dtype: float dtype of the pipeline (the CUDA kernels take
-            float32).
+        dtype: float dtype of the pipeline, torch or numpy spelling (the
+            CUDA kernels take float32).
 
     Returns:
         fn(temperature[B], pressure[B], vmr[B, G]) -> [B, G, num_points]
         tensor of absorption cross sections [m2] on the internal grid,
-        gases ordered as ``list(packs)``.  ``fn.total(t, p, vmr)`` returns
-        the density-weighted gas sum [B, num_points] in m-1.
+        gases ordered as ``fn.names`` = ``list(packs)``.
+        ``fn.total(t, p, vmr)`` returns the density-weighted gas sum [B,
+        num_points] in m-1.
     """
-    if backend not in ("kernel", "plain"):
-        raise ValueError(f"unknown backend {backend!r}")
+    backend = resolve_backend(backend, device)
+    dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     tile = tile or lc.DEFAULT_TILE
     chunk = chunk or lc.DEFAULT_CHUNK
@@ -535,7 +557,8 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         t = _layer_tensor(temperature, device, dtype).reshape(-1)
         p = _layer_tensor(pressure, device, dtype).reshape(-1)
         x = _layer_tensor(vmr, device, dtype).reshape(t.shape[0], -1)
-        guard(t, p)
+        if backend != "xla":
+            guard(t, p)
         return t, p, x
 
     def _total(k, t, p, x):
@@ -551,7 +574,33 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
             return torch.zeros((t.shape[0], num_gases, num_points),
                                dtype=dtype, device=device)
         empty.total = lambda t, p, x: empty(t, p, x).sum(dim=1)
+        empty.names = names
         return empty
+
+    if backend == "xla":
+        # JAX's portable branch: its fixed core half width (not
+        # core_halfwidth), the full window, the splat chunk.
+        window = (2 * cut_off + 1) * n_per_v + 1
+        core_w = min(128, (cut_off + 1) * n_per_v)
+        arrays_dev = as_tensors(arrays_np, device, dtype)
+
+        def run_xla(t, p, x):
+            ka = _pad_to_chunk(
+                line_kernel_arrays(arrays_dev, static, t, p, x), chunk)
+            k = accumulate_segment(ka, 0, flat_points, flat_points, window,
+                                   core_w, chunk)
+            return k.reshape(t.shape[0], num_gases, num_points)
+
+        def fn_xla(temperature, pressure, vmr):
+            return run_xla(*_inputs(temperature, pressure, vmr))
+
+        def total_xla(temperature, pressure, vmr):
+            t, p, x = _inputs(temperature, pressure, vmr)
+            return _total(run_xla(t, p, x), t, p, x)
+
+        fn_xla.total = total_xla
+        fn_xla.names = names
+        return fn_xla
 
     # Flat windows for the CSR, from unshifted positions +/-1 wavenumber
     # slop, clamped per gas segment then offset; core instance windows
@@ -605,7 +654,9 @@ def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
     Args:
         pack: LinePack.
         core_mode: "segmix" (default), "seg" or "rows".
-        backend / device / dtype: as :func:`make_multigas_batched_fn`.
+        backend / device / dtype: as :func:`make_multigas_batched_fn`,
+            without the portable "xla" path (``Gas`` runs it layer by
+            layer, as the JAX engine does).
 
     Returns:
         fn(temperature[B], pressure[B], vmr[B]) -> [B, num_points] tensor
@@ -615,8 +666,11 @@ def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
         ``fn.core_plan``, ``fn.wings_stride``, ``fn.wings_csr`` and the
         pass handles expose the stages.
     """
-    if backend not in ("kernel", "plain"):
-        raise ValueError(f"unknown backend {backend!r}")
+    backend = resolve_backend(backend, device)
+    if backend == "xla":
+        raise ValueError("make_batched_fn has no portable backend; use "
+                         "Gas(..., backend='xla')")
+    dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     tile = tile or lc.DEFAULT_TILE
     chunk = chunk or lc.DEFAULT_CHUNK
@@ -749,3 +803,44 @@ def make_stacked_pedestal_remover(packs, grid, cut_off=c.DEFAULT_CUT_OFF):
             .reshape(k.shape)
 
     return remove
+
+
+def remove_stacked_pedestal(packs, grid, k, temperature, pressure,
+                            vmr_mat, cut_off=c.DEFAULT_CUT_OFF):
+    """Reference-exact pedestal removal applied per gas, layer-batched, on
+    the host (JAX ``remove_stacked_pedestal``).
+
+    Args:
+        packs: dict name -> LinePack in gas order.
+        k: [B, G, num_points] cross sections (numpy or tensor; a float64
+            copy is returned).
+        vmr_mat: [B, G] float64 mole fractions.
+
+    Returns:
+        [B, G, num_points] float64 numpy array with each gas's pedestal
+        subtracted (reference spectra.c:66-78 semantics,
+        models/lines/pedestal.py).
+    """
+    from ..models.lines.gas import internal_grid
+    from ..models.lines.pedestal import (apply_pedestal_batch,
+                                         compute_pedestals_batch)
+    from ..models.lines.physics import kernel_inputs, line_profile_params
+
+    v0, vn, n_per_v, num_points = internal_grid(grid)
+    if isinstance(k, torch.Tensor):
+        k = k.cpu().numpy()
+    k = np.array(k, np.float64, copy=True)
+    for g, (name, pack) in enumerate(packs.items()):
+        keep = pack.compat_break_filter(v0, vn, cut_off)
+        if keep == 0:
+            continue
+        params = line_profile_params(pack, temperature, pressure,
+                                     vmr_mat[:, g], keep=keep)
+        kin = kernel_inputs(params, v0, n_per_v, cut_off)
+        kin["nu_raw"] = pack.nu[:keep]
+        kin["nu_shift"] = params["nu_shift"]
+        ped = compute_pedestals_batch(k[:, g], kin, num_points, n_per_v,
+                                      cut_off, device="cpu")
+        k[:, g] = apply_pedestal_batch(k[:, g], ped, kin["s_idx"],
+                                       kin["e_idx"], num_points)
+    return k

@@ -3,9 +3,14 @@
 The same dictionary surface as the reference (reference
 pyLBL/plugins.py:7-34): ``molecular_lines`` / ``continua`` /
 ``cross_sections`` keyed by backend name, unknown names raising KeyError,
-with the built-in backends registered.  Entry-point discovery and the
-``register_*`` hooks are not ported.
+with the built-in backends registered, the ``register_*`` hooks, and
+entry-point discovery in group "pylbl_tpu_torch" at import, so
+third-party backends plug in without this package importing them
+eagerly.  The group is not the JAX package's "pylbl_tpu": its entry
+points name ``pylbl_tpu`` classes, and loading them would import JAX.
 """
+from re import match
+
 from .models.arts_crossfit import CrossSection
 from .models.lines import Gas
 from .models import mt_ckd
@@ -38,3 +43,53 @@ cross_sections = {
 }
 
 models = list({*molecular_lines, *continua, *cross_sections})
+
+
+def register_lines_backend(name, cls):
+    molecular_lines[name] = cls
+    _refresh_models()
+
+
+def register_continua_backend(name, class_map):
+    continua[name] = dict(class_map)
+    _refresh_models()
+
+
+def register_cross_sections_backend(name, cls):
+    cross_sections[name] = cls
+    _refresh_models()
+
+
+def _refresh_models():
+    global models
+    models = list({*molecular_lines, *continua, *cross_sections})
+
+
+def discover_entry_points(group="pylbl_tpu_torch"):
+    """Loads third-party backends advertised via importlib entry points.
+
+    Entry-point names follow the reference convention: ``Gas`` for a lines
+    backend, ``CrossSection`` for cross sections, ``<Molecule>Continuum``
+    for continuum classes (reference plugins.py:12-34); the entry point's
+    *value* module path groups them under its distribution name.
+    """
+    from importlib.metadata import entry_points
+
+    pending_continua = {}
+    for ep in entry_points(group=group):
+        backend = ep.value.split(":")[0].split(".")[0]
+        if ep.name == "Gas":
+            molecular_lines[backend] = ep.load()
+        elif ep.name == "CrossSection":
+            cross_sections[backend] = ep.load()
+        else:
+            m = match(r"([A-Za-z0-9]+)Continuum", ep.name)
+            if m:
+                pending_continua.setdefault(backend, {})[m.group(1)] = \
+                    ep.load()
+    for backend, class_map in pending_continua.items():
+        continua.setdefault(backend, {}).update(class_map)
+    _refresh_models()
+
+
+discover_entry_points()

@@ -19,7 +19,7 @@ from .database.db import (AliasNotFoundError, CrossSectionNotFoundError,
                           IsotopologuesNotFoundError, TipsDataNotFoundError,
                           TransitionsNotFoundError)
 from .plugins import continua, cross_sections, molecular_lines
-from .runtime.device import resolve_device
+from .runtime.device import resolve_backend, resolve_device, resolve_dtype
 from .utils.constants import KB
 from .utils.xrlite import DataArray, Dataset
 
@@ -77,18 +77,22 @@ class Spectroscopy:
                 string backend names; unknown names raise KeyError.
             device: torch device of the lines pipeline and the device
                 mechanisms; "cuda" without a card raises.
-            dtype: lines pipeline float dtype (the CUDA kernels take
-                float32; float64 runs the plain versions).
+            dtype: lines pipeline float dtype, a torch or numpy spelling
+                (the CUDA kernels take float32; float64 runs the plain
+                versions).
             device_mechanisms: evaluate continua and cross sections on
                 ``device`` instead of host numpy.  Default: True on CUDA,
                 False on the CPU (where the float64 host path is the
                 parity anchor).
             backend: "kernel" (CUDA kernels on the card, plain versions on
-                the CPU) or "plain" (plain versions on any device).
+                the CPU), "plain" (plain versions on any device), "xla"
+                (the portable path, computed by the per-gas engines) or a
+                spelling runtime/device.resolve_backend maps to one of
+                them.
         """
         self.device = resolve_device(device)
-        self.dtype = dtype
-        self.backend = backend
+        self.dtype = resolve_dtype(dtype)
+        self.backend = resolve_backend(backend, self.device)
         self.atmosphere = Atmosphere(atmosphere, mapping=mapping)
         self.grid = np.asarray(grid)
         self.lines_database = database
@@ -119,6 +123,10 @@ class Spectroscopy:
             + [len(mechanisms), self.grid.size]
         self.output = Output(dims=dims, dim_sizes=dim_sizes,
                              mechanisms=mechanisms, units={"units": "m-1"})
+
+    def list_molecules(self):
+        """Molecules available in the spectral database."""
+        return self.lines_database.molecules()
 
     def _accepted(self, fn, envelope=False):
         """This object's device, dtype and backend (and the atmosphere's
@@ -195,19 +203,24 @@ class Spectroscopy:
         Args:
             vmr_by_gas: dict name -> [B] mole fractions (insertion order
                 fixes the gas order).
-            backend: override of the pipeline backend ("kernel"/"plain").
+            backend: override of the pipeline backend; default this
+                object's, except that under "xla" the stacked path is left
+                to the per-gas engines (None result) unless asked for
+                here, as the JAX package does.
 
         Returns:
             (names, k) with ``names`` the stacked gas order and ``k`` a
             [B, G, num_points] tensor of cross sections [m2] on the
             internal grid, or None when the gases cannot be stacked
-            (:class:`~pylbl_tpu_torch.parallel.lines.UnstackableError`) or
-            some engine has no packed lines.
+            (:class:`~pylbl_tpu_torch.parallel.lines.UnstackableError`),
+            some engine has no packed lines or the backend is "xla".
         """
         from .parallel.lines import (UnstackableError,
                                      make_multigas_batched_fn,
                                      make_stacked_pedestal_remover)
 
+        if backend is None and self.backend == "xla":
+            return None
         packs = {}
         for name in vmr_by_gas:
             gas = self.cache[name].gas
@@ -218,7 +231,7 @@ class Spectroscopy:
             packs[name] = gas.pack
         if not packs:
             return None
-        backend = backend or self.backend
+        backend = resolve_backend(backend or self.backend, self.device)
         key = (float(self.grid[0]), float(self.grid[-1]), self.grid.size,
                tuple(packs), backend, self._envelope, bool(remove_pedestal))
         cached = self._multigas_fns.get(key)

@@ -552,3 +552,42 @@ def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
     shifted = shifted.view_as(params).copy_(params)
     with pytest.raises(ValueError, match="aligned"):
         core.seg_pass(shifted)
+
+
+# --- The portable two-pass backend (ops/lineshape.py accumulate). ---
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", [0.1, 0.01])
+def test_portable_accumulate_on_card_matches_cpu(cuda_device, step):
+    """The portable accumulation on the card against the same function on
+    the CPU, float32: its per-index sums run in another order there, so
+    rel 1e-5 (floor 1e-7 of the maximum); it launches no hand kernel."""
+    from pylbl_tpu_torch.ops.lineshape import accumulate
+
+    layers, npv, n = single_gas_layers(step, num_layers=1,
+                                       hi=220.0 if step > 0.05 else 60.0)
+    (_, arrays), = layers
+    lc.reset_launches()
+    got = accumulate(arrays, n, npv, 25, device=cuda_device)
+    assert sum(lc.LAUNCHES.values()) == 0
+    want = accumulate(arrays, n, npv, 25, device="cpu")
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert rel_err(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+def test_portable_paths_repeat_on_card(cuda_device):
+    """The portable accumulation and the stacked "xla" pipeline repeat bit
+    for bit on the card."""
+    from pylbl_tpu_torch.ops.lineshape import accumulate
+
+    layers, npv, n = single_gas_layers(0.1, num_layers=1)
+    (_, arrays), = layers
+    first = accumulate(arrays, n, npv, 25, device=cuda_device)
+    assert torch.equal(first, accumulate(arrays, n, npv, 25,
+                                         device=cuda_device))
+    fn = make_multigas_batched_fn(packs(), np.arange(1.0, 220.0, 0.1),
+                                  backend="xla", device=cuda_device)
+    out = fn(T, P, VMR)
+    assert torch.equal(out, fn(T, P, VMR))
+    assert out.shape[:2] == (2, 3) and bool(torch.isfinite(out).all())
