@@ -61,7 +61,20 @@ kernels and the native pedestal scan from this checkout into ``build/``
     kernel pipeline's, peak memory, float64 parity on layers 0 and 15, a
     bit-identical repeat), the ``metrics`` snapshot of the phase's ``Gas``
     calls, a ``profiler_trace`` of one warm call, and the npz pack cache
-    (sqlite, then npz, the packs equal).
+    (sqlite, then npz, the packs equal);
+14. the streamed path at BASELINE config-5 width: phase 3's gases and
+    16-layer column on grid 1-5000 cm-1 at 0.01 (499,900 points per gas),
+    the block loop of ``compute_absorption_streamed`` (blocks of 4) into
+    an in-memory writer (it needs no h5py), cold and warm (walls,
+    each block's stage timers, peak memory, the splat wings and core
+    launched, a bit-identical repeat), layers 0 and 15 against
+    ``compute_absorption("all")`` on a 2-layer sub-column (rtol 1e-12), a
+    resume of 4 pending states around 12 sentinels, the splat wings and
+    the core against their plain versions on a block's inputs, float64
+    parity of the two layers' totals without the pedestal (and, with it,
+    no float32 error beyond that), ``python -m pylbl_tpu_torch info``
+    naming the card, and the ``envelope_compare`` tool at the headline
+    size.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -135,6 +148,11 @@ KERNELS = {
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
 PARITY_TOL = 5e-4
+# Phase 14's grid (lo, hi, step), column and block size: BASELINE config
+# 5 (bench.py prep_config5), 499,900 points per gas.
+STREAM_GRID = (1.0, 5000.0, 0.01)
+STREAM_LAYERS = 16
+STREAM_BLOCK = 4
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores and
 # HBM3 bytes per second.
 PEAK_OPS = 67e12
@@ -1100,6 +1118,176 @@ def phase_portable(torch, P, lc, db_path, gas, grid, k64, k_kernel, spec_a,
         "the npz pack equals the sqlite pack")
 
 
+class MemoryWriter:
+    """The streamed loop's writer in host memory (``pending_states`` and
+    ``write_state`` of utils/streaming.py's StreamingWriter, no h5py):
+    one float64 [state, mechanism, grid] array per variable, a completion
+    vector and the order of the writes."""
+
+    def __init__(self, names, num_states, shape, fill=np.nan):
+        self.out = {name: np.full((num_states,) + shape, fill)
+                    for name in names}
+        self.complete = np.zeros(num_states, np.int8)
+        self.writes = []
+
+    def pending_states(self):
+        return np.where(self.complete == 0)[0]
+
+    def write_state(self, index, values):
+        for name, out in self.out.items():
+            out[index] = values[name]
+        self.complete[index] = 1
+        self.writes.append(index)
+
+
+def phase_streamed(torch, P, lc, db, pack, records, card):
+    """Phase 14: the streamed path at config-5 width through the block
+    loop of ``compute_absorption_streamed`` into a MemoryWriter (no
+    h5py), the CLI's ``info`` and the envelope tool."""
+    from pylbl_tpu_torch.tools import envelope_compare
+    from pylbl_tpu_torch.utils.observability import metrics
+
+    start = time.perf_counter()
+    grid = np.arange(*STREAM_GRID)
+    col = column(STREAM_LAYERS, P.Dataset)
+    spec = P.Spectroscopy(col, grid, db, device="cuda")
+    names = [f"{n}_absorption" for n in spec.atmosphere.gases]
+    shape = (len(spec.output.mechanisms), grid.size)
+
+    def stream(writer, label):
+        """One streamed pass, its launches counted from 0 and its stage
+        timers from empty."""
+        metrics.reset()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launches()
+        _, wall, _ = timed_call(torch, lambda: spec._stream_blocks(
+            writer, block_layers=STREAM_BLOCK))
+        counts = dict(lc.LAUNCHES)
+        timers = metrics.snapshot()["timers"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        blocks = timers["stream.write"]["calls"]
+        split = ", ".join(
+            f"{stage} {timers['stream.' + stage]['seconds']:.4f} s "
+            f"({timers['stream.' + stage]['seconds'] / blocks:.4f} per "
+            "block)" for stage in ("lines", "fetch", "mechanisms", "write"))
+        print(f"phase 14 {label}: {len(writer.writes)} states of "
+              f"{len(names)} gases x {grid.size} points in {blocks} "
+              f"blocks of {STREAM_BLOCK}, wall {wall:.4f} s, peak device "
+              f"memory {peak:.4f} GiB on {card}; stages (host clock): "
+              f"{split}; launches {counts}")
+        return counts
+
+    cold = MemoryWriter(names, STREAM_LAYERS, shape)
+    counts = stream(cold, f"cold pass ({STREAM_LAYERS} layers, "
+                          f"{STREAM_GRID[2]} cm-1)")
+    for name in ("wings_splat", "core_segmix"):
+        check(counts[name] > 0, f"phase 14 launched {name}")
+        records[name]["launches_streamed"] = counts[name]
+    check(sorted(cold.writes) == list(range(STREAM_LAYERS))
+          and cold.complete.all(), "phase 14 wrote every state once")
+    warm = MemoryWriter(names, STREAM_LAYERS, shape)
+    stream(warm, "warm pass")
+    check(all(np.array_equal(warm.out[n], cold.out[n]) for n in names),
+          "phase 14 warm pass equals the cold pass bit for bit")
+    for name in GASES:
+        check_spectrum(cold.out[f"{name}_absorption"][:, 0],
+                       (STREAM_LAYERS, grid.size), f"phase 14 {name} lines",
+                       True)
+    total = sum(cold.out[n].sum(axis=1) for n in names)
+    check(np.isfinite(total).all() and bool((total.sum(axis=1) > 0).all()),
+          "phase 14 total finite, every layer's spectral integral > 0")
+
+    # Layers 0 and the last through the in-memory path on a sub-column.
+    ends = [0, STREAM_LAYERS - 1]
+    two = sub_column(col, ends, P.Dataset)
+    full, mem_s, _ = timed_call(torch, lambda: P.Spectroscopy(
+        two, grid, db, device="cuda").compute_absorption(output_format="all"))
+    gap = max(float(np.max(np.abs(cold.out[n][ends] - full[n].data)
+                           / np.maximum(np.abs(full[n].data), 1e-300)))
+              for n in names)
+    print(f"phase 14 in-memory 'all' on layers {ends} ({mem_s:.4f} s, "
+          f"cold): max rel gap to the streamed layers {gap:.3e}")
+    check(gap <= 1e-12, f"phase 14 layers {ends} equal "
+          "compute_absorption('all') on the 2-layer sub-column (rtol 1e-12)")
+
+    # Resume: 12 states done and holding a sentinel, 4 pending.
+    pending = [1, 6, 11, STREAM_LAYERS - 2]
+    resumed = MemoryWriter(names, STREAM_LAYERS, shape, fill=-7.0)
+    resumed.complete[:] = 1
+    resumed.complete[pending] = 0
+    stream(resumed, f"resume of states {pending}")
+    done = np.setdiff1d(np.arange(STREAM_LAYERS), pending)
+    check(resumed.writes == pending, "phase 14 resume computed only the "
+          "pending states, in order")
+    check(all(np.all(resumed.out[n][done] == -7.0) for n in names),
+          "phase 14 resume left the sentinels untouched")
+    check(all(np.array_equal(resumed.out[n][pending], cold.out[n][pending])
+              for n in names),
+          "phase 14 resumed states equal the full pass bit for bit")
+
+    # The path's two kernels against their plain versions on the first
+    # block's inputs.
+    block = {"wings_splat": {}, "core_segmix": {}}
+    phase_kernels(torch, lc, stacked_fn(spec), col, list(block), block,
+                  layers=STREAM_BLOCK)
+    for name, record in block.items():
+        records[name].update(ms_streamed_block=record["ms"],
+                             plain_ms_streamed_block=record["plain_ms"],
+                             bound_ms_streamed_block=record["bound_ms"])
+
+    # Float64 parity of the two end layers' totals (as phase 6), streamed
+    # without the pedestal (one block of 2) and with it (the cold pass).
+    raw = MemoryWriter(names, STREAM_LAYERS, shape)
+    raw.complete[:] = 1
+    raw.complete[ends] = 0
+    spec._stream_blocks(raw, remove_pedestal=False, block_layers=STREAM_BLOCK)
+    s64 = P.Spectroscopy(two, grid, db, device="cuda", dtype=torch.float64,
+                         backend="plain")
+    errors = {}
+    for label, got, ped in (
+            ("without the pedestal",
+             sum(raw.out[n][ends].sum(axis=1) for n in names), False),
+            ("with the pedestal", total[ends], True)):
+        want = total_of(s64.compute_absorption(output_format="total",
+                                               remove_pedestal=ped))
+        rel, err = rel_diff(torch.as_tensor(got), torch.as_tensor(want),
+                            1e-6)
+        scale = np.abs(want).max()
+        worst = np.unravel_index(np.argmax(
+            np.abs(got - want) / np.maximum(np.abs(want), scale * 1e-6)),
+            want.shape)
+        print(f"phase 14 total, layers {ends}, {label}: vs float64 plain, "
+              f"max rel {rel:.3e}, max abs {err:.3e} m-1 ({err / scale:.3e} "
+              f"of the maximum {scale:.6e}); worst at layer "
+              f"{ends[worst[0]]}, {grid[worst[1]]:.2f} cm-1: {got[worst]:.6e}"
+              f" against {want[worst]:.6e}")
+        errors[ped] = rel, err
+    check(errors[False][0] < PARITY_TOL, f"phase 14 totals without the "
+          f"pedestal within {PARITY_TOL} of float64")
+    check(errors[True][1] <= 1.1 * errors[False][1], "phase 14: the host "
+          "float64 pedestal adds no float32 error of its own (max abs "
+          "error with it within 1.1x of that without)")
+
+    # The command line's info, as a user runs it.
+    info = subprocess.run([sys.executable, "-m", "pylbl_tpu_torch", "info"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    print("phase 14 `python -m pylbl_tpu_torch info`:\n  "
+          + "\n  ".join(info.stdout.strip().splitlines()))
+    check(info.returncode == 0
+          and torch.cuda.get_device_name(0) in info.stdout,
+          "`python -m pylbl_tpu_torch info` exits 0 and names the card")
+
+    # The envelope tool at the headline size (300k lines, 4 layers).
+    report = envelope_compare.run(pack=pack)
+    default, derived = (report[k] for k in ("default_350K_5atm", "derived"))
+    check(0 < derived["core_instances"] <= default["core_instances"]
+          and np.isfinite(report["speedup"]),
+          "envelope_compare: the derived envelope plans no more core "
+          "instances")
+    print(f"phase 14 took {time.perf_counter() - start:.1f} s")
+
+
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     registers, shared memory and spill bytes."""
@@ -1271,6 +1459,7 @@ def main():
                col_a, records)
     phase_portable(torch, P, lc, db_path, gas, grid_h, k64, k_c, spec_a,
                    col_a, grid_a, card)
+    phase_streamed(torch, P, lc, db, gas.pack, records, card)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

@@ -1,0 +1,115 @@
+"""Command-line interface (counterpart of pylbl_tpu/__main__.py).
+
+    python -m pylbl_tpu_torch info
+    python -m pylbl_tpu_torch compute --atmosphere atm.nc \
+        --database spectra.db --grid 1:3000:0.1 --output absorption.nc \
+        --format total
+
+Both run on the CUDA card by default and refuse to start without one;
+``--device cpu`` runs them on the host (the kernels' plain versions).
+"""
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _parse_grid(spec):
+    lo, hi, res = (float(x) for x in spec.split(":"))
+    return np.arange(lo, hi, res)
+
+
+def cmd_info(args, device):
+    import torch
+
+    from . import __version__, plugins
+    from .ops.lineshape_cuda import CUDA_SOURCE
+    from .runtime import build, native
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"pylbl_tpu_torch {__version__}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} CUDA device(s); device {device}: "
+          f"{name}")
+    print(f"lines backends: {sorted(plugins.molecular_lines)}")
+    print(f"continua backends: {sorted(plugins.continua)}")
+    print(f"cross-section backends: {sorted(plugins.cross_sections)}")
+    print(f"native runtime: "
+          f"{'available' if native.available() else 'unavailable'}")
+    built = build.is_built("liblineshape_cuda.so", [CUDA_SOURCE])
+    print(f"CUDA kernels: "
+          f"{'built' if built else 'not built (built at first use)'} "
+          f"under {build.BUILD_DIR}")
+    return 0
+
+
+def cmd_compute(args, device):
+    from .database.db import Database
+    from .spectroscopy import Spectroscopy
+    from .utils.observability import configure_logging, metrics
+    from .utils.xrlite import open_dataset
+    configure_logging()
+    atmosphere = open_dataset(args.atmosphere)
+    database = Database(args.database, pack_cache_dir=args.pack_cache_dir)
+    spectroscopy = Spectroscopy(
+        atmosphere, _parse_grid(args.grid), database,
+        lines_backend=args.lines_backend,
+        continua_backend=args.continua_backend,
+        cross_sections_backend=args.cross_sections_backend, device=device)
+    if args.streamed:
+        spectroscopy.compute_absorption_streamed(args.output)
+    else:
+        result = spectroscopy.compute_absorption(output_format=args.format)
+        result.to_netcdf(args.output)
+    if args.metrics:
+        print(json.dumps(metrics.snapshot(), indent=2))
+    print(f"wrote {args.output}")
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="pylbl_tpu_torch")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "kernels' plain versions on the host)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("info", help="environment and backend summary")
+
+    compute = sub.add_parser("compute", help="compute absorption spectra")
+    compute.add_argument("--atmosphere", required=True,
+                         help="netCDF atmosphere with CF standard names")
+    compute.add_argument("--database", required=True)
+    compute.add_argument("--grid", required=True,
+                         help="lo:hi:resolution in cm-1, e.g. 1:3000:0.1")
+    compute.add_argument("--output", required=True)
+    compute.add_argument("--format", default="all",
+                         choices=["all", "gas", "total"],
+                         help="'all' materializes per-gas per-mechanism "
+                              "spectra on the HOST (slowest at scale); "
+                              "'gas'/'total' reduce on the device and ship "
+                              "G x / 3G x less data: prefer these (or "
+                              "--streamed) for large grids/batches")
+    compute.add_argument("--lines-backend", default="pyLBL")
+    compute.add_argument("--continua-backend", default="mt_ckd")
+    compute.add_argument("--cross-sections-backend", default="arts_crossfit")
+    compute.add_argument("--pack-cache-dir", default=None)
+    compute.add_argument("--streamed", action="store_true",
+                         help="stream layer blocks to a chunked, "
+                              "resumable netCDF (RFMIP-scale outputs)")
+    compute.add_argument("--metrics", action="store_true",
+                         help="print the metrics snapshot after computing")
+
+    args = parser.parse_args(argv)
+    from .runtime.device import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        parser.error(str(exc))
+    return {"info": cmd_info, "compute": cmd_compute}[args.command](
+        args, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,14 @@
 """Atmospheric input adaptation.
 
-Copy of the CF-name discovery of pylbl_tpu/atmosphere.py, a
-re-implementation of the reference input layer (reference
-pyLBL/atmosphere.py:21-87).  It discovers pressure, temperature and gas
-mole-fraction variables in a dataset either by CF ``standard_name``
-attributes or via an explicit user mapping.
+Copy of pylbl_tpu/atmosphere.py, a re-implementation of the reference
+input layer (reference pyLBL/atmosphere.py:21-87).  It discovers
+pressure, temperature and gas mole-fraction variables in a dataset either
+by CF ``standard_name`` attributes or via an explicit user mapping, and
+gives them as flat float arrays (``packed``).
 """
 from re import match
+
+import numpy as np
 
 
 # Map of CF molecule standard names to chemical formulae
@@ -77,3 +79,23 @@ class Atmosphere:
             self.temperature = dataset[mapping["tlay"]]
             self.gases = {x: dataset[y]
                           for x, y in mapping["mole_fraction"].items()}
+
+    # ----- batched (device-friendly) accessors; not in the reference ------
+
+    @property
+    def shape(self):
+        """Shape of the layer/column axes."""
+        return np.asarray(self.temperature.data).shape
+
+    def packed(self, dtype=np.float64):
+        """Returns (pressure, temperature, {gas: vmr}) as flat float arrays.
+
+        The flattened layout matches the reference's ``data.flat`` iteration
+        order (reference pyLBL/spectroscopy.py:161-183), so results can be
+        reshaped back with :attr:`shape`.
+        """
+        pressure = np.asarray(self.pressure.data, dtype=dtype).ravel()
+        temperature = np.asarray(self.temperature.data, dtype=dtype).ravel()
+        vmr = {name: np.asarray(var.data, dtype=dtype).ravel()
+               for name, var in self.gases.items()}
+        return pressure, temperature, vmr

@@ -36,6 +36,14 @@ class BuildError(RuntimeError):
     """A native library could not be compiled or loaded."""
 
 
+def is_built(name, sources):
+    """Whether ``BUILD_DIR/name`` exists and is newer than every source
+    (checks only: builds nothing)."""
+    out = BUILD_DIR / name
+    return out.exists() and out.stat().st_mtime >= max(
+        src.stat().st_mtime for src in sources)
+
+
 def build_library(name, sources, command):
     """Compiles ``sources`` with ``command(sources, out_path)`` into
     ``BUILD_DIR/name`` unless an up-to-date copy exists; returns its path.
@@ -49,8 +57,7 @@ def build_library(name, sources, command):
         if not src.exists():
             raise BuildError(f"missing source {src}")
     out = BUILD_DIR / name
-    newest = max(src.stat().st_mtime for src in sources)
-    if out.exists() and out.stat().st_mtime >= newest:
+    if is_built(name, sources):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{name}.{os.getpid()}.{threading.get_ident()}.tmp"

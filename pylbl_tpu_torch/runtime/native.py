@@ -12,7 +12,7 @@ import ctypes
 
 import numpy as np
 
-from .build import REPO_DIR, load_library
+from .build import REPO_DIR, BuildError, load_library
 
 SOURCE = REPO_DIR / "csrc" / "pylbl_native.cpp"
 CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
@@ -38,6 +38,15 @@ def load():
             f64, f64, f64, f64, f64, f64]
         lib._pylbl_bound = True
     return lib
+
+
+def available():
+    """Whether the library builds (when stale) and loads on this host."""
+    try:
+        load()
+    except BuildError:
+        return False
+    return True
 
 
 def pedestal_scan(bucket_rel, skip, left_clamp, right_clamp, cover0, coverN,

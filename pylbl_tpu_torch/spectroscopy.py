@@ -128,6 +128,16 @@ class Spectroscopy:
         """Molecules available in the spectral database."""
         return self.lines_database.molecules()
 
+    def _load_molecules(self):
+        """Loads each atmosphere gas's backend objects once."""
+        for name in self.atmosphere.gases:
+            if name not in self.cache:
+                self.cache[name] = MoleculeCache(
+                    name, self.grid, self.lines_database,
+                    self.lines_engine, self.continua_engine,
+                    self.cross_sections_engine,
+                    self._accepted(self.lines_engine))
+
     def _accepted(self, fn, envelope=False):
         """This object's device, dtype and backend (and the atmosphere's
         envelope) as the keyword arguments ``fn`` accepts (third-party
@@ -354,25 +364,13 @@ class Spectroscopy:
         Returns:
             Dataset of absorption coefficients [m-1].
         """
-        pressure = np.asarray(self.atmosphere.pressure.data,
-                              dtype=np.float64).ravel()
-        temperature = np.asarray(self.atmosphere.temperature.data,
-                                 dtype=np.float64).ravel()
+        pressure, temperature, vmr_by_gas = self.atmosphere.packed()
         if remove_pedestal is None:
             remove_pedestal = self.continua_backend == "mt_ckd"
         beta = {}
         num_states = temperature.size
-        shape = np.asarray(self.atmosphere.temperature.data).shape
-        for name in self.atmosphere.gases:
-            if name not in self.cache:
-                self.cache[name] = MoleculeCache(
-                    name, self.grid, self.lines_database,
-                    self.lines_engine, self.continua_engine,
-                    self.cross_sections_engine,
-                    self._accepted(self.lines_engine))
-        vmr_by_gas = {
-            name: np.asarray(mf.data, dtype=np.float64).ravel()
-            for name, mf in self.atmosphere.gases.items()}
+        shape = self.atmosphere.shape
+        self._load_molecules()
         if output_format != "all" and self.device_mechanisms:
             reduced = self._compute_absorption_reduced(
                 output_format, temperature, pressure, vmr_by_gas,
@@ -426,6 +424,117 @@ class Spectroscopy:
                     indices = tuple(list(j) + [2, slice(None)])
                     beta[varname].values[indices] = n * xsec_batch[i]
         return self._create_output_dataset(beta, output_format)
+
+    def compute_absorption_streamed(self, path, remove_pedestal=None,
+                                    resume=True, block_layers=8):
+        """Streams per-gas, per-mechanism absorption to a chunked netCDF.
+
+        For grids/batches too large for an in-memory Dataset (the
+        BASELINE's RFMIP-scale configs).  States are computed in layer
+        blocks of ``block_layers`` (each block one stacked all-gases
+        pipeline call plus batched continua/xsec) and flushed per state;
+        an interrupted run resumes from the unwritten states.  The file is
+        the JAX package's layout (utils/streaming.py).
+
+        Returns:
+            The output path.
+        """
+        from .utils.streaming import StreamingWriter
+
+        writer = StreamingWriter(
+            path, self.atmosphere.temperature.size, self.grid,
+            [f"{n}_absorption" for n in self.atmosphere.gases],
+            extra_dims={"mechanism": len(self.output.mechanisms)},
+            mode="auto" if resume else "w")
+        with writer:
+            self._stream_blocks(writer, remove_pedestal, block_layers)
+        return path
+
+    def _stream_blocks(self, writer, remove_pedestal=None, block_layers=8):
+        """The streamed block loop into ``writer``: any object with
+        ``pending_states()`` (state indices) and ``write_state(i, values)``
+        (``values``: name -> [mechanism, grid] float64).
+
+        The pending states, possibly non-contiguous after a resume, go in
+        blocks of ``block_layers``; block i+1's lines are dispatched before
+        block i's are fetched, the JAX package's order.  The port's
+        pedestal removal runs on the host inside the dispatch, so the
+        dispatch returns only after that block's pedestal is done.  The
+        ``metrics`` timers ``stream.lines`` (stacked lines and pedestal),
+        ``stream.fetch`` (device-to-host copy of the lines),
+        ``stream.mechanisms`` (per-gas fallback lines, continua and cross
+        sections) and ``stream.write`` take each block's host time.
+        """
+        from .utils.observability import metrics
+
+        pressure, temperature, vmr_full = self.atmosphere.packed()
+        if remove_pedestal is None:
+            remove_pedestal = self.continua_backend == "mt_ckd"
+        names = list(self.atmosphere.gases)
+        self._load_molecules()
+        pending = writer.pending_states()
+        blocks_idx = [pending[lo:lo + block_layers]
+                      for lo in range(0, pending.size, block_layers)]
+
+        def dispatch(idx):
+            """Starts one block's stacked lines."""
+            t_blk = temperature[idx]
+            p_blk = pressure[idx]
+            vmr_blk = {x: v[idx] for x, v in vmr_full.items()}
+            with metrics.timed("stream.lines"):
+                dev = self._lines_device_stacked(t_blk, p_blk, vmr_blk,
+                                                 remove_pedestal)
+            return t_blk, p_blk, vmr_blk, dev
+
+        prev = dispatch(blocks_idx[0]) if blocks_idx else None
+        for bi, idx in enumerate(blocks_idx):
+            t_blk, p_blk, vmr_blk, dev = prev
+            prev = dispatch(blocks_idx[bi + 1]) \
+                if bi + 1 < len(blocks_idx) else None
+            lines_stacked = {}
+            if dev is not None:
+                names_s, k_dev = dev
+                with metrics.timed("stream.fetch"):
+                    k_host = k_dev.cpu().numpy().astype(np.float64)
+                lines_stacked = {n: k_host[:, g]
+                                 for g, n in enumerate(names_s)}
+            blocks = {}
+            with metrics.timed("stream.mechanisms"):
+                for name in names:
+                    data = self.cache[name]
+                    block = np.zeros((idx.size,
+                                      len(self.output.mechanisms),
+                                      self.grid.size))
+                    n_blk = number_density(t_blk, p_blk, vmr_blk[name])
+                    lines = lines_stacked.get(name)
+                    if lines is None and data.gas is not None:
+                        lines = data.gas.absorption_coefficient_batch(
+                            t_blk, p_blk, vmr_blk[name], self.grid,
+                            remove_pedestal=remove_pedestal,
+                            **self._batch_kwargs(data.gas)) \
+                            if hasattr(data.gas,
+                                       "absorption_coefficient_batch") \
+                            else np.stack([
+                                data.gas.absorption_coefficient(
+                                    t_blk[j], p_blk[j], vmr_blk[name][j],
+                                    self.grid,
+                                    remove_pedestal=remove_pedestal)
+                                for j in range(idx.size)])
+                    if lines is not None:
+                        block[:, 0] = n_blk[:, None] \
+                            * lines[:, :self.grid.size]
+                    cont_blk = self._continua_batch(name, t_blk, p_blk,
+                                                    vmr_blk)
+                    if cont_blk is not None:
+                        block[:, 1] += cont_blk
+                    xsec_blk = self._xsec_batch(name, t_blk, p_blk)
+                    if xsec_blk is not None:
+                        block[:, 2] = n_blk[:, None] * xsec_blk
+                    blocks[f"{name}_absorption"] = block
+            with metrics.timed("stream.write"):
+                for j, i in enumerate(idx):
+                    writer.write_state(int(i), {
+                        key: value[j] for key, value in blocks.items()})
 
     def _create_output_dataset(self, absorption, output_format):
         """Assembles the output Dataset (reference spectroscopy.py:208-235)."""

@@ -6,7 +6,9 @@
 - ``parity_ab``: every (core_mode, wings_mode) formulation of the
   single-layer device plan against the float64 plain plan;
 - ``batched_microbench``: the stage split (physics, assembly, wings, core,
-  full) of the single-gas or stacked batched pipeline.
+  full) of the single-gas or stacked batched pipeline;
+- ``envelope_compare``: the single-gas batched pipeline under the default
+  kernel envelope against the atmosphere-derived one.
 
 They time CUDA kernels with CUDA events, so their entry points need a CUDA
 card and exit non-zero without one; there is no CPU fallback.  The

@@ -388,3 +388,26 @@ def test_strided_line_ranges_identical():
     for got, want in zip(tlc.strided_line_ranges(empty, 5),
                          jlp.strided_line_ranges(empty, 5)):
         assert_same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_atmosphere_packed_identical(atmosphere_dataset, atmosphere, dtype):
+    """Atmosphere.shape and packed() (tests/test_atmosphere.py:38-43) on the
+    canonical column, equal to the JAX package's."""
+    from pylbl_tpu.atmosphere import Atmosphere as JAtmosphere
+    from pylbl_tpu_torch.atmosphere import Atmosphere as TAtmosphere
+
+    got, want = TAtmosphere(atmosphere_dataset), JAtmosphere(
+        atmosphere_dataset)
+    assert got.shape == want.shape == (4,)
+    p, t, vmr = got.packed(dtype)
+    assert p.shape == (4,)
+    assert t[-1] == np.asarray(atmosphere.t[-1], dtype)
+    assert vmr["H2O"][-1] == np.asarray(atmosphere.vmr["water_vapor"][-1],
+                                        dtype)
+    jp, jt, jvmr = want.packed(dtype)
+    assert_same(p, jp)
+    assert_same(t, jt)
+    assert list(vmr) == list(jvmr)
+    for name in vmr:
+        assert_same(vmr[name], jvmr[name])

@@ -269,6 +269,8 @@ def test_port_imports_neither_jax_nor_pylbl_tpu():
         "import pylbl_tpu_torch.database.fixtures\n"
         "import pylbl_tpu_torch.runtime.native\n"
         "import pylbl_tpu_torch.utils.xrlite\n"
+        "import pylbl_tpu_torch.utils.streaming, pylbl_tpu_torch.__main__\n"
+        "import pylbl_tpu_torch.tools.envelope_compare\n"
         "from pylbl_tpu_torch.models.mt_ckd import WaterVaporSelfContinuum\n"
         "WaterVaporSelfContinuum()\n"
         "bad = sorted(m for m in sys.modules\n"

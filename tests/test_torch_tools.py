@@ -10,12 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from pylbl_tpu.database.fixtures import synthetic_line_pack
 from pylbl_tpu.ops import lineshape_pallas as jlp
+from pylbl_tpu.parallel import lines as jlines
 
+from pylbl_tpu_torch.models.lines import LinePack
 from pylbl_tpu_torch.ops import lineshape_cuda as lc
+from pylbl_tpu_torch.parallel import lines as tlines
 from pylbl_tpu_torch.tools import (NoCudaError, batched_microbench,
-                                   headline_pack, kernel_microbench,
-                                   layer_workload, masked_evals, parity_ab)
+                                   envelope_compare, headline_pack,
+                                   kernel_microbench, layer_workload,
+                                   masked_evals, parity_ab)
 
 torch.set_num_threads(1)
 
@@ -127,8 +132,58 @@ def test_batched_microbench_splat_takes_the_pipelines_pass_kind():
     assert rel_err(prepacked, got) > 1e-2
 
 
+def test_envelope_compare_build_on_cpu():
+    """The tool's two pipelines at a small size: the derived envelope is
+    tighter than 350 K / 5 atm, plans no more core instances and gives the
+    default's spectra (tests/test_parallel.py:143 tolerance)."""
+    pack = headline_pack(3000, nu_max=260.0)
+    variants, (t, p, x), (t_max, p_max_atm) = envelope_compare.build(
+        pack, np.arange(1.0, 220.0, 0.1), 4, device="cpu")
+    assert list(variants) == ["default_350K_5atm", "derived"]
+    assert t.dtype == torch.float32 and t.shape == (4,)
+    assert t_max < 350.0 and p_max_atm < 5.0
+    default, derived = variants.values()
+    assert 0 < derived.core_plan.num_instances \
+        <= default.core_plan.num_instances
+    lc.reset_launches()
+    want, got = (fn.inner(t, p, x).numpy().astype(np.float64)
+                 for fn in (default, derived))
+    assert sum(lc.LAUNCHES.values()) == 0
+    scale = max(want.max(), 1e-300)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=scale * 1e-7)
+
+
+def test_batched_fn_tight_envelope_matches_default():
+    """Port of tests/test_parallel.py:143-161 through make_batched_fn on
+    the CPU: the atmosphere-derived envelope only shrinks the core-instance
+    windows, so both envelopes give the same spectra, and each equals the
+    JAX pipeline under the same envelope (interpret mode, rel 5e-6)."""
+    jpack = synthetic_line_pack(num_lines=400, nu_min=0.6, nu_max=360.0,
+                                seed=31)
+    pack = LinePack(formula=jpack.formula, **{
+        f: getattr(jpack, f) for f in LinePack._ARRAY_FIELDS})
+    grid = np.arange(1.0, 320.0, 0.5)
+    temperature = np.asarray([288.99, 269.01, 227.74, 203.37], np.float32)
+    pressure = np.asarray([98388.0, 117.0, 1032.0, 11419.0], np.float32)
+    vmr = np.full(4, 6.6e-3, np.float32)
+    t_max, p_max = tlines.derive_envelope(temperature, pressure)
+    assert (t_max, p_max) == jlines.derive_envelope(temperature, pressure)
+    outs = []
+    for kwargs in ({}, {"t_max": t_max, "p_max_atm": p_max}):
+        fn = tlines.make_batched_fn(pack, grid, tile=256, chunk=128,
+                                    device="cpu", **kwargs)
+        got = fn(temperature, pressure, vmr).numpy().astype(np.float64)
+        jfn = jlines.make_batched_tpu_fn(jpack, grid, tile=256, chunk=128,
+                                         interpret=True, **kwargs)
+        assert rel_err(got, jfn(temperature, pressure, vmr)) < 5e-6
+        outs.append(got)
+    scale = max(outs[0].max(), 1e-300)
+    np.testing.assert_allclose(outs[1], outs[0], rtol=2e-6,
+                               atol=scale * 1e-7)
+
+
 @pytest.mark.parametrize("tool", [kernel_microbench, parity_ab,
-                                  batched_microbench])
+                                  batched_microbench, envelope_compare])
 def test_tools_refuse_to_run_without_cuda(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaError, match="CUDA"):
