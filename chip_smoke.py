@@ -74,7 +74,25 @@ kernels and the native pedestal scan from this checkout into ``build/``
     parity of the two layers' totals without the pedestal (and, with it,
     no float32 error beyond that), ``python -m pylbl_tpu_torch info``
     naming the card, and the ``envelope_compare`` tool at the headline
-    size.
+    size;
+15. the sharded path at A's width (G): four ranks started by
+    ``pylbl_tpu_torch.parallel.launch`` (spawn) on this one card over
+    gloo, a 2x2 (batch, spec) mesh; they load phase 2's build (the build
+    directory must not change) and the npz line packs.  For each
+    ``sharding_mode`` (balanced, halo, ring)
+    ``Spectroscopy(..., mesh=mesh).compute_absorption("total")`` cold and
+    warm: ``step.backend == "kernel"``, every rank's launches of
+    ``wings_strided`` and ``core_segmix``, all ranks' totals
+    bit-identical, the warm repeat too, layers 0 and 15 within 5e-4 of
+    phase 6's float64 totals, each rank's first stop's two kernels equal
+    to their plain versions (timed on rank 0's balanced shard); readings
+    of the walls, the gap to phase 3, peak memory, bytes sent per
+    collective and the partition's stats.  Then the streamed loop under
+    the mesh (blocks of 4, rank 0 writing into memory; layers 0 and 15
+    equal to the sharded ``"all"`` output), the portable branch on 2
+    layers (float64 parity), the refusal of NCCL for two ranks on one
+    card, and a single-rank NCCL mesh (cold, warm, the gap to phase 3).
+    It measures no scaling across cards.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -95,6 +113,7 @@ kernel record (JSON), the last line is the device record (JSON).
 """
 import cProfile
 import concurrent.futures
+import hashlib
 import json
 import os
 import pstats
@@ -153,6 +172,9 @@ PARITY_TOL = 5e-4
 STREAM_GRID = (1.0, 5000.0, 0.01)
 STREAM_LAYERS = 16
 STREAM_BLOCK = 4
+# Phase 15: the (batch, spec) mesh of ranks sharing the card, the modes.
+SHARD_MESH = (2, 2)
+SHARD_MODES = ("balanced", "halo", "ring")
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores and
 # HBM3 bytes per second.
 PEAK_OPS = 67e12
@@ -1288,6 +1310,251 @@ def phase_streamed(torch, P, lc, db, pack, records, card):
     print(f"phase 14 took {time.perf_counter() - start:.1f} s")
 
 
+def digest(array):
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def shard_kernels(torch, lc, step, t, p, x, timed):
+    """This rank's first stop (its own block, its rows): the strided wings
+    and the mixed-slot core against their plain versions, bit for bit;
+    with ``timed`` the kernel records (ms, plain ms, bound)."""
+    stage, soa, core = step.kernel_inputs(t, p, x)
+    if not timed:
+        return [bool(torch.equal(stage.wings_pass(soa),
+                                 stage.wings_pass(soa, plain=True))),
+                bool(torch.equal(stage.core_pass(core),
+                                 stage.core_pass(core, plain=True)))], None
+    records = {"wings_strided": {}, "core_segmix": {}}
+    n_out = stage.n_out
+    compare_kernel(torch, "phase 15 shard wings_strided",
+                   lambda: stage.wings_pass(soa),
+                   lambda: stage.wings_pass(soa, plain=True),
+                   records["wings_strided"], reps=10,
+                   ops=tile_ops(torch, lc, soa, n_out, "pre"), inputs=[soa])
+    compare_kernel(torch, "phase 15 shard core_segmix",
+                   lambda: stage.core_pass(core),
+                   lambda: stage.core_pass(core, plain=True),
+                   records["core_segmix"], reps=10,
+                   ops=core_ops(torch, lc, core), inputs=[core])
+    return [True, True], records
+
+
+def phase15_rank(db_path, cache_dir):
+    """One rank of phase 15 (a spawned process; four of them share the
+    card over gloo): per mode the sharded column cold and warm, its
+    launches, moved bytes and peak memory, its first stop's kernels
+    against their plain versions; then the streamed loop and the portable
+    branch.  Rank 0 returns the arrays the parent gates, every rank their
+    digests."""
+    import torch
+    import torch.distributed as dist
+
+    import pylbl_tpu_torch as P
+    from pylbl_tpu_torch.ops import lineshape_cuda as lc
+    from pylbl_tpu_torch.parallel import collectives
+    from pylbl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(batch=SHARD_MESH[0], spec=SHARD_MESH[1])
+    db = P.Database(db_path, pack_cache_dir=cache_dir)
+    grid = np.arange(1.0, 5000.0, 0.1)
+    col = column(16, P.Dataset)
+    t = np.asarray(col["t"].data)
+    p = np.asarray(col["p"].data)
+    lead = mesh.rank == 0
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "transport": mesh.transport, "backend": mesh.backend,
+           "modes": {}}
+    for mode in SHARD_MODES:
+        spec = P.Spectroscopy(col, grid, db, mesh=mesh, sharding_mode=mode)
+        lc.reset_launches()
+        collectives.reset_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        cold, cold_s, _ = timed_call(torch, lambda: total_of(
+            spec.compute_absorption(output_format="total")))
+        launches = dict(lc.LAUNCHES)
+        moved = dict(collectives.BYTES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        warm, warm_s, _ = timed_call(torch, lambda: total_of(
+            spec.compute_absorption(output_format="total")))
+        fn = stacked_fn(spec)
+        x = np.stack([np.asarray(spec.atmosphere.gases[n].data, np.float64)
+                      for n in fn.names], axis=1)
+        equal, _ = shard_kernels(torch, lc, fn.step, t, p, x, False)
+        dist.barrier()
+        timing = shard_kernels(torch, lc, fn.step, t, p, x, True)[1] \
+            if lead and mode == "balanced" else None
+        dist.barrier()
+        info = {k: fn.info[k] for k in ("duplication", "block_len",
+                                        "ring_steps", "local_points")}
+        out["modes"][mode] = {
+            "backend": fn.step.backend, "stride": fn.step.stride,
+            "info": info, "launches": {k: v for k, v in launches.items()
+                                       if v},
+            "bytes": moved, "peak_gib": peak, "cold_s": cold_s,
+            "warm_s": warm_s, "digest": digest(cold),
+            "warm_equal": bool(np.array_equal(cold, warm)), "equal": equal,
+            "total": cold if lead else None, "kernels": timing}
+
+    # The streamed loop in blocks of 4, rank 0 writing into memory.
+    spec = P.Spectroscopy(col, grid, db, mesh=mesh)
+    names = [f"{n}_absorption" for n in spec.atmosphere.gases]
+    shape = (len(spec.output.mechanisms), grid.size)
+    writer = MemoryWriter(names, 16, shape) if lead else None
+    lc.reset_launches()
+    _, stream_s, _ = timed_call(torch, lambda: spec._stream_blocks(
+        writer, block_layers=STREAM_BLOCK))
+    stream = {"wall_s": stream_s, "launches": {
+        k: v for k, v in lc.LAUNCHES.items() if v}}
+    ends = [0, 15]
+    full = P.Spectroscopy(sub_column(col, ends, P.Dataset), grid, db,
+                          mesh=mesh).compute_absorption(output_format="all")
+    if lead:
+        stream["writes"] = sorted(writer.writes)
+        stream["gap"] = max(float(np.max(
+            np.abs(writer.out[n][ends] - full[n].data)
+            / np.maximum(np.abs(full[n].data), 1e-300))) for n in names)
+    out["stream"] = stream
+
+    # The portable branch on 2 layers.
+    two = P.Spectroscopy(sub_column(col, ends, P.Dataset), grid, db,
+                         mesh=mesh, backend="xla")
+    lc.reset_launches()
+    xla, xla_s, _ = timed_call(torch, lambda: total_of(
+        two.compute_absorption(output_format="total")))
+    out["xla"] = {"wall_s": xla_s, "backend": stacked_fn(two).step.backend,
+                  "launches": sum(lc.LAUNCHES.values()),
+                  "digest": digest(xla), "total": xla if lead else None}
+    return out
+
+
+def phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want64,
+                  records):
+    """Phase 15: the sharded path at A's width on ranks that share the
+    card (2x2 over gloo), then a single-rank NCCL mesh."""
+    import torch.distributed as dist
+
+    from pylbl_tpu_torch.parallel import distributed, launch
+    from pylbl_tpu_torch.parallel.mesh import make_mesh
+    from pylbl_tpu_torch.runtime import build
+
+    start = time.perf_counter()
+    cache = WORK / "packs"
+    loaded = P.Database(db_path, pack_cache_dir=cache)
+    for name in GASES:
+        loaded.line_pack(name)       # the npz cache every rank reads
+    libs = sorted(build.BUILD_DIR.glob("*.so"))
+    before = {lib.name: (lib.stat().st_ino, lib.stat().st_mtime_ns)
+              for lib in libs}
+    ranks = SHARD_MESH[0] * SHARD_MESH[1]
+    t0 = time.perf_counter()
+    with launch.RankGroup(ranks, backend="gloo", timeout=600,
+                          threads=2) as group:
+        spawn_s = time.perf_counter() - t0
+        outs = group.run_all(phase15_rank, str(db_path), str(cache))
+    after = {lib.name: (lib.stat().st_ino, lib.stat().st_mtime_ns)
+             for lib in libs}
+    print(f"phase 15: {ranks} gloo ranks on {outs[0]['device']} "
+          f"(transport {outs[0]['transport']}), started in {spawn_s:.2f} s")
+    check(before == after and len(before) == 2, "phase 15 ranks loaded the "
+          "parent's build (the build directory was not rewritten)")
+    check(all(o["device"] == "cuda:0" and o["backend"] == "gloo"
+              for o in outs), "phase 15 every rank on cuda:0 over gloo")
+    two = [0, 15]
+    for mode in SHARD_MODES:
+        per = [o["modes"][mode] for o in outs]
+        lead = per[0]
+        total = lead["total"]
+        print(f"phase 15 {mode}: step {lead['backend']} (stride "
+              f"{lead['stride']}), info {lead['info']}; rank 0 wall cold "
+              f"{lead['cold_s']:.4f} s, warm {lead['warm_s']:.4f} s")
+        for rank, r in enumerate(per):
+            print(f"  rank {rank}: launches {r['launches']}, peak "
+                  f"{r['peak_gib']:.4f} GiB, bytes sent {r['bytes']}")
+        check(all(r["backend"] == "kernel" for r in per),
+              f"phase 15 {mode}: step.backend == 'kernel'")
+        check(all(r["launches"].get("wings_strided", 0) > 0
+                  and r["launches"].get("core_segmix", 0) > 0 for r in per),
+              f"phase 15 {mode}: every rank launched wings_strided and "
+              "core_segmix")
+        check(len({r["digest"] for r in per}) == 1,
+              f"phase 15 {mode}: all ranks' totals bit-identical")
+        check(all(r["warm_equal"] for r in per),
+              f"phase 15 {mode}: warm repeat bit-identical")
+        check(all(r["equal"] == [True, True] for r in per),
+              f"phase 15 {mode}: each shard's wings and core equal their "
+              "plain versions bit for bit")
+        check(np.isfinite(total).all() and total.shape == total_a.shape,
+              f"phase 15 {mode}: total finite, [16 layers, grid]")
+        rel, err = rel_diff(torch.as_tensor(total[two]),
+                            torch.as_tensor(want64), 1e-6)
+        gap, gap_abs = rel_diff(torch.as_tensor(total),
+                                torch.as_tensor(total_a), 1e-6)
+        print(f"  layers {two} vs float64 plain: max rel {rel:.3e}, max abs "
+              f"{err:.3e}; gap to phase 3's unsharded total: max rel "
+              f"{gap:.3e}, max abs {gap_abs:.3e}")
+        check(rel < PARITY_TOL, f"phase 15 {mode}: layers {two} within "
+              f"{PARITY_TOL} of float64")
+        for name in ("wings_strided", "core_segmix"):
+            records[name].setdefault("launches_sharded", {})[mode] = [
+                r["launches"].get(name, 0) for r in per]
+        if lead["kernels"]:
+            for name, rec in lead["kernels"].items():
+                records[name].update({
+                    f"{key}_shard": rec[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")})
+    stream = outs[0]["stream"]
+    print(f"phase 15 streamed under the mesh (blocks of {STREAM_BLOCK}): "
+          f"rank 0 wall {stream['wall_s']:.4f} s, launches "
+          f"{stream['launches']}; layers {two} against the sharded 'all' "
+          f"output: max rel gap {stream['gap']:.3e}")
+    check(stream["writes"] == list(range(16)), "phase 15 rank 0 wrote every "
+          "state once")
+    check(stream["gap"] <= 1e-12, f"phase 15 streamed layers {two} equal "
+          "the sharded compute_absorption('all') (rtol 1e-12)")
+    xla = outs[0]["xla"]
+    rel, err = rel_diff(torch.as_tensor(xla["total"]),
+                        torch.as_tensor(want64), 1e-6)
+    print(f"phase 15 portable branch (backend='xla'), layers {two}: rank 0 "
+          f"wall {xla['wall_s']:.4f} s, step {xla['backend']}, launches "
+          f"{xla['launches']}; vs float64 plain max rel {rel:.3e}")
+    check(xla["backend"] == "xla" and len({o["xla"]["digest"]
+                                           for o in outs}) == 1,
+          "phase 15 portable branch ran, the same bits on every rank")
+    check(rel < PARITY_TOL, f"phase 15 portable branch within {PARITY_TOL} "
+          "of float64")
+
+    # NCCL: two ranks on one card are refused; one rank runs.
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    try:
+        distributed.check_nccl_devices()
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    check(refused, "NCCL with two ranks on one card raises")
+    distributed.initialize(init_method=f"tcp://localhost:{launch.free_port()}",
+                           world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = make_mesh(batch=1, spec=1)
+        spec = P.Spectroscopy(col_a, grid_a, db, mesh=mesh)
+        cold, cold_s, _ = timed_call(torch, lambda: total_of(
+            spec.compute_absorption(output_format="total")))
+        warm, warm_s, _ = timed_call(torch, lambda: total_of(
+            spec.compute_absorption(output_format="total")))
+        gap, gap_abs = rel_diff(torch.as_tensor(cold),
+                                torch.as_tensor(total_a), 1e-6)
+        print(f"phase 15 NCCL 1x1 (balanced, transport {mesh.transport}): "
+              f"wall cold {cold_s:.4f} s, warm {warm_s:.4f} s; gap to phase "
+              f"3: max rel {gap:.3e}, max abs {gap_abs:.3e}")
+        check(mesh.backend == "nccl" and np.array_equal(cold, warm)
+              and stacked_fn(spec).step.backend == "kernel",
+              "phase 15 NCCL mesh ran the kernels, warm equal to cold")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 15 took {time.perf_counter() - start:.1f} s")
+
+
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     registers, shared memory and spill bytes."""
@@ -1460,6 +1727,8 @@ def main():
     phase_portable(torch, P, lc, db_path, gas, grid_h, k64, k_c, spec_a,
                    col_a, grid_a, card)
     phase_streamed(torch, P, lc, db, gas.pack, records, card)
+    phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want,
+                  records)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

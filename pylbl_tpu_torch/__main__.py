@@ -7,6 +7,14 @@
 
 Both run on the CUDA card by default and refuse to start without one;
 ``--device cpu`` runs them on the host (the kernels' plain versions).
+Under torchrun, ``compute --mesh BxS`` shards the lines over a (batch,
+spec) mesh of the ranks (one card per rank over NCCL; ranks that share a
+card, or CPU ranks, over gloo)::
+
+    torchrun --nproc-per-node 4 -m pylbl_tpu_torch compute --mesh 2x2 \
+        --sharding-mode balanced ...
+
+Rank 0 writes the output.
 """
 import argparse
 import json
@@ -45,6 +53,8 @@ def cmd_info(args, device):
 
 
 def cmd_compute(args, device):
+    import torch.distributed as dist
+
     from .database.db import Database
     from .spectroscopy import Spectroscopy
     from .utils.observability import configure_logging, metrics
@@ -52,19 +62,38 @@ def cmd_compute(args, device):
     configure_logging()
     atmosphere = open_dataset(args.atmosphere)
     database = Database(args.database, pack_cache_dir=args.pack_cache_dir)
+    mesh = None
+    owns_group = False
+    if args.mesh:
+        from .parallel.distributed import initialize
+        from .parallel.mesh import make_mesh
+        owns_group = not dist.is_initialized()
+        if not initialize():
+            raise SystemExit("--mesh needs a process group: run under "
+                             "torchrun (RANK, WORLD_SIZE, MASTER_ADDR)")
+        batch, spec = (int(x) for x in args.mesh.lower().split("x"))
+        mesh = make_mesh(batch=batch, spec=spec, device=device)
+    writes = mesh is None or mesh.rank == 0
     spectroscopy = Spectroscopy(
         atmosphere, _parse_grid(args.grid), database,
         lines_backend=args.lines_backend,
         continua_backend=args.continua_backend,
-        cross_sections_backend=args.cross_sections_backend, device=device)
+        cross_sections_backend=args.cross_sections_backend, device=device,
+        mesh=mesh, sharding_mode=args.sharding_mode)
     if args.streamed:
         spectroscopy.compute_absorption_streamed(args.output)
     else:
         result = spectroscopy.compute_absorption(output_format=args.format)
-        result.to_netcdf(args.output)
-    if args.metrics:
-        print(json.dumps(metrics.snapshot(), indent=2))
-    print(f"wrote {args.output}")
+        if writes:
+            result.to_netcdf(args.output)
+    if mesh is not None:
+        dist.barrier()
+        if owns_group:
+            dist.destroy_process_group()
+    if writes:
+        if args.metrics:
+            print(json.dumps(metrics.snapshot(), indent=2))
+        print(f"wrote {args.output}")
     return 0
 
 
@@ -95,6 +124,11 @@ def main(argv=None):
     compute.add_argument("--continua-backend", default="mt_ckd")
     compute.add_argument("--cross-sections-backend", default="arts_crossfit")
     compute.add_argument("--pack-cache-dir", default=None)
+    compute.add_argument("--mesh", default=None,
+                         help="shard the lines over a BATCHxSPEC mesh of "
+                              "the torchrun ranks, e.g. 2x2")
+    compute.add_argument("--sharding-mode", default="balanced",
+                         choices=["balanced", "halo", "ring"])
     compute.add_argument("--streamed", action="store_true",
                          help="stream layer blocks to a chunked, "
                               "resumable netCDF (RFMIP-scale outputs)")

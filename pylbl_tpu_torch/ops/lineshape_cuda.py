@@ -405,6 +405,27 @@ def gather_segment_params(kernel_arrays, inst_line, seg0, slot=None,
                                          vals))
 
 
+def segment_params(ka_inst, seg0f, slotf, dead):
+    """[..., 8, I] segment parameters from INSTANCE-order kernel array
+    tensors and the plan's per-instance seg0, slot row and dead mask
+    (tensors on their device): the rows of :func:`gather_segment_params`,
+    dead lanes filled."""
+    dtype = ka_inst["c_frac"].dtype
+    seg0f = seg0f.to(dtype)
+    rows = (seg0f - ka_inst["c_int"].to(dtype),
+            ka_inst["c_frac"],
+            ka_inst["scaled_repwid"],
+            ka_inst["y"],
+            ka_inst["prefactor"],
+            ka_inst["s_idx"].to(dtype) - seg0f,
+            ka_inst["e_idx"].to(dtype) - seg0f,
+            slotf.to(dtype))
+    rows = torch.broadcast_tensors(*rows)
+    return torch.stack([torch.where(dead, torch.as_tensor(
+        f, dtype=dtype, device=seg0f.device), r)
+        for f, r in zip(_SEG_FILLS, rows)], dim=-2)
+
+
 def core_instance_windows(kernel_arrays, kin, num_points, n_per_v, cut_off):
     """Per-line core-correction point windows for instance grouping.
 
@@ -674,20 +695,7 @@ class CorePlan:
         gather."""
         self._require_seg("seg_params")
         c = self._device_consts(ka_inst["c_frac"].device)
-        dtype = ka_inst["c_frac"].dtype
-        seg0f = c["seg0f"].to(dtype)
-        rows = (seg0f - ka_inst["c_int"].to(dtype),
-                ka_inst["c_frac"],
-                ka_inst["scaled_repwid"],
-                ka_inst["y"],
-                ka_inst["prefactor"],
-                ka_inst["s_idx"].to(dtype) - seg0f,
-                ka_inst["e_idx"].to(dtype) - seg0f,
-                c["slotf"].to(dtype))
-        rows = torch.broadcast_tensors(*rows)
-        return torch.stack([torch.where(c["dead"], torch.as_tensor(
-            f, dtype=dtype, device=seg0f.device), r)
-            for f, r in zip(_SEG_FILLS, rows)], dim=-2)
+        return segment_params(ka_inst, c["seg0f"], c["slotf"], c["dead"])
 
     def wings_params(self, ka_inst):
         """[..., 8, I] wings parameters from INSTANCE-order host kernel

@@ -324,6 +324,35 @@ def derive_envelope(temperature, pressure, t_quantum=5.0,
     return float(t_max), float(p_max_atm)
 
 
+def shift_origin(kernel_arrays, origin):
+    """Kernel arrays with the grid coordinates (c_int, s_idx, e_idx)
+    relative to a shard's first point ``origin``."""
+    if not origin:
+        return kernel_arrays
+    out = dict(kernel_arrays)
+    for key in ("c_int", "s_idx", "e_idx"):
+        out[key] = out[key] - origin
+    return out
+
+
+def wings_soa(ka, prepacked, dtype, pad=0):
+    """The wings SoA [B, 8, N + pad] from per-line kernel arrays [B, N]:
+    C_INT, C_FRAC, SRW, Y, PREF, S_IDX, E_IDX and a zero row, prepacked (Y
+    = y^2, PREF = pref*y/sqrt(pi)) or raw, with ``pad`` dead lines."""
+    y, pref = ka["y"], ka["prefactor"]
+    if prepacked:
+        y, pref = y * y, pref * y * c.RSQRPI
+    rows = (ka["c_int"].to(dtype), ka["c_frac"], ka["scaled_repwid"], y,
+            pref, ka["s_idx"].to(dtype), ka["e_idx"].to(dtype),
+            torch.zeros_like(ka["c_frac"]))
+    # Dead-line fills: zero strength, an empty window, y above the
+    # pure-Lorentz threshold.
+    fill = (0.0, 0.0, 1.0, 1.0e4 if prepacked else 100.0, 0.0, -1.0, -2.0,
+            0.0)
+    return torch.stack([torch.nn.functional.pad(r, (0, pad), value=v)
+                        for r, v in zip(rows, fill)], dim=1).contiguous()
+
+
 def _layer_tensor(value, device, dtype):
     return torch.as_tensor(np.asarray(value) if not isinstance(
         value, torch.Tensor) else value, device=device).to(
@@ -398,18 +427,26 @@ class _LineStage:
     y^2, PREF = pref*y/sqrt(pi)) except for the splat under a "seg" or
     "rows" core plan, which takes the raw Lorentzian rows
     (lineshape_pallas.py ``wings_core``).
+
+    A sharded step (parallel/sharded.py) hands each shard's stage its plan
+    (``planned``: (stride, StridedLayout, CorePlan) under the one global
+    stride, ``arrays_np`` already in layout order) and assembles with the
+    shard's ``origin`` subtracted from the grid coordinates.
     """
 
     def __init__(self, arrays_np, static, s_wide, e_wide, core_lo, core_hi,
                  y_ref, n_out, tile, chunk, core_mode, wings_tail, device,
-                 dtype, plain):
-        planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
-                                        y_ref, n_out, tile=tile,
-                                        chunk=lc.STRIDED_CHUNK,
-                                        core_mode=core_mode, tail=wings_tail)
+                 dtype, plain, planned=None):
+        if planned is None:
+            planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
+                                            y_ref, n_out, tile=tile,
+                                            chunk=lc.STRIDED_CHUNK,
+                                            core_mode=core_mode,
+                                            tail=wings_tail)
+            if planned is not None:
+                arrays_np = lc.permute_line_arrays(arrays_np, planned[1].perm)
         if planned is not None:
             self.wings_stride, lay, self.core_plan = planned
-            arrays_np = lc.permute_line_arrays(arrays_np, lay.perm)
             csr = [lay.w_start, lay.w_n]
             if lay.t_start is not None:
                 csr += [lay.t_start, lay.t_n]
@@ -439,26 +476,18 @@ class _LineStage:
             else self.core_plan.expand_line_arrays(self.arrays)
         self.pad = -nlines % chunk
 
-    def assemble(self, t, p, x):
+    def assemble(self, t, p, x, origin=0):
         """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
-        [B, 8, I] or rows groups [B, 64, G])."""
-        ka = line_kernel_arrays(self.arrays, self.static, t, p, x)
-        y, pref = ka["y"], ka["prefactor"]
-        if self.prepacked:
-            y, pref = y * y, pref * y * c.RSQRPI
-        rows = (ka["c_int"].to(self.dtype), ka["c_frac"], ka["scaled_repwid"],
-                y, pref, ka["s_idx"].to(self.dtype),
-                ka["e_idx"].to(self.dtype), torch.zeros_like(ka["c_frac"]))
-        # Dead-line fills: zero strength, an empty window, y above the
-        # pure-Lorentz threshold.
-        fill = (0.0, 0.0, 1.0, 1.0e4 if self.prepacked else 100.0, 0.0,
-                -1.0, -2.0, 0.0)
-        soa = torch.stack([torch.nn.functional.pad(r, (0, self.pad), value=v)
-                           for r, v in zip(rows, fill)], dim=1)
+        [B, 8, I] or rows groups [B, 64, G]), grid coordinates relative to
+        ``origin``."""
+        ka = shift_origin(line_kernel_arrays(self.arrays, self.static, t, p,
+                                             x), origin)
+        soa = wings_soa(ka, self.prepacked, self.dtype, self.pad)
         if self.core_inst is None:
-            return soa.contiguous(), self.core_plan.group_params(ka)
-        ka_i = line_kernel_arrays(self.core_inst, self.static, t, p, x)
-        return soa.contiguous(), self.core_plan.seg_params(ka_i).contiguous()
+            return soa, self.core_plan.group_params(ka)
+        ka_i = shift_origin(line_kernel_arrays(self.core_inst, self.static, t,
+                                               p, x), origin)
+        return soa, self.core_plan.seg_params(ka_i).contiguous()
 
     def wings_pass(self, soa, plain=None):
         plain = self.plain if plain is None else plain
@@ -485,8 +514,8 @@ class _LineStage:
         return self.core_plan.core_pass(
             params, plain=self.plain if plain is None else plain)
 
-    def run(self, t, p, x):
-        soa, core = self.assemble(t, p, x)
+    def run(self, t, p, x, origin=0):
+        soa, core = self.assemble(t, p, x, origin)
         return self.wings_pass(soa) + self.core_pass(core)
 
     def attach(self, fn):

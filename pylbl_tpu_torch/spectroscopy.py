@@ -6,7 +6,9 @@ assembled into a Dataset with the same dims, units, mechanism ordering and
 output formats.  Lines of all gases and all layers run as one stacked
 device pipeline (parallel/lines.py) with the pedestal removed on the
 device; continua and cross sections evaluate layer-batched, on the device
-(``device_mechanisms``) or in host float64.
+(``device_mechanisms``) or in host float64.  Under a ``mesh`` of ranks
+(parallel/mesh.py) the lines run line-sharded (parallel/sharded.py) and
+every rank returns the same result.
 """
 import inspect
 from collections import namedtuple
@@ -63,7 +65,7 @@ class Spectroscopy:
                  lines_backend="pyLBL", continua_backend="mt_ckd",
                  cross_sections_backend="arts_crossfit", device="cuda",
                  dtype=torch.float32, device_mechanisms=None,
-                 backend="kernel"):
+                 backend="kernel", mesh=None, sharding_mode="balanced"):
         """Initializes the object.
 
         Args:
@@ -76,7 +78,8 @@ class Spectroscopy:
             lines_backend / continua_backend / cross_sections_backend:
                 string backend names; unknown names raise KeyError.
             device: torch device of the lines pipeline and the device
-                mechanisms; "cuda" without a card raises.
+                mechanisms; "cuda" without a card raises.  Under a mesh the
+                mesh's device (the rank's card, or the CPU) is used.
             dtype: lines pipeline float dtype, a torch or numpy spelling
                 (the CUDA kernels take float32; float64 runs the plain
                 versions).
@@ -89,8 +92,22 @@ class Spectroscopy:
                 (the portable path, computed by the per-gas engines) or a
                 spelling runtime/device.resolve_backend maps to one of
                 them.
+            mesh: optional (batch, spec) rank mesh (parallel/mesh.py
+                ``make_mesh``, parallel/distributed.py ``global_mesh``):
+                every rank of the mesh constructs this object with the same
+                inputs and calls the same methods; lines then compute with
+                the line list sharded over "spec" and the layers over
+                "batch" (parallel/sharded.py), each rank's batch rows on its
+                own device.  Every rank returns the same result.
+            sharding_mode: line decomposition under ``mesh``: "balanced"
+                (default), "halo" or "ring"
+                (parallel/shard_plans.py ``shard_line_pack``).
         """
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sharding_mode = sharding_mode
+        self._sharded_fns = {}
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.backend = resolve_backend(backend, self.device)
         self.atmosphere = Atmosphere(atmosphere, mapping=mapping)
@@ -201,8 +218,61 @@ class Spectroscopy:
         return data.cross_section.absorption_coefficient_batch(
             self.grid, temperature, pressure)
 
+    def _pad_mesh_batch(self, temperature, pressure, vmr):
+        """Pads a layer batch to a multiple of the mesh batch axis with
+        copies of the last layer (each batch row of ranks takes an equal
+        share); callers slice the result back to the true size."""
+        from .parallel.mesh import BATCH_AXIS
+
+        pad = -temperature.size % self.mesh.shape[BATCH_AXIS]
+        if not pad:
+            return temperature, pressure, vmr
+        temperature = np.concatenate(
+            [temperature, np.repeat(temperature[-1:], pad)])
+        pressure = np.concatenate(
+            [pressure, np.repeat(pressure[-1:], pad)])
+        if isinstance(vmr, dict):
+            vmr = {x: np.concatenate([v, np.repeat(v[-1:], pad)])
+                   for x, v in vmr.items()}
+        else:
+            vmr = np.concatenate(
+                [vmr, np.repeat(vmr[-1:], pad, axis=0)], axis=0)
+        return temperature, pressure, vmr
+
+    def _compute_lines_sharded_pergas(self, temperature, pressure,
+                                      vmr_by_gas, remove_pedestal):
+        """Per-gas sharded line absorption over ``self.mesh``: the fallback
+        when gases cannot share one stacked launch (each gas's line list
+        sharded over "spec", the layers over "batch",
+        parallel/sharded.py ``make_sharded_pipeline`` with the pedestal).
+
+        Returns:
+            dict name -> [B, num_points] float64 cross sections [m2].
+        """
+        from .parallel.sharded import make_sharded_pipeline
+
+        num = temperature.size
+        temperature, pressure, vmr_by_gas = self._pad_mesh_batch(
+            temperature, pressure, vmr_by_gas)
+        out = {}
+        for name, vmr in vmr_by_gas.items():
+            gas = self.cache[name].gas
+            if gas is None or not hasattr(gas, "pack"):
+                continue
+            gkey = (name, float(self.grid[0]), float(self.grid[-1]),
+                    self.grid.size, bool(remove_pedestal))
+            gfn = self._sharded_fns.get(gkey)
+            if gfn is None:
+                gfn = make_sharded_pipeline(
+                    gas.pack, self.grid, self.mesh, mode=self.sharding_mode,
+                    remove_pedestal=remove_pedestal, weight_density=False,
+                    backend=self.backend, dtype=self.dtype)
+                self._sharded_fns[gkey] = gfn
+            out[name] = gfn(temperature, pressure, vmr)[:num]
+        return out
+
     def _lines_device_stacked(self, temperature, pressure, vmr_by_gas,
-                              remove_pedestal, backend=None):
+                              remove_pedestal, backend=None, local=False):
         """One stacked pipeline call for every gas's lines, device-resident.
 
         All molecules' line lists are concatenated with per-line gas
@@ -210,13 +280,21 @@ class Spectroscopy:
         product is one wings pass plus one core pass; the pedestal is
         removed on the device (only [B, N] endpoint values visit the host).
 
+        Under a mesh the pipeline is the line-sharded one
+        (parallel/sharded.py ``make_multigas_sharded_pipeline``): the
+        batch is padded to the mesh's batch axis, gases without packed
+        lines are left to the per-gas paths, and ``k`` is the full
+        [B, G, num_points] on every rank (or, with ``local``, this rank's
+        batch group's rows as a Slab of the padded batch).
+
         Args:
             vmr_by_gas: dict name -> [B] mole fractions (insertion order
                 fixes the gas order).
             backend: override of the pipeline backend; default this
                 object's, except that under "xla" the stacked path is left
                 to the per-gas engines (None result) unless asked for
-                here, as the JAX package does.
+                here, as the JAX package does (under a mesh the sharded
+                pipeline runs this object's backend).
 
         Returns:
             (names, k) with ``names`` the stacked gas order and ``k`` a
@@ -229,7 +307,7 @@ class Spectroscopy:
                                      make_multigas_batched_fn,
                                      make_stacked_pedestal_remover)
 
-        if backend is None and self.backend == "xla":
+        if backend is None and self.backend == "xla" and self.mesh is None:
             return None
         packs = {}
         for name in vmr_by_gas:
@@ -237,7 +315,11 @@ class Spectroscopy:
             if gas is None:
                 continue
             if not hasattr(gas, "pack"):
-                return None
+                # Under a mesh the stackable gases stack (the per-gas paths
+                # take the rest); on one device the per-gas dispatch does.
+                if self.mesh is None:
+                    return None
+                continue
             packs[name] = gas.pack
         if not packs:
             return None
@@ -249,20 +331,35 @@ class Spectroscopy:
             return None
         if cached is None:
             try:
-                fn = make_multigas_batched_fn(
-                    packs, self.grid, t_max=self._envelope[0],
-                    p_max_atm=self._envelope[1], backend=backend,
-                    device=self.device, dtype=self.dtype)
+                if self.mesh is not None:
+                    from .parallel.sharded import \
+                        make_multigas_sharded_pipeline
+                    fn = make_multigas_sharded_pipeline(
+                        packs, self.grid, self.mesh, mode=self.sharding_mode,
+                        remove_pedestal=remove_pedestal,
+                        weight_density=False, backend=backend,
+                        dtype=self.dtype)
+                else:
+                    fn = make_multigas_batched_fn(
+                        packs, self.grid, t_max=self._envelope[0],
+                        p_max_atm=self._envelope[1], backend=backend,
+                        device=self.device, dtype=self.dtype)
             except UnstackableError:
                 self._multigas_fns[key] = "unstackable"
                 return None
             remover = make_stacked_pedestal_remover(packs, self.grid) \
-                if remove_pedestal else None
+                if remove_pedestal and self.mesh is None else None
             cached = (fn, remover, list(packs))
             self._multigas_fns[key] = cached
         fn, remover, names = cached
         vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
                             for n in names], axis=1)
+        if self.mesh is not None:
+            num = temperature.size
+            t, p, x = self._pad_mesh_batch(temperature, pressure, vmr_mat)
+            if local:
+                return names, fn.rows(t, p, x, False)
+            return names, fn.full(t, p, x, False)[:num]
         k = fn(temperature, pressure, vmr_mat)
         if remover is not None:
             k = remover(k, temperature, pressure, vmr_mat)
@@ -300,11 +397,23 @@ class Spectroscopy:
         """
         names = list(self.atmosphere.gases)
         has_lines = [n for n in names if self.cache[n].gas is not None]
+        num = temperature.size
         stacked = self._lines_device_stacked(temperature, pressure,
-                                             vmr_by_gas, remove_pedestal)
+                                             vmr_by_gas, remove_pedestal,
+                                             local=self.mesh is not None)
         stacked_names, k_dev = stacked if stacked is not None else ([], None)
         if any(n not in stacked_names for n in has_lines):
             return None
+        if self.mesh is not None:
+            # This rank's batch rows of the padded batch; the per-gas sums
+            # are gathered over "batch" below.
+            from .parallel.sharded import row_slice
+            temperature, pressure, vmr_by_gas = self._pad_mesh_batch(
+                temperature, pressure, vmr_by_gas)
+            rows = row_slice(temperature.size, self.mesh)
+            k_dev = None if k_dev is None else k_dev.data
+            temperature, pressure = temperature[rows], pressure[rows]
+            vmr_by_gas = {n: v[rows] for n, v in vmr_by_gas.items()}
         ngrid = self.grid.size
         per_gas = {}
         for name in names:
@@ -337,6 +446,10 @@ class Spectroscopy:
         out_shape = shape + (ngrid,)
 
         def host(t):
+            if self.mesh is not None:
+                from .parallel import collectives
+                from .parallel.mesh import BATCH_AXIS
+                t = collectives.all_gather(t, self.mesh, BATCH_AXIS)[:num]
             return t.cpu().numpy().astype(np.float64).reshape(out_shape)
 
         if output_format == "gas":
@@ -379,6 +492,9 @@ class Spectroscopy:
                 return reduced
         lines_stacked = self._compute_lines_stacked(
             temperature, pressure, vmr_by_gas, remove_pedestal)
+        if not lines_stacked and self.mesh is not None:
+            lines_stacked = self._compute_lines_sharded_pergas(
+                temperature, pressure, vmr_by_gas, remove_pedestal)
         for name, mole_fraction in self.atmosphere.gases.items():
             varname = f"{name}_absorption"
             beta[varname] = DataArray(np.zeros(self.output.dim_sizes),
@@ -434,13 +550,17 @@ class Spectroscopy:
         blocks of ``block_layers`` (each block one stacked all-gases
         pipeline call plus batched continua/xsec) and flushed per state;
         an interrupted run resumes from the unwritten states.  The file is
-        the JAX package's layout (utils/streaming.py).
+        the JAX package's layout (utils/streaming.py).  Under a mesh every
+        rank runs the loop and rank 0 alone opens and writes the file.
 
         Returns:
             The output path.
         """
         from .utils.streaming import StreamingWriter
 
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._stream_blocks(None, remove_pedestal, block_layers)
+            return path
         writer = StreamingWriter(
             path, self.atmosphere.temperature.size, self.grid,
             [f"{n}_absorption" for n in self.atmosphere.gases],
@@ -464,6 +584,10 @@ class Spectroscopy:
         ``stream.fetch`` (device-to-host copy of the lines),
         ``stream.mechanisms`` (per-gas fallback lines, continua and cross
         sections) and ``stream.write`` take each block's host time.
+
+        Under a mesh, rank 0 alone reads the pending states (broadcast to
+        every rank) and writes; the other ranks' ``writer`` is ignored
+        (None will do).  A barrier closes the pass.
         """
         from .utils.observability import metrics
 
@@ -472,7 +596,11 @@ class Spectroscopy:
             remove_pedestal = self.continua_backend == "mt_ckd"
         names = list(self.atmosphere.gases)
         self._load_molecules()
-        pending = writer.pending_states()
+        writes = self.mesh is None or self.mesh.rank == 0
+        pending = writer.pending_states() if writes else None
+        if self.mesh is not None:
+            from .parallel import collectives
+            pending = collectives.broadcast_array(pending, self.mesh)
         blocks_idx = [pending[lo:lo + block_layers]
                       for lo in range(0, pending.size, block_layers)]
 
@@ -498,6 +626,9 @@ class Spectroscopy:
                     k_host = k_dev.cpu().numpy().astype(np.float64)
                 lines_stacked = {n: k_host[:, g]
                                  for g, n in enumerate(names_s)}
+            if not lines_stacked and self.mesh is not None:
+                lines_stacked = self._compute_lines_sharded_pergas(
+                    t_blk, p_blk, vmr_blk, remove_pedestal)
             blocks = {}
             with metrics.timed("stream.mechanisms"):
                 for name in names:
@@ -533,8 +664,11 @@ class Spectroscopy:
                     blocks[f"{name}_absorption"] = block
             with metrics.timed("stream.write"):
                 for j, i in enumerate(idx):
-                    writer.write_state(int(i), {
-                        key: value[j] for key, value in blocks.items()})
+                    if writes:
+                        writer.write_state(int(i), {
+                            key: value[j] for key, value in blocks.items()})
+        if self.mesh is not None:
+            collectives.barrier(self.mesh)
 
     def _create_output_dataset(self, absorption, output_format):
         """Assembles the output Dataset (reference spectroscopy.py:208-235)."""

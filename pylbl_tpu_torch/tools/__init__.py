@@ -8,7 +8,9 @@
 - ``batched_microbench``: the stage split (physics, assembly, wings, core,
   full) of the single-gas or stacked batched pipeline;
 - ``envelope_compare``: the single-gas batched pipeline under the default
-  kernel envelope against the atmosphere-derived one.
+  kernel envelope against the atmosphere-derived one;
+- ``bench_scaling``: the line-sharded step at spec 1, 2 and 4 on gloo
+  ranks that share the card (work-model efficiency, float64 error).
 
 They time CUDA kernels with CUDA events, so their entry points need a CUDA
 card and exit non-zero without one; there is no CPU fallback.  The

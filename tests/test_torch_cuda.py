@@ -591,3 +591,102 @@ def test_portable_paths_repeat_on_card(cuda_device):
     out = fn(T, P, VMR)
     assert torch.equal(out, fn(T, P, VMR))
     assert out.shape[:2] == (2, 3) and bool(torch.isfinite(out).all())
+
+
+# -- the sharded path on ranks that share the card ---------------------------
+
+SHARD_T = np.asarray([288.99, 227.74, 250.0, 203.37])
+SHARD_P = np.asarray([98388.0, 1032.0, 20000.0, 11419.0])
+SHARD_VMR = np.asarray([[6.637074e-03, 3.9e-04, 6.7e-08],
+                        [4.2e-06, 3.9e-04, 7.8e-06],
+                        [1e-4, 3.9e-04, 1e-07],
+                        [3.0e-06, 3.9e-04, 2.6e-07]])
+
+
+def _rank_sharded(mode, backend, batch, spec):
+    """One rank's sharded stacked pipeline on its card: the gathered
+    result, a repeat's equality, its launches and staged bytes, and its
+    first stop's kernels against their plain versions."""
+    from pylbl_tpu_torch.parallel import collectives
+    from pylbl_tpu_torch.parallel.mesh import make_mesh
+    from pylbl_tpu_torch.parallel.sharded import \
+        make_multigas_sharded_pipeline
+
+    mesh = make_mesh(batch=batch, spec=spec, device="cuda")
+    fn = make_multigas_sharded_pipeline(packs(), np.arange(1.0, 220.0, 0.1),
+                                        mesh, mode=mode, backend=backend)
+    lc.reset_launches()
+    collectives.reset_bytes()
+    out = fn.full(SHARD_T, SHARD_P, SHARD_VMR, False)
+    launches = dict(lc.LAUNCHES)
+    staged = collectives.BYTES["host_staged"]
+    again = fn.full(SHARD_T, SHARD_P, SHARD_VMR, False)
+    equal = []
+    if fn.step.backend == "kernel":
+        stage, soa, core = fn.step.kernel_inputs(SHARD_T, SHARD_P, SHARD_VMR)
+        equal = [torch.equal(stage.wings_pass(soa),
+                             stage.wings_pass(soa, plain=True)),
+                 torch.equal(stage.core_pass(core),
+                             stage.core_pass(core, plain=True))]
+    return {"k": out.cpu().numpy(), "repeat": torch.equal(out, again),
+            "launches": launches, "staged": staged, "equal": equal,
+            "device": str(out.device), "backend": fn.step.backend,
+            "transport": mesh.transport}
+
+
+@pytest.mark.gpu
+def test_sharded_pipeline_on_shared_card(cuda_device):
+    """Four gloo ranks on one card run the sharded stacked pipeline in each
+    mode through the strided wings and mixed-slot core kernels (each
+    equal to its plain version on the rank's inputs), staging their
+    collectives through the host; every rank holds the same bits, a
+    repeat too, within 5e-6 of the unsharded pipeline on the card."""
+    from pylbl_tpu_torch.parallel import launch
+
+    fn = make_multigas_batched_fn(packs(), np.arange(1.0, 220.0, 0.1),
+                                  device=cuda_device)
+    want = fn(SHARD_T, SHARD_P, SHARD_VMR)
+    with launch.RankGroup(4, backend="gloo", timeout=300) as group:
+        for mode in ("balanced", "halo", "ring"):
+            outs = group.run_all(_rank_sharded, mode, "kernel", 2, 2)
+            for out in outs:
+                assert out["backend"] == "kernel" and out["repeat"]
+                assert out["device"] == "cuda:0"
+                assert out["transport"] == "host" and out["staged"] > 0
+                assert out["launches"]["wings_strided"] >= 1
+                assert out["launches"]["core_segmix"] >= 1
+                assert out["equal"] == [True, True]
+                assert np.array_equal(out["k"], outs[0]["k"])
+            assert rel_err(torch.as_tensor(outs[0]["k"]), want) < 5e-6, mode
+
+
+@pytest.mark.gpu
+def test_single_rank_nccl_mesh(cuda_device):
+    """One NCCL rank: the mesh moves the card's tensors (no host staging)
+    and the pipeline's result equals the four gloo ranks'."""
+    from pylbl_tpu_torch.parallel import launch
+
+    with launch.RankGroup(1, backend="nccl", timeout=300) as one:
+        nccl = one.run(_rank_sharded, "balanced", "kernel", 1, 1)
+    assert nccl["transport"] == "device" and nccl["staged"] == 0
+    assert nccl["launches"]["wings_strided"] == 1
+    with launch.RankGroup(4, backend="gloo", timeout=300) as group:
+        gloo = group.run(_rank_sharded, "balanced", "kernel", 2, 2)
+    assert rel_err(torch.as_tensor(nccl["k"]),
+                   torch.as_tensor(gloo["k"])) < 5e-6
+
+
+def test_nccl_refuses_ranks_sharing_a_card(monkeypatch):
+    """NCCL asked for with more ranks on the host than cards raises (ranks
+    that share a card need gloo); the automatic choice then is gloo."""
+    from pylbl_tpu_torch.parallel import distributed
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(cards + 1))
+    with pytest.raises(RuntimeError, match="NCCL needs a card per rank"):
+        distributed.check_nccl_devices()
+    assert distributed.pick_backend() == "gloo"
+    with pytest.raises(RuntimeError, match="NCCL needs a card per rank"):
+        distributed.initialize(init_method="tcp://localhost:1",
+                               world_size=cards + 1, rank=0,
+                               backend="nccl")

@@ -18,9 +18,9 @@ from pylbl_tpu_torch.models.lines import LinePack
 from pylbl_tpu_torch.ops import lineshape_cuda as lc
 from pylbl_tpu_torch.parallel import lines as tlines
 from pylbl_tpu_torch.tools import (NoCudaError, batched_microbench,
-                                   envelope_compare, headline_pack,
-                                   kernel_microbench, layer_workload,
-                                   masked_evals, parity_ab)
+                                   bench_scaling, envelope_compare,
+                                   headline_pack, kernel_microbench,
+                                   layer_workload, masked_evals, parity_ab)
 
 torch.set_num_threads(1)
 
@@ -183,10 +183,25 @@ def test_batched_fn_tight_envelope_matches_default():
 
 
 @pytest.mark.parametrize("tool", [kernel_microbench, parity_ab,
-                                  batched_microbench, envelope_compare])
+                                  batched_microbench, envelope_compare,
+                                  bench_scaling])
 def test_tools_refuse_to_run_without_cuda(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaError, match="CUDA"):
         tool.run()
     assert tool.main([]) == 2
     assert "needs a CUDA card" in capsys.readouterr().out
+
+
+def test_bench_scaling_work_model_on_cpu():
+    """bench_scaling's measurement at a small size on CPU ranks (the
+    portable branch there): one rank does all the work, two split it
+    near evenly in balanced mode, both within 5e-4 of float64."""
+    results = bench_scaling.measure("balanced", specs=(1, 2), reps=1,
+                                    num_lines=300, grid=(1.0, 200.0, 0.5),
+                                    device="cpu")
+    assert [r["spec"] for r in results] == [1, 2]
+    assert results[0]["work_efficiency"] == 1.0
+    assert 0.9 < results[1]["work_efficiency"] <= 1.0
+    assert all(r["max_rel_err"] < 5e-4 and r["duplication"] == 1.0
+               for r in results)
