@@ -8,7 +8,8 @@ kernels and the native pedestal scan from this checkout into ``build/``
 ``pylbl_tpu``.  Phases:
 
 1. device and toolchain (card name and power limit from nvidia-smi), and
-   whether h5py and netCDF4 import on this host (a fact, not a check);
+   whether h5py, netCDF4 and pyarts import on this host (a fact, not a
+   check);
 2. build of the CUDA kernels and the native library;
 3. main path at 0.1 cm-1: seven gases' synthetic line lists (H2O 300k
    lines, six gases x 20k, 0.5-5100 cm-1) in a port Database, a 16-layer
@@ -93,6 +94,18 @@ kernels and the native pedestal scan from this checkout into ``build/``
     layers (float64 parity), the refusal of NCCL for two ranks on one
     card, and a single-rank NCCL mesh (cold, warm, the gap to phase 3).
     It measures no scaling across cards.
+16. the ingest path at A's width (H): stand-in HITRAN and TIPS clients
+    serve phase 3's seven packs (420k transition rows as CSV text in the
+    ingestion parameter order, every float in its shortest round-trip
+    form); ``Database.create`` parses them with the native parser into a
+    new sqlite file; each ingested ``line_pack`` equals phase 3's pack
+    array for array, and the main path on the ingested database (A's
+    column and grid, cold and warm) launches the strided wings and core
+    and gives phase 3's total bit for bit.  Readings: the CSV bytes (and
+    the stand-in's time to render them, outside ``create``), the wall of
+    ``create`` with a cProfile of it, the native parse rate on H2O's
+    text, the cold ``line_pack`` wall of the seven gases and the main
+    path's cold and warm walls.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -121,6 +134,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -210,6 +224,73 @@ def line_packs(fixtures):
             nu_min=0.5, nu_max=5100.0, seed=g + 1,
             band_centers=(150.0 + 400 * g, 1600.0, 3700.0))
     return packs
+
+
+# The CSV columns of the ingest path, in the ingestion parameter order
+# (pylbl_tpu_torch/database/db.py TRANSITION_PARAMETERS), after the three
+# integer columns.
+CSV_FLOATS = ("nu", "sw", "gamma_air", "gamma_self", "n_air", "delta_air",
+              "elower")
+# The arrays of a LinePack that phase 16 holds equal.
+PACK_ARRAYS = ("nu", "sw", "gamma_air", "gamma_self", "n_air", "elower",
+               "delta_air", "iso", "mass_slots", "q_table", "q_temperature")
+
+
+def pack_csv(pack, molecule_id):
+    """A pack's transitions as a HITRAN CSV results file: global
+    isotopologue id, molecule id, local isotopologue id (10 written as 0,
+    as HITRAN does) and the seven floats, each in its shortest round-trip
+    form so the parser reads back the same doubles."""
+    iso = np.asarray(pack.iso, np.int64)
+    columns = [(100 * molecule_id + iso).tolist(),
+               [molecule_id] * iso.size, np.where(iso == 10, 0, iso).tolist()]
+    columns += [np.asarray(getattr(pack, name), np.float64).tolist()
+                for name in CSV_FLOATS]
+    return "".join(",".join(map(repr, row)) + "\n" for row in zip(*columns))
+
+
+class HitranStandIn:
+    """Serves line packs the way the HITRAN client serves a molecule:
+    records with the client's attributes, one isotopologue per filled
+    mass slot (unique ids, isoid 10 written as 0) and the transitions as
+    CSV text, rendered once here (``texts``), as a download would hand
+    over bytes already made."""
+
+    def __init__(self, packs):
+        self.packs = packs
+        self.texts = {name: pack_csv(pack, m + 1)
+                      for m, (name, pack) in enumerate(packs.items())}
+
+    def download_molecules(self):
+        return [SimpleNamespace(
+            id=m + 1, stoichiometric_formula=name, ordinary_formula=name,
+            common_name=name, aliases=[{"alias": name}])
+            for m, name in enumerate(self.packs)]
+
+    def download_isotopologues(self, molecule):
+        name = molecule.ordinary_formula
+        slots = np.flatnonzero(self.packs[name].mass_slots) + 1
+        return [SimpleNamespace(
+            id=100 * molecule.id + int(isoid), molecule_id=molecule.id,
+            isoid=0 if isoid == 10 else int(isoid),
+            iso_name=f"{name}-{isoid}", abundance=1.0,
+            mass=float(self.packs[name].mass_slots[isoid - 1]),
+            molecule_alias=name) for isoid in slots]
+
+    def download_transitions_csv(self, isotopologues, numin, numax,
+                                 parameters):
+        return self.texts[isotopologues[0].molecule_alias], parameters
+
+
+class TipsStandIn:
+    """Serves each pack's TIPS table as the TIPS client does."""
+
+    def __init__(self, packs):
+        self.packs = packs
+
+    def download(self, molecule):
+        pack = self.packs[molecule]
+        return pack.q_temperature, pack.q_table
 
 
 def column(num_layers, Dataset):
@@ -978,7 +1059,8 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
 
 def optional_modules(names):
     """Whether each module imports on this host, with its version (a fact
-    for the streaming layer, which writes through h5py; not a check)."""
+    for the streaming layer, which writes through h5py, and for the ARTS
+    bridge, which needs pyarts; not a check)."""
     import importlib
 
     found = []
@@ -1555,6 +1637,69 @@ def phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want64,
     print(f"phase 15 took {time.perf_counter() - start:.1f} s")
 
 
+def phase_ingest(torch, P, lc, native, packs, db_a, col_a, grid_a, total_a,
+                 records):
+    """Phase 16: phase 3's packs through ``Database.create`` from stand-in
+    clients, then the main path on the ingested database."""
+    start = time.perf_counter()
+    hitran, tips = HitranStandIn(packs), TipsStandIn(packs)
+    render_s = time.perf_counter() - start
+    path = WORK / "ingest.db"
+    if path.exists():
+        path.unlink()
+    db = P.Database(path)
+    profile = cProfile.Profile()
+    t0 = time.perf_counter()
+    profile.runcall(db.create, hitran, "all", tips_webapi=tips,
+                    cross_section_directory=None)
+    create_s = time.perf_counter() - t0
+    text = hitran.texts["H2O"]
+    t0 = time.perf_counter()
+    parsed = native.parse_transitions_csv(text)
+    parse_s = time.perf_counter() - t0
+    rows = sum(pack.num_lines for pack in packs.values())
+    csv_bytes = sum(len(t) for t in hitran.texts.values())
+    print(f"phase 16 ingest: {rows} transition rows of {len(packs)} gases, "
+          f"CSV {csv_bytes} bytes (rendered by the stand-in in "
+          f"{render_s:.4f} s); Database.create wall {create_s:.4f} s "
+          f"(under cProfile); native parse of H2O's {len(text)} bytes in "
+          f"{parse_s:.4f} s, {parsed['nu'].size / parse_s:.6e} rows/s")
+    print("  Database.create, cumulative seconds by function:")
+    pstats.Stats(profile, stream=sys.stdout).sort_stats(
+        "cumulative").print_stats(10)
+    check(parsed["nu"].size == packs["H2O"].num_lines and rows == 420000,
+          "phase 16 parsed every row of H2O's text (420k rows in all)")
+    t0 = time.perf_counter()
+    ingested = {name: db.line_pack(name) for name in packs}
+    print(f"phase 16 cold line_pack of {len(packs)} gases from sqlite: "
+          f"{time.perf_counter() - t0:.4f} s")
+    unequal = [f"{name}.{field}" for name in packs for field in PACK_ARRAYS
+               if not np.array_equal(getattr(ingested[name], field),
+                                     getattr(db_a.line_pack(name), field))]
+    check(not unequal, f"phase 16 every ingested pack equals phase 3's, "
+          f"{len(PACK_ARRAYS)} arrays x {len(packs)} gases {unequal}")
+
+    lc.reset_launches()
+    spec, total, wall, dev, peak = phase_main(
+        torch, P, db, col_a, grid_a,
+        "phase 16 (ingested database, A: 0.1 cm-1, 16 layers, cold)")
+    launches = dict(lc.LAUNCHES)
+    check(launches["wings_strided"] > 0 and launches["core_segmix"] > 0,
+          f"phase 16 launched the strided wings and core kernels "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for name in ("wings_strided", "core_segmix"):
+        records[name]["launches_ingest"] = launches[name]
+    check(np.array_equal(total, total_a),
+          "phase 16 total equals phase 3's bit for bit")
+    again, wall_w, dev_w = timed_call(
+        torch, lambda: spec.compute_absorption(output_format="total"))
+    print(f"phase 16 again (warm): wall {wall_w:.4f} s (CUDA events "
+          f"{dev_w:.4f} s)")
+    check(np.array_equal(total_of(again), total_a),
+          "phase 16 warm total equals phase 3's bit for bit")
+    print(f"phase 16 took {time.perf_counter() - start:.1f} s")
+
+
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     registers, shared memory and spill bytes."""
@@ -1601,7 +1746,7 @@ def main():
           f"CUDA {torch.version.cuda}, nvcc: {nvcc[-1]}")
     print(f"devices: {torch.cuda.device_count()} x "
           f"{torch.cuda.get_device_name(0)}")
-    print(optional_modules(("h5py", "netCDF4")))
+    print(optional_modules(("h5py", "netCDF4", "pyarts")))
 
     # Phase 2: build, the nvcc and g++ builds started together.
     t0 = time.perf_counter()
@@ -1627,7 +1772,8 @@ def main():
         db_path.unlink()
     t0 = time.perf_counter()
     db = P.Database(db_path)
-    for pack in line_packs(fixtures).values():
+    packs = line_packs(fixtures)
+    for pack in packs.values():
         db.ingest_line_pack(pack)
     print(f"database: {len(GASES)} gases ingested in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1729,6 +1875,8 @@ def main():
     phase_streamed(torch, P, lc, db, gas.pack, records, card)
     phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want,
                   records)
+    phase_ingest(torch, P, lc, native, packs, db, col_a, grid_a, total_a,
+                 records)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

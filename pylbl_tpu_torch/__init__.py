@@ -15,6 +15,7 @@ from .utils.xrlite import DataArray, Dataset, open_dataset  # noqa: F401
 
 from .database import Database  # noqa: F401
 from .spectroscopy import Spectroscopy  # noqa: F401
+from .webapi import HitranWebApi, TipsWebApi  # noqa: F401
 from .plugins import continua, cross_sections, models, molecular_lines  # noqa: F401
 
 __version__ = "0.1.0"

@@ -4,9 +4,14 @@
     python -m pylbl_tpu_torch compute --atmosphere atm.nc \
         --database spectra.db --grid 1:3000:0.1 --output absorption.nc \
         --format total
+    python -m pylbl_tpu_torch create-db --database spectra.db \
+        --api-key KEY [--molecules H2O,CO2] [--xsec-dir .cross-sections]
 
-Both run on the CUDA card by default and refuse to start without one;
-``--device cpu`` runs them on the host (the kernels' plain versions).
+``info`` and ``compute`` run on the CUDA card by default and refuse to
+start without one; ``--device cpu`` runs them on the host (the kernels'
+plain versions).  ``create-db`` downloads from the HITRAN and TIPS web
+services and the arts-crossfit archive into a database; it launches
+nothing and runs on any host.
 Under torchrun, ``compute --mesh BxS`` shards the lines over a (batch,
 spec) mesh of the ranks (one card per rank over NCCL; ranks that share a
 card, or CPU ranks, over gloo)::
@@ -97,6 +102,18 @@ def cmd_compute(args, device):
     return 0
 
 
+def cmd_create_db(args):
+    from .database.db import Database
+    from .webapi import HitranWebApi
+    molecules = "all" if args.molecules is None \
+        else args.molecules.split(",")
+    Database(args.database).create(HitranWebApi(args.api_key),
+                                   molecules=molecules,
+                                   cross_section_directory=args.xsec_dir)
+    print(f"created {args.database}")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="pylbl_tpu_torch")
     parser.add_argument("--device", default="cuda",
@@ -135,7 +152,17 @@ def main(argv=None):
     compute.add_argument("--metrics", action="store_true",
                          help="print the metrics snapshot after computing")
 
+    create = sub.add_parser("create-db", help="build the spectral database "
+                            "from HITRAN/TIPS (network)")
+    create.add_argument("--database", required=True)
+    create.add_argument("--api-key", required=True)
+    create.add_argument("--molecules", default=None,
+                        help="comma-separated formulae (default: all)")
+    create.add_argument("--xsec-dir", default=".cross-sections")
+
     args = parser.parse_args(argv)
+    if args.command == "create-db":
+        return cmd_create_db(args)
     from .runtime.device import resolve_device
     try:
         device = resolve_device(args.device)

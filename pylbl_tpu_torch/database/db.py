@@ -3,14 +3,17 @@
 Counterpart of pylbl_tpu/database/db.py, on the same schema (reference
 pyLBL/database.py:130-506): tables molecule / isotopologue / molecule_alias
 / transition / tips / artscrossfit / metadata and the same exception
-taxonomy, so either package opens the other's files.  It covers queries,
-:meth:`Database.line_pack` (a molecule's lines packed once into the
-structure-of-arrays the device pipeline consumes) and the offline
-ingestion of LinePacks and cross-section directories, with an optional
-on-disk npz cache of the packs.  Downloading from the HITRAN/TIPS web
-services (``create``) is not ported.
+taxonomy, so either package opens the other's files.  It covers
+:meth:`Database.create` (molecules, isotopologues, transitions and TIPS
+tables from the HITRAN and TIPS web clients, one commit per molecule,
+transition CSV text through the native parser, then the arts-crossfit
+coefficients), queries, :meth:`Database.line_pack` (a molecule's lines
+packed once into the structure-of-arrays the device pipeline consumes) and
+the offline ingestion of LinePacks and cross-section directories, with an
+optional on-disk npz cache of the packs.
 """
 import sqlite3
+from itertools import repeat
 from os import listdir
 from os.path import abspath, join
 from pathlib import Path
@@ -18,8 +21,10 @@ from re import match
 
 import numpy as np
 
+from .. import webapi
 from ..models.lines.physics import LinePack
 from ..models.tips import TotalPartitionFunction
+from ..runtime import native
 
 SCHEMA = """
 CREATE TABLE IF NOT EXISTS molecule (
@@ -71,6 +76,17 @@ CREATE INDEX IF NOT EXISTS transition_molecule
     ON transition (molecule_id);
 """
 
+# The transition parameters requested from the server: the columns of
+# the CSV text the native parser reads; the float columns in the order of
+# the transition table.
+TRANSITION_PARAMETERS = [name for name, _ in native.CSV_COLUMNS]
+TRANSITION_FLOATS = ("nu", "sw", "gamma_air", "gamma_self", "n_air",
+                     "delta_air", "elower")
+INSERT_TRANSITION = (
+    "INSERT INTO transition (global_iso_id, molecule_id, local_iso_id, nu, "
+    "sw, gamma_air, gamma_self, n_air, delta_air, elower) "
+    "VALUES (?, ?, ?, ?, ?, ?, ?, ?, ?, ?)")
+
 
 class AliasNotFoundError(BaseException):
     pass
@@ -110,6 +126,7 @@ class Database:
         """
         self.path = str(path)
         self.echo = echo
+        self.cross_section_directory = None
         self.pack_cache_dir = pack_cache_dir
         con = self._connect()
         con.executescript(SCHEMA)
@@ -124,6 +141,113 @@ class Database:
         return con
 
     # ------------------------------ ingest ------------------------------
+
+    def create(self, hitran_webapi, molecules="all", tips_webapi=None,
+               cross_section_directory=".cross-sections"):
+        """Downloads HITRAN, TIPS and cross-section data into the database
+        (the flow of reference database.py:148-210).
+
+        Args:
+            hitran_webapi: a HitranWebApi (or any object with its
+                ``download_molecules``, ``download_isotopologues`` and
+                ``download_transitions_csv`` or ``download_transitions``).
+            molecules: "all" or a list of ordinary formulae.
+            tips_webapi: a TipsWebApi-like client (default: TipsWebApi()).
+            cross_section_directory: where the arts-crossfit coefficients
+                are unpacked; None skips them (ingest them later with
+                :meth:`ingest_arts_crossfit_directory`).
+
+        A molecule whose transitions or TIPS table are missing is reported
+        and skipped; each complete molecule is committed on its own.
+        """
+        if tips_webapi is None:
+            tips_webapi = webapi.TipsWebApi()
+
+        con = self._connect()
+        all_molecules = hitran_webapi.download_molecules()
+        total = len(all_molecules) if molecules == "all" else len(molecules)
+        for i, molecule in enumerate(all_molecules):
+            formula = molecule.ordinary_formula
+            if molecules != "all" and formula not in molecules:
+                continue
+            print(f"Working on molecule {i + 1} / {total} ({formula})")
+            self._ingest_molecule(con, molecule)
+            isotopologues = hitran_webapi.download_isotopologues(molecule)
+            self._ingest_isotopologues(con, molecule, isotopologues)
+            try:
+                self._ingest_transitions(con, molecule, isotopologues,
+                                         hitran_webapi)
+            except webapi.NoIsotopologueError:
+                print(f"No isotopologues for molecule {formula}.")
+                continue
+            except webapi.NoTransitionsError:
+                print(f"No transitions for molecule {formula}.")
+                continue
+            try:
+                self._ingest_tips(con, molecule, tips_webapi)
+            except webapi.NoMoleculeError:
+                print(f"No molecule {formula} found in TIPS database.")
+                continue
+            con.commit()
+        con.commit()
+        con.close()
+
+        if cross_section_directory is None:
+            return
+        self.cross_section_directory = cross_section_directory
+        Path(cross_section_directory).mkdir(parents=True, exist_ok=True)
+        webapi.arts_crossfit_api.download(cross_section_directory)
+        self.ingest_arts_crossfit_directory(
+            join(cross_section_directory, "coefficients"), molecules)
+
+    def _ingest_molecule(self, con, molecule):
+        con.execute(
+            "INSERT INTO molecule (id, stoichiometric_formula, "
+            "ordinary_formula, common_name) VALUES (?, ?, ?, ?)",
+            (molecule.id, molecule.stoichiometric_formula,
+             molecule.ordinary_formula, molecule.common_name))
+        con.executemany(
+            "INSERT INTO molecule_alias (alias, molecule) VALUES (?, ?)",
+            [(x["alias"], molecule.id) for x in molecule.aliases])
+
+    def _ingest_isotopologues(self, con, molecule, isotopologues):
+        con.executemany(
+            "INSERT INTO isotopologue (id, molecule_id, isoid, iso_name, "
+            "abundance, mass) VALUES (?, ?, ?, ?, ?, ?)",
+            [(iso.id, molecule.id, iso.isoid, iso.iso_name, iso.abundance,
+              iso.mass) for iso in isotopologues])
+
+    def _ingest_transitions(self, con, molecule, isotopologues,
+                            hitran_webapi):
+        """One molecule's transitions over 0-1e8 cm-1.  A client with
+        ``download_transitions_csv`` hands its CSV text to the native
+        parser (the reference splits rows in Python,
+        hitran_api.py:173-185); otherwise its ``download_transitions``
+        records are inserted."""
+        if hasattr(hitran_webapi, "download_transitions_csv"):
+            text, _ = hitran_webapi.download_transitions_csv(
+                isotopologues, 0.0, 1.0e8, TRANSITION_PARAMETERS)
+            columns = native.parse_transitions_csv(text)
+            rows = zip(columns["global_iso_id"].tolist(),
+                       repeat(molecule.id, columns["nu"].size),
+                       columns["local_iso_id"].tolist(),
+                       *(columns[k].tolist() for k in TRANSITION_FLOATS))
+        else:
+            rows = [(t.global_iso_id, molecule.id, t.local_iso_id,
+                     *(getattr(t, k) for k in TRANSITION_FLOATS))
+                    for t in hitran_webapi.download_transitions(
+                        isotopologues, 0.0, 1.0e8, TRANSITION_PARAMETERS)]
+        con.executemany(INSERT_TRANSITION, rows)
+
+    def _ingest_tips(self, con, molecule, tips_webapi):
+        temperature, data = tips_webapi.download(molecule.ordinary_formula)
+        temperature = np.asarray(temperature).tolist()
+        con.executemany(
+            "INSERT INTO tips (molecule_id, isotopologue_id, temperature, "
+            "data) VALUES (?, ?, ?, ?)",
+            [(molecule.id, x, float(t), float(q))
+             for x, row in enumerate(np.asarray(data).tolist())
+             for t, q in zip(temperature, row)])
 
     def ingest_arts_crossfit_directory(self, directory, molecules="all"):
         """Records per-molecule cross-section file paths, adding molecules
@@ -216,13 +340,10 @@ class Database:
             con.close()
         if not rows:
             raise TipsDataNotFoundError(f"no tips data for {name}.")
-        data, temperature = [], []
-        for temp, value in rows:
-            data.append(value)
-            if temp not in temperature:
-                temperature.append(temp)
-        data = np.reshape(np.asarray(data),
-                          (len(data) // len(temperature), len(temperature)))
+        # The temperature axis: distinct values in first-seen row order.
+        temperature = list(dict.fromkeys(temp for temp, _ in rows))
+        data = np.reshape(np.asarray([value for _, value in rows]),
+                          (len(rows) // len(temperature), len(temperature)))
         return np.asarray(temperature), data
 
     def arts_crossfit(self, name):
@@ -323,9 +444,7 @@ class Database:
                  f"{pack.formula}-{isoid}", 1.0,
                  float(pack.mass_slots[isoid - 1])))
         con.executemany(
-            "INSERT INTO transition (global_iso_id, molecule_id, "
-            "local_iso_id, nu, sw, gamma_air, gamma_self, n_air, "
-            "delta_air, elower) VALUES (?, ?, ?, ?, ?, ?, ?, ?, ?, ?)",
+            INSERT_TRANSITION,
             [(0, molecule_id, 0 if int(i) == 10 else int(i), nu, sw, ga,
               gs, na, da, el)
              for nu, sw, ga, gs, na, da, el, i in zip(

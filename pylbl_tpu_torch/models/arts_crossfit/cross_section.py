@@ -24,6 +24,39 @@ from ...utils.xrlite import open_dataset
 SPEED_OF_LIGHT = 299792458.0  # [m s-1] (reference cross_section.py:32).
 
 
+def calculate_xsec(temperature, pressure, coeffs):
+    """2-D quadratic fit: xsec = p00 + p10*T + p01*P + p20*T^2
+    (reference xsec_aux_functions.py:14-70).
+
+    Args:
+        temperature: scalar temperature [K].
+        pressure: scalar pressure [Pa].
+        coeffs: [4, nfreq] fit coefficients.
+
+    Returns:
+        [nfreq] cross sections [m2].
+    """
+    return (coeffs[0] + coeffs[1] * temperature + coeffs[2] * pressure
+            + coeffs[3] * temperature * temperature)
+
+
+def calculate_xsec_fullmodel(temperature, pressure, coeffs):
+    """One layer's fit with the negative clip that conserves the spectral
+    integral (reference xsec_aux_functions.py:73-121): where the fit goes
+    negative it is set to zero and, if the pre-clip total is non-negative
+    and the clipped sum nonzero, rescaled by total / clipped."""
+    xsec = calculate_xsec(temperature, pressure, coeffs)
+    negative = xsec < 0
+    if not negative.any():
+        return xsec
+    total = np.sum(xsec)
+    xsec = np.where(negative, 0.0, xsec)
+    clipped = np.sum(xsec)
+    if total >= 0 and clipped != 0:
+        xsec = xsec * (total / clipped)
+    return xsec
+
+
 def calculate_xsec_fullmodel_batch(temperature, pressure, coeffs, xp=np):
     """Layer-batched 2-D quadratic fit xsec = p00 + p10*T + p01*P + p20*T^2
     (reference xsec_aux_functions.py:14-70) with the integral-conserving
@@ -93,6 +126,22 @@ class CrossSection:
                        for fgrid, _ in self.bands]
             self._interp_cache[key] = interps
         return interps
+
+    def absorption_coefficient(self, grid, temperature, pressure):
+        """Absorption cross sections [m2] of one layer on the user grid
+        (host numpy, float64).
+
+        Args:
+            grid: wavenumber grid [cm-1].
+            temperature: temperature [K].
+            pressure: pressure [Pa].
+        """
+        grid = np.asarray(grid, dtype=np.float64)
+        total = np.zeros(grid.size)
+        for (_, coeffs), interp in zip(self.bands, self._interps(grid)):
+            total += interp(calculate_xsec_fullmodel(temperature, pressure,
+                                                     coeffs))
+        return total
 
     def absorption_coefficient_batch(self, grid, temperature, pressure):
         """Layer-batched absorption cross sections [B, grid.size] [m2]

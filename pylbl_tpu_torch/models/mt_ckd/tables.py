@@ -1,32 +1,22 @@
 """MT-CKD coefficient table access.
 
-The tables are the npz that the JAX package ships
-(pylbl_tpu/models/mt_ckd/mt_ckd_tables.npz, produced by
+The tables are ``mt_ckd_tables.npz`` beside this module, a copy of the JAX
+package's file (pylbl_tpu/models/mt_ckd/mt_ckd_tables.npz, produced by
 tools/convert_mtckd.py with the numeric content of the netCDF the reference
-reads at pyLBL/mt_ckd/utils.py:114-142).  The file is located through the
-import system's finder without importing ``pylbl_tpu`` (whose ``__init__``
-pulls in jax), so both packages read one copy.
+reads at pyLBL/mt_ckd/utils.py:114-142), held byte-identical to it by
+tests/test_torch_selfcontained.py.
 """
 import functools
-import importlib.util
 from pathlib import Path
 
 import numpy as np
 
-
-def _table_path():
-    spec = importlib.util.find_spec("pylbl_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise FileNotFoundError(
-            "pylbl_tpu package directory not found; the MT-CKD tables are "
-            "read from pylbl_tpu/models/mt_ckd/mt_ckd_tables.npz")
-    return (Path(list(spec.submodule_search_locations)[0]) / "models"
-            / "mt_ckd" / "mt_ckd_tables.npz")
+TABLES = Path(__file__).resolve().parent / "mt_ckd_tables.npz"
 
 
 @functools.lru_cache(maxsize=1)
 def _load(path=None):
-    return dict(np.load(path or _table_path()))
+    return dict(np.load(path or TABLES))
 
 
 class Table:

@@ -3,7 +3,8 @@
 The same dictionary surface as the reference (reference
 pyLBL/plugins.py:7-34): ``molecular_lines`` / ``continua`` /
 ``cross_sections`` keyed by backend name, unknown names raising KeyError,
-with the built-in backends registered, the ``register_*`` hooks, and
+with the built-in backends registered (and the optional "arts" lines
+backend when pyarts imports), the ``register_*`` hooks, and
 entry-point discovery in group "pylbl_tpu_torch" at import, so
 third-party backends plug in without this package importing them
 eagerly.  The group is not the JAX package's "pylbl_tpu": its entry
@@ -11,9 +12,9 @@ points name ``pylbl_tpu`` classes, and loading them would import JAX.
 """
 from re import match
 
+from .models import arts_frontend, mt_ckd
 from .models.arts_crossfit import CrossSection
 from .models.lines import Gas
-from .models import mt_ckd
 
 # Lines backends: key = model name, value = Gas-like class
 # (duck type: __init__(database, formula) +
@@ -41,6 +42,11 @@ continua = {
 cross_sections = {
     "arts_crossfit": CrossSection,
 }
+
+# The optional ARTS lines backend, registered when pyarts imports
+# (reference setup.py:56).
+if arts_frontend.ARTS_INSTALLED:
+    molecular_lines["arts"] = arts_frontend.PyArtsGas
 
 models = list({*molecular_lines, *continua, *cross_sections})
 

@@ -2,8 +2,9 @@
 
 Two libraries, both plain C interfaces bound with ctypes:
 
-- ``libpylbl_native.so`` from the repository's ``csrc/pylbl_native.cpp``
-  (g++), for the host pedestal scan (runtime/native.py);
+- ``libpylbl_native.so`` from ``pylbl_tpu_torch/csrc/pylbl_native.cpp``
+  (g++), for the HITRAN CSV parser and the host pedestal scan
+  (runtime/native.py);
 - ``liblineshape_cuda.so`` from ``pylbl_tpu_torch/csrc/lineshape.cu``
   (nvcc, ``sm_90a``), the hand-written wings and core kernels
   (ops/lineshape_cuda.py).

@@ -3,9 +3,10 @@
 A port of tests/test_cli_and_obs.py:49-92: ``compute`` (in-memory and
 ``--streamed``) against the port's own ``Spectroscopy`` (rtol 1e-12) and
 the JAX package's (in process, rel 5e-4, the float32 device-physics
-tolerance of tests/test_multigas.py), ``info``, and the refusal to start
-without a card unless ``--device cpu`` is given.  ``main(argv)`` runs in
-process wherever a subprocess is not the point.
+tolerance of tests/test_multigas.py), ``info``, the refusal to start
+without a card unless ``--device cpu`` is given, and ``create-db``
+against the JAX package's with stand-in web clients.  ``main(argv)`` runs
+in process wherever a subprocess is not the point.
 """
 import json
 import subprocess
@@ -154,3 +155,58 @@ def test_cli_refuses_without_a_card(inputs, tmp_path, capsys):
                             cwd=REPO)
     assert result.returncode != 0
     assert "CUDA is not available" in result.stderr
+
+
+@pytest.mark.parametrize("molecules", [None, "CO2"])
+def test_cli_create_db_matches_jax(tmp_path, monkeypatch, capsys,
+                                   molecules):
+    """``create-db`` with the web clients and the arts-crossfit download
+    stood in writes the database of the JAX package's ``cmd_create_db``,
+    and starts on a host without CUDA (it resolves no device)."""
+    import sqlite3
+
+    import pylbl_tpu.webapi as jweb
+    from pylbl_tpu.__main__ import main as jmain
+    from pylbl_tpu.webapi import arts_crossfit_api as jxsec
+
+    import pylbl_tpu_torch.webapi as tweb
+    from pylbl_tpu_torch.webapi import arts_crossfit_api as txsec
+
+    from test_ingest import FakeHitran, FakeTips
+
+    keys = []
+
+    def hitran(api_key):
+        keys.append(api_key)
+        return FakeHitran()
+
+    def download(directory, name=None, url=None):
+        (Path(directory) / "coefficients").mkdir()
+        for formula in ("CO2", "SF6"):
+            (Path(directory) / "coefficients" / f"{formula}.nc").touch()
+        return directory
+
+    for module, xsec in ((jweb, jxsec), (tweb, txsec)):
+        monkeypatch.setattr(module, "HitranWebApi", hitran)
+        monkeypatch.setattr(module, "TipsWebApi", FakeTips)
+        monkeypatch.setattr(xsec, "download", download)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    extra = [] if molecules is None else ["--molecules", molecules]
+    outs = {}
+    for name, run in (("jax", jmain), ("port", main)):
+        assert run(["create-db", "--database", str(tmp_path / f"{name}.db"),
+                    "--api-key", "KEY", "--xsec-dir",
+                    str(tmp_path / f"{name}-xsec"), *extra]) == 0
+        outs[name] = capsys.readouterr().out
+    assert keys == ["KEY", "KEY"]
+    assert outs["port"] == outs["jax"].replace("jax.db", "port.db")
+    assert outs["port"].endswith(f"created {tmp_path / 'port.db'}\n")
+    for table in ("molecule", "isotopologue", "molecule_alias", "transition",
+                  "tips", "artscrossfit"):
+        got, want = (sqlite3.connect(tmp_path / f"{name}.db").execute(
+            f"SELECT * FROM {table} ORDER BY id").fetchall()
+            for name in ("port", "jax"))
+        assert got == [tuple(v.replace("jax-xsec", "port-xsec")
+                             if isinstance(v, str) else v for v in row)
+                       for row in want], table
+        assert got, table
