@@ -106,6 +106,15 @@ kernels and the native pedestal scan from this checkout into ``build/``
     ``create`` with a cProfile of it, the native parse rate on H2O's
     text, the cold ``line_pack`` wall of the seven gases and the main
     path's cold and warm walls.
+17. the benchmark entry point, ``python -m pylbl_tpu_torch bench``, as a
+    subprocess at the JAX bench's widths (the 300k-line headline, 4
+    layers, 7 gases and 420k lines, 499,900 points x 16 layers x 7 gases,
+    a 1x1 mesh, the scaling tool): its compact line is last; every stage
+    is a record with no error and no invalid timing; each stage launched
+    its kernels; the float64 parities are below 5e-4; the sharded stage
+    ran the kernel branch, the scaling tool's every point too; the
+    headline rate lies within 0.5-2x of phase 8's.  It prints each
+    stage's rate, host syncs and peak memory beside the card.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -137,6 +146,12 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
+
+try:
+    from pylbl_tpu_torch.tools import (PEAK_BYTES, PEAK_OPS, class_ops,
+                                       core_ops, tile_ops)
+except ImportError:         # alone: main() reports the missing package
+    pass
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -180,6 +195,15 @@ KERNELS = {
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
+# Phase 17: the kernels each stage of the bench launches.
+BENCH_KERNELS = {
+    "headline": ("wings_strided_single", "core_segmix_single"),
+    "batched_4layer": ("wings_strided", "core_segmix"),
+    "multigas_7gas": ("wings_strided", "core_segmix"),
+    "config5": ("wings_splat", "core_segmix"),
+    "sharded_1chip": ("wings_strided", "core_segmix"),
+}
+BENCH_PARITY = ("headline", "batched_4layer", "multigas_7gas")
 PARITY_TOL = 5e-4
 # Phase 14's grid (lo, hi, step), column and block size: BASELINE config
 # 5 (bench.py prep_config5), 499,900 points per gas.
@@ -189,17 +213,10 @@ STREAM_BLOCK = 4
 # Phase 15: the (batch, spec) mesh of ranks sharing the card, the modes.
 SHARD_MESH = (2, 2)
 SHARD_MODES = ("balanced", "halo", "ring")
-# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores and
-# HBM3 bytes per second.
-PEAK_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# Operations per in-window evaluation (csrc/lineshape.cu): the Lorentzian
-# of the tile kernel, of the segment pass, and the Humlicek correction of
-# class k1 and of the other classes (region 1's path).
-OPS_LORENTZ = 7
+# Operations per in-window evaluation of the segment pass's Lorentzian
+# (csrc/lineshape.cu; the other counts and the card's peaks are
+# pylbl_tpu_torch/tools' PEAK_OPS, PEAK_BYTES and OPS_*).
 OPS_SEG_LORENTZ = 10
-OPS_K1 = 28
-OPS_REGIONS = 41
 CUT_OFF = 25
 # The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
 SURFACE = (288.99, 98388.0, 6.637074e-03)
@@ -357,36 +374,6 @@ def rel_diff(got, want, floor):
     return float((diff / den).max()), float(diff.max())
 
 
-def class_ops(torch, y):
-    """Operations per evaluated point of the correction class picked from
-    ``y`` (0 where y >= 70.55: skipped)."""
-    ops = torch.where(y >= 8.425, float(OPS_K1), float(OPS_REGIONS))
-    return torch.where(y >= 70.55, 0.0, ops.double())
-
-
-def tile_ops(torch, lc, soa, num_points, line):
-    """Operations the tile kernel's inputs need: each line's in-grid window
-    points (dead lines have empty windows), at the Lorentzian's cost or,
-    for the correction line function, at its own y's class."""
-    s = soa[..., lc.S_IDX, :].double().clamp_min(0)
-    e = soa[..., lc.E_IDX, :].double().clamp_max(num_points - 1)
-    points = (e - s + 1).clamp_min(0)
-    if line == "corr":
-        return float((points * class_ops(torch, soa[..., lc.Y, :])).sum())
-    return OPS_LORENTZ * float(points.sum())
-
-
-def core_ops(torch, lc, params):
-    """Operations of a segment core's parameter block: each instance's
-    in-window offsets of its 32-point segment, at its chunk's class."""
-    blocks = params.reshape(-1, lc.SEGP_ROWS, params.shape[-1] // 128, 128)
-    s = blocks[:, lc.SR_SREL].double().clamp_min(0)
-    e = blocks[:, lc.SR_EREL].double().clamp_max(31)
-    points = (e - s + 1).clamp_min(0).sum(dim=-1)
-    return float((points * class_ops(torch, blocks[:, lc.SR_Y].amin(-1)))
-                 .sum())
-
-
 def seg_wings_ops(torch, lc, params, plan):
     """Operations of the segment wings: each instance's window points in
     its chunk's 32-point segment."""
@@ -416,7 +403,7 @@ def rows_ops(torch, lc, groups, g_n, tile):
     s = torch.maximum(g[:, 5 * 8:6 * 8].double(), lo)
     e = torch.minimum(g[:, 6 * 8:7 * 8].double(), lo + row_w - 1)
     points = (e - s + 1).clamp_min(0).sum(dim=1)           # [B, G]
-    return float((points * class_ops(torch, g[:, lc.YMIN_ROW])).sum())
+    return float((points * class_ops(g[:, lc.YMIN_ROW])).sum())
 
 
 def core_csr(plan, params):
@@ -509,14 +496,14 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
             compare_kernel(torch, name, lambda: fn.core_pass(core),
                            lambda: fn.core_pass(core, plain=True),
                            records[name], reps=20,
-                           ops=core_ops(torch, lc, core),
+                           ops=core_ops(core),
                            inputs=[core, *core_csr(stage.core_plan, core)],
                            pieces=stage.core_plan.pieces)
         else:
             compare_kernel(torch, name, lambda: fn.wings_pass(soa),
                            lambda: fn.wings_pass(soa, plain=True),
                            records[name], reps=20,
-                           ops=tile_ops(torch, lc, soa, stage.n_out, "pre"),
+                           ops=tile_ops(soa, stage.n_out, "pre"),
                            inputs=[soa, *stage.csr_dev],
                            pieces=stage.wings_pieces)
 
@@ -651,13 +638,13 @@ def phase_gas(torch, P, lc, fixtures, records, card):
     compare_kernel(torch, "wings_strided_single", plan.wings_pass,
                    lambda: plan.wings_pass(plain=True),
                    records["wings_strided_single"], reps=20,
-                   ops=tile_ops(torch, lc, plan.soa, n, "pre"),
+                   ops=tile_ops(plan.soa, n, "pre"),
                    inputs=[plan.soa, plan.w_start, plan.w_n],
                    pieces=plan.wings_pieces)
     compare_kernel(torch, "core_segmix_single", plan.core_pass,
                    lambda: plan.core_pass(plain=True),
                    records["core_segmix_single"], reps=20,
-                   ops=core_ops(torch, lc, plan.groups),
+                   ops=core_ops(plan.groups),
                    inputs=[plan.groups, *core_csr(plan.core, plan.groups)],
                    pieces=plan.core.pieces)
     for name in ("wings_strided_single", "core_segmix_single"):
@@ -690,17 +677,18 @@ def phase_gas(torch, P, lc, fixtures, records, card):
     compare_kernel(torch, "tile_lorentz", plan_f.wings_pass,
                    lambda: plan_f.wings_pass(plain=True),
                    records["tile_lorentz"],
-                   ops=tile_ops(torch, lc, plan_f.soa, n_f, "raw"),
+                   ops=tile_ops(plan_f.soa, n_f, "raw"),
                    inputs=[plan_f.soa, plan_f.w_start, plan_f.w_n],
                    pieces=plan_f.wings_pieces)
     records["tile_lorentz"]["launches"] = counts9["tile_lorentz"]
     compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
                    plan_f.core_pass, lambda: plan_f.core_pass(plain=True),
-                   None, ops=core_ops(torch, lc, plan_f.groups),
+                   None, ops=core_ops(plan_f.groups),
                    inputs=[plan_f.groups,
                            *core_csr(plan_f.core, plan_f.groups)],
                    pieces=plan_f.core.pieces)
-    return gas, gas64, grid, kin, arrays, npv, n, plan, k64, k
+    return gas, gas64, grid, kin, arrays, npv, n, plan, k64, k, \
+        evals / (lines_ms / 1e3)
 
 
 def phase_gas_batch(torch, lc, gas, gas64, grid, col):
@@ -761,7 +749,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
         run = alt.core_pass if stage == "core" else alt.wings_pass
         own = name != "tile_lorentz"    # tile_lorentz's record is phase 9's
         if stage == "core":
-            ops = core_ops(torch, lc, alt.groups)
+            ops = core_ops(alt.groups)
             inputs = [alt.groups, *core_csr(alt.core, alt.groups)]
             pieces = alt.core.streams
         elif own:
@@ -769,7 +757,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
             inputs = [alt.soa, *core_csr(alt.wings, alt.soa)]
             pieces = alt.wings.streams
         else:
-            ops = tile_ops(torch, lc, alt.soa, n, "raw")
+            ops = tile_ops(alt.soa, n, "raw")
             inputs = [alt.soa, alt.w_start, alt.w_n]
             pieces = alt.wings_pieces
         compare_kernel(torch, name if own else f"{name} at 0.1 cm-1", run,
@@ -806,7 +794,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
     compare_kernel(torch, "tile_correction", scalar_core,
                    lambda: scalar_core(plain=True),
                    records["tile_correction"],
-                   ops=tile_ops(torch, lc, soa, n, "corr"),
+                   ops=tile_ops(soa, n, "corr"),
                    inputs=[soa, c_start, c_n],
                    pieces=lc.TilePieces.of_csr(c_n))
     records["tile_correction"]["launches"] = counts["tile_correction"]
@@ -840,7 +828,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
     compare_kernel(torch, "wings_strided_tail_single", tail_wings,
                    lambda: tail_wings(plain=True),
                    records["wings_strided_tail_single"],
-                   ops=tile_ops(torch, lc, soa_t, n, "pre"),
+                   ops=tile_ops(soa_t, n, "pre"),
                    inputs=[soa_t, *csr],
                    pieces=lc.TilePieces.of_csr(lay.w_n, lay.t_n))
     records["wings_strided_tail_single"]["launches"] = \
@@ -929,7 +917,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
         return fn(soa, st, nc, n, 1024, stride)
 
     got = exact("wings_strided_checked_single", checked,
-                lambda: checked(True), ops=tile_ops(torch, lc, soa, n, "own"),
+                lambda: checked(True), ops=tile_ops(soa, n, "own"),
                 inputs=[soa, st, nc], pieces=lc.TilePieces.of_csr(nc))
     ref = plan.wings_pass()
     rel = float((got - ref).abs().max() / ref.abs().max())
@@ -992,7 +980,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     compare_kernel(torch, "seg_core at 16 layers",
                    lambda: fn_seg.core_pass(core_seg),
                    lambda: fn_seg.core_pass(core_seg, plain=True), sixteen,
-                   ops=core_ops(torch, lc, core_seg),
+                   ops=core_ops(core_seg),
                    inputs=[core_seg, *core_csr(fn_seg.core_plan, core_seg)],
                    pieces=fn_seg.core_plan.streams)
     records["seg_core"].update(launches_16_layers=counts["seg_core"],
@@ -1030,7 +1018,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     records["wings_strided_checked"]["launches"] = \
         lc.LAUNCHES["wings_strided_checked"]
     exact("wings_strided_checked", checked2, lambda: checked2(True),
-          ops=tile_ops(torch, lc, soa2, n, "own"), inputs=[soa2, st2, nc2],
+          ops=tile_ops(soa2, n, "own"), inputs=[soa2, st2, nc2],
           pieces=lc.TilePieces.of_csr(nc2))
     for b in range(2):
         one = lc.wings_strided_checked_pass(soa2[b], st2, nc2, n, 1024,
@@ -1412,12 +1400,12 @@ def shard_kernels(torch, lc, step, t, p, x, timed):
                    lambda: stage.wings_pass(soa),
                    lambda: stage.wings_pass(soa, plain=True),
                    records["wings_strided"], reps=10,
-                   ops=tile_ops(torch, lc, soa, n_out, "pre"), inputs=[soa])
+                   ops=tile_ops(soa, n_out, "pre"), inputs=[soa])
     compare_kernel(torch, "phase 15 shard core_segmix",
                    lambda: stage.core_pass(core),
                    lambda: stage.core_pass(core, plain=True),
                    records["core_segmix"], reps=10,
-                   ops=core_ops(torch, lc, core), inputs=[core])
+                   ops=core_ops(core), inputs=[core])
     return [True, True], records
 
 
@@ -1700,6 +1688,84 @@ def phase_ingest(torch, P, lc, native, packs, db_a, col_a, grid_a, total_a,
     print(f"phase 16 took {time.perf_counter() - start:.1f} s")
 
 
+def flagged(value):
+    """The strings in a bench record that mark a failed, skipped or
+    invalid measurement."""
+    if isinstance(value, dict):
+        return [f for v in value.values() for f in flagged(v)]
+    if isinstance(value, list):
+        return [f for v in value for f in flagged(v)]
+    if isinstance(value, str) and (value.startswith(("error", "skipped"))
+                                   or "invalid" in value):
+        return [value]
+    return []
+
+
+def phase_bench(headline_rate, card, records):
+    """Phase 17: ``python -m pylbl_tpu_torch bench`` as a user runs it, at
+    the JAX bench's widths."""
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "pylbl_tpu_torch", "bench"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    (WORK / "bench.out").write_text(done.stdout + done.stderr)
+    check(done.returncode == 0, f"phase 17 bench exited 0 (exit "
+          f"{done.returncode}: {done.stderr[-600:]})")
+    lines = done.stdout.strip().splitlines()
+    full, compact = json.loads(lines[-2]), json.loads(lines[-1])
+    extra = full["extra"]
+    print(f"phase 17 bench ({time.perf_counter() - start:.1f} s): "
+          f"{extra['card']}, {json.dumps(extra['versions'])}, build "
+          f"{extra['build_s']:.2f} s")
+    print(f"  compact: {lines[-1]}")
+    check(set(compact) == {"metric", "value", "unit", "vs_baseline",
+                           "parity_max_rel", "stages", "scaling_eff_at_4"},
+          "phase 17 the compact line is last, with the JAX keys")
+    stages = {name: extra.get(name) for name in (
+        *BENCH_KERNELS, "scaling")}
+    for name, record in stages.items():
+        bad = flagged(record) if isinstance(record, dict) else [record]
+        check(not bad, f"phase 17 {name} is a record with no error or "
+              f"invalid timing {bad}")
+    for name, kernels in BENCH_KERNELS.items():
+        record = stages[name]
+        rate_hi = record.get("rate_hi")
+        print(f"  {name}: {record['evals_per_s']:.6e} evaluations/s "
+              f"({record.get('method', 'streamed wall')}; band top "
+              f"{rate_hi if rate_hi is None else f'{rate_hi:.6e}'}), "
+              f"launches {record['launches']}, host syncs "
+              f"{record['host_syncs']}, peak {record['peak_gib']:.4f} GiB, "
+              f"stage {record['stage_wall_s']:.1f} s on {card}")
+        check(all(record["launches"].get(k, 0) > 0 for k in kernels),
+              f"phase 17 {name} launched {kernels}")
+        for k in kernels:
+            records[k]["launches_bench"] = records[k].get(
+                "launches_bench", 0) + record["launches"][k]
+    c5 = stages["config5"]
+    print(f"  config5 streamed: wall {c5['wall_s']:.4f} s (cold "
+          f"{c5['cold_wall_s']:.4f}), compute+fetch "
+          f"{c5['compute_fetch_s']:.4f} s, write {c5['write_s']:.4f} s "
+          f"({c5['writer']}, {c5['bytes_written']} bytes); a block's "
+          f"fn.inner {c5['device_ms_per_block']:.4f} ms = "
+          f"{c5['device_evals_per_s']:.6e} evaluations/s")
+    for name in BENCH_PARITY:
+        err = stages[name]["max_rel_err_vs_float64"]
+        check(err < PARITY_TOL, f"phase 17 {name} within {PARITY_TOL} of "
+              f"float64 ({err:.3e})")
+    check(stages["sharded_1chip"]["backend"] == "kernel",
+          "phase 17 sharded_1chip ran the kernel branch")
+    points = [r for key in ("scaling", "halo", "ring")
+              for r in stages["scaling"].get(key, [])]
+    check(points and all(r["backend"] == "kernel" for r in points),
+          f"phase 17 scaling: every point ran the kernel branch "
+          f"(efficiency at 4: {stages['scaling']['efficiency_at_4']})")
+    ratio = compact["value"] / headline_rate
+    print(f"  headline {compact['value']:.6e}/s against phase 8's "
+          f"{headline_rate:.6e}/s: {ratio:.4f}")
+    check(0.5 <= ratio <= 2.0, "phase 17 headline within 0.5-2x of phase 8")
+    print(f"phase 17 took {time.perf_counter() - start:.1f} s")
+
+
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
     registers, shared memory and spill bytes."""
@@ -1864,7 +1930,8 @@ def main():
     breakdown(torch, spec_a, col_a)
 
     # Phases 8-11: the single-gas engine.
-    gas, gas64, grid_h, kin, arrays, npv, n, plan, k64, k_c = phase_gas(
+    gas, gas64, grid_h, kin, arrays, npv, n, plan, k64, k_c, rate = \
+        phase_gas(
         torch, P, lc, fixtures, records, card)
     phase_gas_batch(torch, lc, gas, gas64, grid_h, col_a)
     phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records)
@@ -1877,6 +1944,7 @@ def main():
                   records)
     phase_ingest(torch, P, lc, native, packs, db, col_a, grid_a, total_a,
                  records)
+    phase_bench(rate, card, records)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

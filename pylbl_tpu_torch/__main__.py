@@ -6,12 +6,15 @@
         --format total
     python -m pylbl_tpu_torch create-db --database spectra.db \
         --api-key KEY [--molecules H2O,CO2] [--xsec-dir .cross-sections]
+    python -m pylbl_tpu_torch bench
 
 ``info`` and ``compute`` run on the CUDA card by default and refuse to
 start without one; ``--device cpu`` runs them on the host (the kernels'
 plain versions).  ``create-db`` downloads from the HITRAN and TIPS web
 services and the arts-crossfit archive into a database; it launches
-nothing and runs on any host.
+nothing and runs on any host.  ``bench`` (``pylbl_tpu_torch/bench.py``)
+measures the kernels on the card and exits 2 without one: its last two
+lines are the full record and the compact headline (JSON).
 Under torchrun, ``compute --mesh BxS`` shards the lines over a (batch,
 spec) mesh of the ranks (one card per rank over NCCL; ranks that share a
 card, or CPU ranks, over gloo)::
@@ -114,6 +117,11 @@ def cmd_create_db(args):
     return 0
 
 
+def cmd_bench(args):
+    from .bench import main as bench_main
+    return bench_main([])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="pylbl_tpu_torch")
     parser.add_argument("--device", default="cuda",
@@ -160,9 +168,16 @@ def main(argv=None):
                         help="comma-separated formulae (default: all)")
     create.add_argument("--xsec-dir", default=".cross-sections")
 
+    sub.add_parser("bench", help="benchmark the kernels on the CUDA card "
+                   "(pylbl_tpu_torch/bench.py; no CPU fallback)")
+
     args = parser.parse_args(argv)
     if args.command == "create-db":
         return cmd_create_db(args)
+    if args.command == "bench":
+        if args.device != "cuda":
+            parser.error("bench runs on the CUDA card only")
+        return cmd_bench(args)
     from .runtime.device import resolve_device
     try:
         device = resolve_device(args.device)

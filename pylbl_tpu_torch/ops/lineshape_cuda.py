@@ -421,9 +421,10 @@ def segment_params(ka_inst, seg0f, slotf, dead):
             ka_inst["e_idx"].to(dtype) - seg0f,
             slotf.to(dtype))
     rows = torch.broadcast_tensors(*rows)
-    return torch.stack([torch.where(dead, torch.as_tensor(
-        f, dtype=dtype, device=seg0f.device), r)
-        for f, r in zip(_SEG_FILLS, rows)], dim=-2)
+    # Python scalar fills: a fill made a card tensor would be a host copy
+    # that waits for the card on every call.
+    return torch.stack([torch.where(dead, float(f), r)
+                        for f, r in zip(_SEG_FILLS, rows)], dim=-2)
 
 
 def core_instance_windows(kernel_arrays, kin, num_points, n_per_v, cut_off):

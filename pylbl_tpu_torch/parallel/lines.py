@@ -372,13 +372,19 @@ def _pad_to_chunk(kernel_arrays, chunk):
             for name, value in fill.items()}
 
 
+def _host64(value):
+    return np.asarray(value.cpu() if isinstance(value, torch.Tensor)
+                      else value, np.float64)
+
+
 def _envelope_guard(t_max, p_max_atm):
     """Refuses layers outside the (t_max, p_max_atm) envelope the
     core-instance windows were sized for: core-correction coverage would
-    silently degrade at window edges there."""
+    silently degrade at window edges there.  The check reads the layers on
+    the host: on card tensors it waits for the card."""
     def check(temperature, pressure):
-        t_check = np.asarray(temperature.cpu(), np.float64)
-        p_check = np.asarray(pressure.cpu(), np.float64) * c.PA_TO_ATM
+        t_check = _host64(temperature)
+        p_check = _host64(pressure) * c.PA_TO_ATM
         if t_check.size and float(t_check.max()) > t_max:
             raise ValueError(
                 f"temperature {float(t_check.max()):.1f} K exceeds the "
@@ -566,7 +572,10 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         tensor of absorption cross sections [m2] on the internal grid,
         gases ordered as ``fn.names`` = ``list(packs)``.
         ``fn.total(t, p, vmr)`` returns the density-weighted gas sum [B,
-        num_points] in m-1.
+        num_points] in m-1.  ``fn.inner`` and ``fn.inner_total`` are the
+        two without the envelope guard, whose host read of the layers
+        waits for the card (a caller that checked the layers once with
+        ``fn.check_envelope(t, p)`` keeps its calls free of host syncs).
     """
     backend = resolve_backend(backend, device)
     dtype = resolve_dtype(dtype)
@@ -586,8 +595,6 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         t = _layer_tensor(temperature, device, dtype).reshape(-1)
         p = _layer_tensor(pressure, device, dtype).reshape(-1)
         x = _layer_tensor(vmr, device, dtype).reshape(t.shape[0], -1)
-        if backend != "xla":
-            guard(t, p)
         return t, p, x
 
     def _total(k, t, p, x):
@@ -597,14 +604,33 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
             total = total + k[:, g] * n_density[:, g, None]
         return total
 
+    def _pipeline(run, guarded):
+        """fn, fn.total and the unguarded fn.inner and fn.inner_total
+        around ``run(t, p, x)`` -> [B, G, num_points] on layer tensors."""
+        def inputs(temperature, pressure, vmr, check):
+            t, p, x = _inputs(temperature, pressure, vmr)
+            if check and guarded:
+                guard(t, p)
+            return t, p, x
+
+        def weighted(temperature, pressure, vmr, check):
+            t, p, x = inputs(temperature, pressure, vmr, check)
+            return _total(run(t, p, x), t, p, x)
+
+        def fn(temperature, pressure, vmr):
+            return run(*inputs(temperature, pressure, vmr, True))
+
+        fn.inner = lambda t, p, x: run(*inputs(t, p, x, False))
+        fn.total = lambda t, p, x: weighted(t, p, x, True)
+        fn.inner_total = lambda t, p, x: weighted(t, p, x, False)
+        fn.check_envelope = guard
+        fn.names = names
+        return fn
+
     if static["num_lines"] == 0:
-        def empty(temperature, pressure, vmr):
-            t, _, _ = _inputs(temperature, pressure, vmr)
-            return torch.zeros((t.shape[0], num_gases, num_points),
-                               dtype=dtype, device=device)
-        empty.total = lambda t, p, x: empty(t, p, x).sum(dim=1)
-        empty.names = names
-        return empty
+        return _pipeline(lambda t, p, x: torch.zeros(
+            (t.shape[0], num_gases, num_points), dtype=dtype, device=device),
+            backend != "xla")
 
     if backend == "xla":
         # JAX's portable branch: its fixed core half width (not
@@ -620,16 +646,7 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
                                    core_w, chunk)
             return k.reshape(t.shape[0], num_gases, num_points)
 
-        def fn_xla(temperature, pressure, vmr):
-            return run_xla(*_inputs(temperature, pressure, vmr))
-
-        def total_xla(temperature, pressure, vmr):
-            t, p, x = _inputs(temperature, pressure, vmr)
-            return _total(run_xla(t, p, x), t, p, x)
-
-        fn_xla.total = total_xla
-        fn_xla.names = names
-        return fn_xla
+        return _pipeline(run_xla, False)
 
     # Flat windows for the CSR, from unshifted positions +/-1 wavenumber
     # slop, clamped per gas segment then offset; core instance windows
@@ -646,19 +663,15 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     stage = _LineStage(arrays_np, static, off + s_loc, off + e_loc, core_lo,
                        core_hi, y_ref, flat_points, tile, chunk, core_mode,
                        wings_tail, device, dtype, backend == "plain")
+    fn = _pipeline(lambda t, p, x: stage.run(t, p, x).reshape(
+        t.shape[0], num_gases, num_points), True)
 
-    def fn(temperature, pressure, vmr):
+    def assemble(temperature, pressure, vmr):
         t, p, x = _inputs(temperature, pressure, vmr)
-        return stage.run(t, p, x).reshape(t.shape[0], num_gases, num_points)
+        guard(t, p)
+        return stage.assemble(t, p, x)
 
-    def total(temperature, pressure, vmr):
-        t, p, x = _inputs(temperature, pressure, vmr)
-        k = stage.run(t, p, x).reshape(t.shape[0], num_gases, num_points)
-        return _total(k, t, p, x)
-
-    fn.total = total
-    fn.assemble = lambda t, p, x: stage.assemble(*_inputs(t, p, x))
-    fn.names = names
+    fn.assemble = assemble
     return stage.attach(fn)
 
 

@@ -12,6 +12,11 @@
 - ``bench_scaling``: the line-sharded step at spec 1, 2 and 4 on gloo
   ranks that share the card (work-model efficiency, float64 error).
 
+The benchmark entry point, ``python -m pylbl_tpu_torch bench``
+(``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
+``chip_smoke.py``: the operation counts below set both the kernel records'
+bounds and the top of the bench's plausibility band.
+
 They time CUDA kernels with CUDA events, so their entry points need a CUDA
 card and exit non-zero without one; there is no CPU fallback.  The
 workload and plan builders run on any device (the tests build them on the
@@ -24,10 +29,23 @@ import numpy as np
 import torch
 
 from ..database.fixtures import synthetic_line_pack
+from ..ops import lineshape_cuda as lc
 
 CUT_OFF = 25
 # The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
 SURFACE = (288.99, 98388.0, 6.637074e-03)
+# H100 SXM peaks (NVIDIA's data sheet, at its 700 W limit): FP32 outside
+# the tensor cores and HBM3 bytes per second.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per in-window evaluation, counted from csrc/lineshape.cu (each
+# add, multiply, divide, sqrt and exp one): the Lorentzian of the tile
+# kernel, a Humlicek k1 correction and a k12/k123/full correction (region
+# 1's path, the one beyond xlim1; points nearer the center cost more, so a
+# bound from these counts stays below the work).
+OPS_LORENTZ = 7
+OPS_K1 = 28
+OPS_REGIONS = 41
 
 
 class NoCudaError(RuntimeError):
@@ -104,7 +122,44 @@ def headline_workload(num_lines=300000, step=0.1):
                           np.arange(1.0, 5000.0, step))
 
 
+def window_evals(keep, n_per_v):
+    """The JAX package's headline unit (bench.py ``window_evals``): ``keep``
+    lines x ((2 * cut_off + 1) * n_per_v + 1) masked line-point
+    evaluations."""
+    return keep * ((2 * CUT_OFF + 1) * n_per_v + 1)
+
+
 def masked_evals(work):
-    """The JAX package's headline unit for one layer: kept lines x
-    ((2 * cut_off + 1) * n_per_v + 1) masked line-point evaluations."""
-    return work["keep"] * ((2 * CUT_OFF + 1) * work["npv"] + 1)
+    """:func:`window_evals` of one layer's workload."""
+    return window_evals(work["keep"], work["npv"])
+
+
+def class_ops(y):
+    """Operations per evaluated point of the correction class picked from
+    ``y`` (0 where y >= 70.55: skipped)."""
+    ops = torch.where(y >= 8.425, float(OPS_K1), float(OPS_REGIONS))
+    return torch.where(y >= 70.55, 0.0, ops.double())
+
+
+def tile_ops(soa, num_points, line):
+    """Operations a tile kernel's SoA [..., 8, N] needs: each line's in-grid
+    window points (dead lines have empty windows), at the Lorentzian's cost
+    or, for the correction line function ``line="corr"``, at its own y's
+    class."""
+    s = soa[..., lc.S_IDX, :].double().clamp_min(0)
+    e = soa[..., lc.E_IDX, :].double().clamp_max(num_points - 1)
+    points = (e - s + 1).clamp_min(0)
+    if line == "corr":
+        return float((points * class_ops(soa[..., lc.Y, :])).sum())
+    return OPS_LORENTZ * float(points.sum())
+
+
+def core_ops(params):
+    """Operations of a segment core's parameter block [..., 8, I]: each
+    instance's in-window offsets of its 32-point segment, at its chunk's
+    class."""
+    blocks = params.reshape(-1, lc.SEGP_ROWS, params.shape[-1] // 128, 128)
+    s = blocks[:, lc.SR_SREL].double().clamp_min(0)
+    e = blocks[:, lc.SR_EREL].double().clamp_max(31)
+    points = (e - s + 1).clamp_min(0).sum(dim=-1)
+    return float((points * class_ops(blocks[:, lc.SR_Y].amin(-1))).sum())

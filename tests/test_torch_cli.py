@@ -4,8 +4,9 @@ A port of tests/test_cli_and_obs.py:49-92: ``compute`` (in-memory and
 ``--streamed``) against the port's own ``Spectroscopy`` (rtol 1e-12) and
 the JAX package's (in process, rel 5e-4, the float32 device-physics
 tolerance of tests/test_multigas.py), ``info``, the refusal to start
-without a card unless ``--device cpu`` is given, and ``create-db``
-against the JAX package's with stand-in web clients.  ``main(argv)`` runs
+without a card unless ``--device cpu`` is given, ``bench``'s refusal to
+start without a card, and ``create-db`` against the JAX package's with
+stand-in web clients.  ``main(argv)`` runs
 in process wherever a subprocess is not the point.
 """
 import json
@@ -155,6 +156,28 @@ def test_cli_refuses_without_a_card(inputs, tmp_path, capsys):
                             cwd=REPO)
     assert result.returncode != 0
     assert "CUDA is not available" in result.stderr
+
+
+@pytest.mark.parametrize("command", [["pylbl_tpu_torch", "bench"],
+                                     ["pylbl_tpu_torch.bench"]])
+def test_bench_refuses_without_a_card(command):
+    """``python -m pylbl_tpu_torch bench`` (and the module itself) without
+    CUDA exits 2 and says why: the bench has no CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    result = subprocess.run([sys.executable, "-m", *command],
+                            capture_output=True, text=True, timeout=240,
+                            cwd=REPO)
+    assert result.returncode == 2
+    assert "needs a CUDA card" in result.stdout
+    assert "{" not in result.stdout
+
+
+def test_bench_refuses_another_device(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(["--device", "cpu", "bench"])
+    assert exc.value.code == 2
+    assert "CUDA card only" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("molecules", [None, "CO2"])

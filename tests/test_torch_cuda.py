@@ -690,3 +690,33 @@ def test_nccl_refuses_ranks_sharing_a_card(monkeypatch):
         distributed.initialize(init_method="tcp://localhost:1",
                                world_size=cards + 1, rank=0,
                                backend="nccl")
+
+
+@pytest.mark.gpu
+def test_bench_stages_on_card(cuda_device, tmp_path):
+    """The bench's stages at a small size on the card: CUDA-event timing
+    inside the band, each stage's kernels launched, no host sync inside
+    a timed call (config 5: in a block's dispatch), the float64 parity."""
+    from pylbl_tpu_torch import bench
+
+    pack, _ = bench.build_workload(2000)
+    grid = np.arange(1.0, 500.0, 0.1)
+    gases = bench.multigas_packs(2000, 500)
+    stages = [
+        (lambda: bench.headline(pack, grid, device=cuda_device)[0],
+         ("wings_strided_single", "core_segmix_single")),
+        (lambda: bench.multigas(gases, grid, 2, device=cuda_device)[0],
+         ("wings_strided", "core_segmix")),
+        (lambda: bench.config5(gases, np.arange(1.0, 100.0, 0.01), tmp_path,
+                               num_layers=4, block=2,
+                               device=cuda_device)[0],
+         ("wings_splat", "core_segmix")),
+    ]
+    for stage, kernels in stages:
+        record = bench.tracked(stage, cuda_device)
+        assert all(record["launches"].get(k, 0) > 0 for k in kernels)
+        assert record["host_syncs"] == {}
+        assert record.get("method", record.get("device_method")) \
+            == bench.METHOD
+        assert record.get("max_rel_err_vs_float64", 0.0) < 5e-4
+        assert record["peak_gib"] > 0

@@ -5,7 +5,8 @@ the MT-CKD tables and the native C++ source; these tests hold each copy
 byte-identical to its original, and run the port from a copy of
 ``pylbl_tpu_torch/`` alone in an isolated subprocess (``python -I``, the
 copy's directory first on ``sys.path``) that refuses to import ``jax`` and
-``pylbl_tpu``: the six MT-CKD continua and a pedestal-removed ``Gas``
+``pylbl_tpu`` and imports the bench entry point (which finds no oracle
+beside the copy): the six MT-CKD continua and a pedestal-removed ``Gas``
 spectrum (which builds the native scan with g++ into the copy's
 ``build/``), on the CPU, equal to the same calls in this process.
 """
@@ -58,6 +59,7 @@ args = json.loads(sys.argv[1])
 sys.path.insert(0, args["root"])
 import numpy as np
 import pylbl_tpu_torch
+import pylbl_tpu_torch.bench
 from pylbl_tpu_torch.database.fixtures import synthetic_line_pack
 from pylbl_tpu_torch.models import mt_ckd
 from pylbl_tpu_torch.runtime import build, native
@@ -75,6 +77,8 @@ out["gas"] = np.asarray(gas.absorption_coefficient(
     288.99, 98388.0, 6.6e-3, np.arange(*args["line_grid"]),
     remove_pedestal=True)).tolist()
 out["native"] = str(build.BUILD_DIR / "libpylbl_native.so")
+out["bench"] = pylbl_tpu_torch.bench.__file__
+out["oracle"] = pylbl_tpu_torch.bench.load_oracle()
 out["refused"] = [m for m in ("jax", "pylbl_tpu") if m in sys.modules]
 print(json.dumps(out))
 """
@@ -122,6 +126,8 @@ def test_port_runs_from_its_own_directory(tmp_path):
     out = json.loads(result.stdout.strip().splitlines()[-1])
     assert Path(out["package"]).parent == tmp_path / "pylbl_tpu_torch"
     assert out["refused"] == []
+    assert Path(out["bench"]).parent == tmp_path / "pylbl_tpu_torch"
+    assert out["oracle"] is None
     built = tmp_path / "build" / "pylbl_tpu_torch" / "libpylbl_native.so"
     assert out["native"] == str(built) and built.exists()
 
