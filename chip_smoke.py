@@ -115,6 +115,22 @@ kernels and the native pedestal scan from this checkout into ``build/``
     ran the kernel branch, the scaling tool's every point too; the
     headline rate lies within 0.5-2x of phase 8's.  It prints each
     stage's rate, host syncs and peak memory beside the card.
+18. the JAX package's API on the card: A and B through
+    ``make_multigas_batched_fn(..., wings_chunk=128)`` on layers 0 and 15
+    (the strided wings with the tail class, then the splat CSR at chunk
+    128 where it takes 512): each path's launches, each kernel against
+    its plain version bit for bit, timed beside phase 5's chunk-256/512
+    times with bounds from the same operation count, the lines total
+    within 5e-4 of the float64 plain pipeline (phase 6's for A); the
+    installed layout: ``pylbl_tpu_torch/`` copied alone, run by
+    ``python -I -B`` with ``runtime/build.py`` ``can_write`` reporting the
+    copy's parent unwritable and ``XDG_CACHE_HOME`` in a second temporary
+    directory, builds both libraries (nvcc and g++) into the cache, runs
+    the headline layer through ``Gas(..., device="cuda")`` with phase 8's
+    spectrum bit for bit, and writes nothing beside the copy; then
+    ``Gas(pack, "H2O", np.float32)`` by position (phase 8's spectrum bit
+    for bit) and ``make_batched_tpu_fn`` by position against
+    ``make_batched_fn`` on two of phase 10's layers, bit for bit.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -220,6 +236,36 @@ OPS_SEG_LORENTZ = 10
 CUT_OFF = 25
 # The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
 SURFACE = (288.99, 98388.0, 6.637074e-03)
+# Phase 18: the wings chunk the JAX callers pass (the TPU's tail chunk).
+WINGS_CHUNK = 128
+# Phase 18: the port run from a lone copy, its build in the user cache.
+INSTALLED = r"""
+import concurrent.futures, json, sys
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["root"])
+from pylbl_tpu_torch.runtime import build
+build.can_write = lambda path: False
+import numpy as np
+import pylbl_tpu_torch as P
+from pylbl_tpu_torch.database import fixtures
+from pylbl_tpu_torch.ops import lineshape_cuda as lc
+from pylbl_tpu_torch.runtime import native
+with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    for done in [pool.submit(lc.cuda_library), pool.submit(native.load)]:
+        done.result()
+pack = fixtures.synthetic_line_pack(
+    num_lines=300000, nu_min=0.5, nu_max=5100.0, seed=1,
+    band_centers=(150.0, 1600.0, 3700.0, 500.0))
+lc.reset_launches()
+k = P.Gas(pack, "H2O", device="cuda").absorption_coefficient(
+    *args["surface"], np.arange(1.0, 5000.0, 0.1))
+np.save(args["out"], k)
+print(json.dumps({
+    "build_dir": str(build.BUILD_DIR), "package": P.__file__,
+    "libs": sorted(p.name for p in build.BUILD_DIR.glob("*.so")),
+    "launches": dict(lc.LAUNCHES),
+    "refused": [m for m in ("jax", "pylbl_tpu") if m in sys.modules]}))
+"""
 
 
 class CheckFailed(Exception):
@@ -1118,7 +1164,8 @@ def phase_portable(torch, P, lc, db_path, gas, grid, k64, k_kernel, spec_a,
     spectrum_parity(torch, "phase 13 C (xla)", k, k64)
 
     spelled = P.Gas(gas.pack, "H2O", device="cuda", dtype=np.float32)
-    check(spelled.backend == "kernel" and spelled.dtype == torch.float32,
+    check(spelled.backend == "kernel" and spelled.torch_dtype == torch.float32
+          and spelled.dtype == np.float32,
           "Gas(dtype=np.float32) is the float32 kernel path")
     check(np.array_equal(spelled.absorption_coefficient(*SURFACE, grid),
                          k_kernel),
@@ -1701,6 +1748,144 @@ def flagged(value):
     return []
 
 
+def layer_pair(dataset, names):
+    """Layers 0 and 15 of ``dataset`` as (t, p, x[2, G]) in ``names``
+    order."""
+    t = np.asarray(dataset["t"].data)[[0, -1]]
+    p = np.asarray(dataset["p"].data)[[0, -1]]
+    x = np.stack([np.asarray(dataset[n.lower()].data)[[0, -1]]
+                  for n in names], axis=1)
+    return t, p, x
+
+
+def phase_wings_chunk(torch, lc, packs, spec, two, grid, label, ref64,
+                      wings, records):
+    """Phase 18.1/18.2: the stacked pipeline of phase 3 or 4 (``spec``: its
+    kernel envelope) at ``wings_chunk=128``: its launches and lines total
+    on layers 0 and 15 (``two``) against the float64 plain pipeline
+    ``ref64``, its two kernels against their plain versions on phase 5's
+    inputs (the first two layers of ``spec``'s column), beside phase 5's
+    records.  Each bound counts the operations (``tools.tile_ops``) of its
+    own layout's SoA: a strided layout copies a line into every tile its
+    window reaches, so the count moves with the chunk."""
+    from pylbl_tpu_torch.parallel import make_multigas_batched_fn
+
+    t_max, p_max_atm = spec._envelope
+    fn = make_multigas_batched_fn(packs, grid, t_max=t_max,
+                                  p_max_atm=p_max_atm,
+                                  wings_chunk=WINGS_CHUNK, device="cuda")
+    check(fn.wings_chunk == WINGS_CHUNK and (fn.wings_stride is not None)
+          == (wings == "wings_strided"), f"phase 18 {label}: {wings} at "
+          f"wings_chunk {fn.wings_chunk} (stride {fn.wings_stride})")
+    if wings == "wings_strided":
+        check(fn.wings_tail_csr is not None,
+              f"phase 18 {label}: the strided layout has the tail class")
+    t, p, x = layer_pair(two, fn.names)
+    lc.reset_launches()
+    total = fn.total(t, p, x)
+    torch.cuda.synchronize()
+    counts = dict(lc.LAUNCHES)
+    print(f"phase 18 {label} (wings_chunk {WINGS_CHUNK}): launches {counts}")
+    check(counts[wings] > 0 and counts["core_segmix"] > 0,
+          f"phase 18 {label} launched {wings} and core_segmix")
+    chunked = {f"{wings} at wings_chunk {WINGS_CHUNK}": {},
+               f"core_segmix at wings_chunk {WINGS_CHUNK}": {}}
+    phase_kernels(torch, lc, fn, spec.atmosphere.dataset, list(chunked),
+                  chunked)
+    got = chunked[f"{wings} at wings_chunk {WINGS_CHUNK}"]
+    base = records[wings]
+    print(f"  {wings}: {got['ms']:.4f} ms at chunk {WINGS_CHUNK} (bound "
+          f"{got['bound_ms']:.6f} ms, {got['operations']:.6e} operations), "
+          f"{base['ms']:.4f} ms at phase 5's chunk (bound "
+          f"{base['bound_ms']:.6f} ms, {base['operations']:.6e} "
+          "operations)")
+    base.update({f"{key}_wings_chunk_{WINGS_CHUNK}": got[key]
+                 for key in ("ms", "plain_ms", "bound_ms", "operations",
+                             "bytes")})
+    base[f"launches_wings_chunk_{WINGS_CHUNK}"] = counts[wings]
+    rel, err = rel_diff(total, ref64.total(*layer_pair(two, ref64.names)),
+                        1e-6)
+    print(f"  lines total vs float64 plain: max rel {rel:.3e}, max abs "
+          f"{err:.3e} m-1")
+    check(rel < PARITY_TOL, f"phase 18 {label} lines total within "
+          f"{PARITY_TOL} of float64")
+
+
+def phase_installed(torch, k_c):
+    """Phase 18.3: the package copied alone, its build in the user cache
+    (``can_write`` reports the copy's parent unwritable), the headline
+    layer's spectrum equal to phase 8's."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as site, \
+            tempfile.TemporaryDirectory() as cache, \
+            tempfile.TemporaryDirectory() as out:
+        site, cache, out = Path(site), Path(cache), Path(out)
+        shutil.copytree(ROOT / "pylbl_tpu_torch", site / "pylbl_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        before = sorted(str(q) for q in site.rglob("*"))
+        env = dict(os.environ, XDG_CACHE_HOME=str(cache))
+        args = {"root": str(site), "surface": SURFACE,
+                "out": str(out / "k.npy")}
+        start = time.perf_counter()
+        done = subprocess.run([sys.executable, "-I", "-B", "-c", INSTALLED,
+                               json.dumps(args)], capture_output=True,
+                              text=True, timeout=600, env=env, cwd=out)
+        wall = time.perf_counter() - start
+        check(done.returncode == 0, "phase 18 the lone copy ran (exit "
+              f"{done.returncode}: {done.stderr[-800:]})")
+        got = json.loads(done.stdout.strip().splitlines()[-1])
+        print(f"phase 18 installed layout ({wall:.1f} s, both builds "
+              f"included): {json.dumps(got)}")
+        check(got["build_dir"] == str(cache / "pylbl_tpu_torch")
+              and got["libs"] == ["liblineshape_cuda.so",
+                                  "libpylbl_native.so"],
+              "phase 18 both libraries built into $XDG_CACHE_HOME")
+        check(Path(got["package"]).parent == site / "pylbl_tpu_torch"
+              and not got["refused"],
+              "phase 18 ran the copy, importing neither jax nor pylbl_tpu")
+        check(got["launches"].get("wings_strided_single", 0) > 0
+              and got["launches"].get("core_segmix_single", 0) > 0,
+              "phase 18 the copy launched the single-layer kernels")
+        check(sorted(str(q) for q in site.rglob("*")) == before,
+              "phase 18 nothing was written beside or into the copy")
+        check(np.array_equal(np.load(out / "k.npy"), k_c),
+              "phase 18 the copy's spectrum equals phase 8's bit for bit")
+
+
+def phase_compat(torch, P, lc, pack, grid, col, k_c):
+    """Phase 18.4: the JAX positional calls: ``Gas(pack, formula,
+    dtype)`` and ``make_batched_tpu_fn``."""
+    from pylbl_tpu_torch.parallel import (make_batched_fn,
+                                          make_batched_tpu_fn)
+
+    lc.reset_launches()
+    k = P.Gas(pack, "H2O", np.float32).absorption_coefficient(*SURFACE,
+                                                              grid)
+    counts = dict(lc.LAUNCHES)
+    print(f"phase 18 Gas(pack, 'H2O', np.float32): launches {counts}")
+    check(counts["wings_strided_single"] > 0
+          and counts["core_segmix_single"] > 0,
+          "phase 18 the positional dtype ran the single-layer kernels")
+    check(np.array_equal(k, k_c), "phase 18 Gas(pack, 'H2O', np.float32) "
+          "equals phase 8 bit for bit")
+    t, p, x = (np.asarray(col[n].data)[[0, -1]] for n in ("t", "p", "h2o"))
+    tpu = make_batched_tpu_fn(pack, grid, CUT_OFF, None, None, 350.0, 5.0,
+                              False)
+    lc.reset_launches()
+    got = tpu(t, p, x)
+    torch.cuda.synchronize()
+    counts = dict(lc.LAUNCHES)
+    print(f"phase 18 make_batched_tpu_fn (interpret=False by position): "
+          f"launches {counts}")
+    check(counts["wings_strided"] > 0 and counts["core_segmix"] > 0,
+          "phase 18 make_batched_tpu_fn launched the batched kernels")
+    check(torch.equal(got, make_batched_fn(pack, grid)(t, p, x)),
+          "phase 18 make_batched_tpu_fn equals make_batched_fn bit for "
+          "bit")
+
+
 def phase_bench(headline_rate, card, records):
     """Phase 17: ``python -m pylbl_tpu_torch bench`` as a user runs it, at
     the JAX bench's widths."""
@@ -1945,6 +2130,21 @@ def main():
     phase_ingest(torch, P, lc, native, packs, db, col_a, grid_a, total_a,
                  records)
     phase_bench(rate, card, records)
+
+    # Phase 18: the JAX package's API (wings_chunk, the installed layout,
+    # the positional calls).
+    start = time.perf_counter()
+    from pylbl_tpu_torch.parallel import make_multigas_batched_fn
+    phase_wings_chunk(torch, lc, packs, spec_a, two, grid_a, "A",
+                      stacked_fn(s64), "wings_strided", records)
+    b64 = make_multigas_batched_fn(packs, grid_b, device="cuda",
+                                   dtype=torch.float64, backend="plain")
+    phase_wings_chunk(torch, lc, packs, spec_b, two, grid_b, "B", b64,
+                      "wings_splat", records)
+    del b64
+    phase_installed(torch, k_c)
+    phase_compat(torch, P, lc, gas.pack, grid_h, col_a, k_c)
+    print(f"phase 18 took {time.perf_counter() - start:.1f} s")
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

@@ -9,10 +9,12 @@
     python -m pylbl_tpu_torch bench
 
 ``info`` and ``compute`` run on the CUDA card by default and refuse to
-start without one; ``--device cpu`` runs them on the host (the kernels'
-plain versions).  ``create-db`` downloads from the HITRAN and TIPS web
-services and the arts-crossfit archive into a database; it launches
-nothing and runs on any host.  ``bench`` (``pylbl_tpu_torch/bench.py``)
+start without one; ``--device cpu`` (or the JAX command line's
+``--platform cpu``) runs them on the host (the kernels' plain versions).
+``--platform gpu`` (or ``cuda``) is the card; ``--platform tpu`` exits
+non-zero: this package runs on a CUDA card, not a TPU.  ``create-db``
+downloads from the HITRAN and TIPS web services and the arts-crossfit
+archive into a database; it launches nothing and runs on any host.  ``bench`` (``pylbl_tpu_torch/bench.py``)
 measures the kernels on the card and exits 2 without one: its last two
 lines are the full record and the compact headline (JSON).
 Under torchrun, ``compute --mesh BxS`` shards the lines over a (batch,
@@ -36,12 +38,13 @@ def _parse_grid(spec):
     return np.arange(lo, hi, res)
 
 
-def cmd_info(args, device):
+def cmd_info(args):
     import torch
 
     from . import __version__, plugins
     from .ops.lineshape_cuda import CUDA_SOURCE
     from .runtime import build, native
+    device = args.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"pylbl_tpu_torch {__version__}")
@@ -60,13 +63,14 @@ def cmd_info(args, device):
     return 0
 
 
-def cmd_compute(args, device):
+def cmd_compute(args):
     import torch.distributed as dist
 
     from .database.db import Database
     from .spectroscopy import Spectroscopy
     from .utils.observability import configure_logging, metrics
     from .utils.xrlite import open_dataset
+    device = args.device
     configure_logging()
     atmosphere = open_dataset(args.atmosphere)
     database = Database(args.database, pack_cache_dir=args.pack_cache_dir)
@@ -122,11 +126,36 @@ def cmd_bench(args):
     return bench_main([])
 
 
+# --platform (the JAX command line's) -> torch device; None: refused.
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda", "tpu": None}
+
+
+def _device_name(parser, args):
+    """The torch device that ``--device`` and ``--platform`` name (default
+    cuda); exits non-zero for a TPU or when the two disagree."""
+    if args.platform is None:
+        return args.device or "cuda"
+    device = PLATFORMS[args.platform]
+    if device is None:
+        parser.error("--platform tpu: pylbl_tpu_torch runs on a CUDA card "
+                     "(an NVIDIA GPU such as the H100), not a TPU; use "
+                     "--platform gpu or cpu")
+    if args.device is not None and args.device.split(":")[0] != device:
+        parser.error(f"--platform {args.platform} and --device "
+                     f"{args.device} disagree")
+    return args.device or device
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="pylbl_tpu_torch")
-    parser.add_argument("--device", default="cuda",
+    parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions on the host)")
+    parser.add_argument("--platform", default=None,
+                        choices=sorted(PLATFORMS),
+                        help="the JAX command line's platform: cpu is "
+                             "--device cpu, gpu or cuda the card; tpu is "
+                             "refused")
     sub = parser.add_subparsers(dest="command", required=True)
 
     sub.add_parser("info", help="environment and backend summary")
@@ -172,19 +201,19 @@ def main(argv=None):
                    "(pylbl_tpu_torch/bench.py; no CPU fallback)")
 
     args = parser.parse_args(argv)
+    name = _device_name(parser, args)
     if args.command == "create-db":
         return cmd_create_db(args)
     if args.command == "bench":
-        if args.device != "cuda":
+        if name != "cuda":
             parser.error("bench runs on the CUDA card only")
         return cmd_bench(args)
     from .runtime.device import resolve_device
     try:
-        device = resolve_device(args.device)
+        args.device = resolve_device(name)
     except RuntimeError as exc:
         parser.error(str(exc))
-    return {"info": cmd_info, "compute": cmd_compute}[args.command](
-        args, device)
+    return {"info": cmd_info, "compute": cmd_compute}[args.command](args)
 
 
 if __name__ == "__main__":

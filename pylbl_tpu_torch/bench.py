@@ -485,7 +485,8 @@ def sharded(pack, grid, num_layers=4, device="cuda", timer=device_ms,
         mesh = make_mesh(batch=1, spec=1, device=device)
         blocks, q_table, static, info = shard_line_pack(pack, grid, 1,
                                                         mode="balanced")
-        step = make_lines_sharded_step(static, info, mesh, blocks, q_table,
+        step = make_lines_sharded_step(static, info, mesh, blocks=blocks,
+                                       q_table=q_table,
                                        weight_density=False,
                                        backend="kernel")
         if step.backend != "kernel":

@@ -1,0 +1,1 @@
+from .tips import TotalPartitionFunction  # noqa: F401

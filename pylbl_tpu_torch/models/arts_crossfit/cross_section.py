@@ -156,8 +156,9 @@ class CrossSection:
                 temperature, pressure, coeffs))
         return total
 
-    def device_absorption_fn(self, grid, device):
-        """Builds a float64 evaluator for this molecule on ``device``.
+    def device_absorption_fn(self, grid, device="cuda"):
+        """Builds a float64 evaluator for this molecule on ``device`` (the
+        card by default).
 
         Returns:
             fn(temperature[B], pressure[B]) -> [B, grid.size] float64

@@ -53,21 +53,21 @@ class Gas:
     Attributes:
         pack: LinePack with the molecule's line list.
         formula: string chemical formula.
-        dtype: the torch float dtype of the kernels.
+        dtype: the kernels' float dtype as a ``numpy.dtype`` (as the JAX
+            engine reports it); ``torch_dtype`` is the same as a torch
+            dtype.
         backend: "kernel", "plain" or "xla".
     """
 
-    def __init__(self, lines_database, formula, device="cuda",
-                 dtype=torch.float32, backend="kernel"):
-        """Initializes the engine.
+    def __init__(self, lines_database, formula, dtype=torch.float32,
+                 backend="kernel", *, device="cuda"):
+        """Initializes the engine (the JAX engine's parameters in its
+        order, then the port's ``device``).
 
         Args:
             lines_database: a Database-like object exposing
                 ``line_pack(formula) -> LinePack``, or a LinePack directly.
             formula: string chemical formula.
-            device: torch device of the kernels and their inputs: the
-                card by default (a call without one raises); "cpu" runs
-                the plain versions on the host.
             dtype: kernel float dtype, a torch or numpy spelling
                 (``torch.float64``, ``np.float64``, ``"float64"``; the CUDA
                 kernels take float32).
@@ -76,6 +76,9 @@ class Gas:
                 on any device), "xla" (the portable two-pass path) or a
                 spelling runtime/device.resolve_backend maps to one of
                 them ("pallas"; "auto": "kernel" on the card, else "xla").
+            device: torch device of the kernels and their inputs: the
+                card by default (a call without one raises); "cpu" runs
+                the plain versions on the host.
         """
         if isinstance(lines_database, LinePack):
             self.pack = lines_database
@@ -84,9 +87,13 @@ class Gas:
         self.formula = formula
         self.database = getattr(lines_database, "path", None)
         self.device = device
-        self.dtype = resolve_dtype(dtype)
+        self.torch_dtype = resolve_dtype(dtype)
         self.backend = resolve_backend(backend, device)
         self._batched_fns = {}
+
+    @property
+    def dtype(self):
+        return np.dtype(str(self.torch_dtype).removeprefix("torch."))
 
     def absorption_coefficient(self, temperature, pressure,
                                volume_mixing_ratio, grid,
@@ -111,8 +118,8 @@ class Gas:
             (reference gas_optics.py:61-92).
         """
         return self._layer(temperature, pressure, volume_mixing_ratio, grid,
-                           remove_pedestal, cut_off, self.device, self.dtype,
-                           self.backend)
+                           remove_pedestal, cut_off, self.device,
+                           self.torch_dtype, self.backend)
 
     def _layer(self, temperature, pressure, volume_mixing_ratio, grid,
                remove_pedestal, cut_off, device, dtype, backend):
@@ -180,7 +187,7 @@ class Gas:
         from ...parallel.lines import make_batched_fn
 
         device = self.device if device is None else device
-        dtype = self.dtype if dtype is None else resolve_dtype(dtype)
+        dtype = self.torch_dtype if dtype is None else resolve_dtype(dtype)
         backend = self.backend if backend is None \
             else resolve_backend(backend, device)
         device = resolve_device(device)

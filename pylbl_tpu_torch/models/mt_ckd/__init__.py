@@ -110,8 +110,9 @@ class BandedContinuum:
             total += self._interp(i, grid)(native) * M_TO_CM
         return total
 
-    def device_spectra(self, grid, device):
-        """Builds a float64 evaluator for this continuum on ``device``.
+    def device_spectra(self, grid, device="cuda"):
+        """Builds a float64 evaluator for this continuum on ``device`` (the
+        card by default).
 
         Returns:
             fn(temperature[B], pressure_Pa[B], vmr dict of [B])

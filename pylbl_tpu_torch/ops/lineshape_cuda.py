@@ -110,6 +110,7 @@ C_INT, C_FRAC, SRW, Y, PREF, S_IDX, E_IDX, _PAD = range(8)
 DEFAULT_TILE = 1024
 DEFAULT_CHUNK = 512
 STRIDED_CHUNK = 256
+MAX_CHUNK = 512           # lines per wings chunk (csrc kMaxChunk).
 ROWS_CHUNK = 128          # instances per core chunk.
 SEG = 32                  # aligned segment width in points.
 SEGP_ROWS = 8             # param rows per instance.
@@ -1310,10 +1311,10 @@ def _launch_wings(soa, w_start, w_n, t_start, t_n, num_tiles, tile,
                   stride, chunk, tail, line_fn, pieces=None):
     _check_cuda_inputs("wings", soa, [w_start, w_n, t_start, t_n],
                        num_tiles)
-    if tile not in (256, 512, 1024) or chunk > 512 or tail > 512 \
-            or chunk <= 0 or tail <= 0:
+    if tile not in (256, 512, 1024) or chunk > MAX_CHUNK \
+            or tail > MAX_CHUNK or chunk <= 0 or tail <= 0:
         raise ValueError("wings kernel takes tile 256/512/1024 and chunk, "
-                         "tail <= 512")
+                         f"tail <= {MAX_CHUNK}")
     batch = soa.shape[0]
     csr_bstride = w_start.stride(0) if w_start.dim() == 2 else 0
     if pieces is None:

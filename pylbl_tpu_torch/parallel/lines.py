@@ -22,6 +22,8 @@ Precision note: line centers are passed as an exact integer grid index
 plus a small fractional part computed on the host, so float32 kernels see
 no catastrophic cancellation in x = ((p - c_int) - c_frac) * srw.
 """
+import math
+
 import numpy as np
 import torch
 
@@ -434,6 +436,11 @@ class _LineStage:
     "rows" core plan, which takes the raw Lorentzian rows
     (lineshape_pallas.py ``wings_core``).
 
+    ``wings_chunk`` is the wings pass's line chunk, as the JAX
+    ``make_multigas_batched_fn`` takes it: the strided plan's (default
+    ``STRIDED_CHUNK``) or the splat CSR's (default ``chunk``); the kernels
+    take at most ``MAX_CHUNK``.
+
     A sharded step (parallel/sharded.py) hands each shard's stage its plan
     (``planned``: (stride, StridedLayout, CorePlan) under the one global
     stride, ``arrays_np`` already in layout order) and assembles with the
@@ -442,11 +449,15 @@ class _LineStage:
 
     def __init__(self, arrays_np, static, s_wide, e_wide, core_lo, core_hi,
                  y_ref, n_out, tile, chunk, core_mode, wings_tail, device,
-                 dtype, plain, planned=None):
+                 dtype, plain, planned=None, wings_chunk=None):
+        if wings_chunk is not None and not 0 < wings_chunk <= lc.MAX_CHUNK:
+            raise ValueError(f"wings_chunk {wings_chunk}: the wings kernel "
+                             f"takes 1-{lc.MAX_CHUNK} lines per chunk")
         if planned is None:
             planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
                                             y_ref, n_out, tile=tile,
-                                            chunk=lc.STRIDED_CHUNK,
+                                            chunk=wings_chunk
+                                            or lc.STRIDED_CHUNK,
                                             core_mode=core_mode,
                                             tail=wings_tail)
             if planned is not None:
@@ -457,12 +468,12 @@ class _LineStage:
             if lay.t_start is not None:
                 csr += [lay.t_start, lay.t_n]
             nlines = lay.nlines
-            self.wings_chunk = lc.STRIDED_CHUNK
+            self.wings_chunk = wings_chunk or lc.STRIDED_CHUNK
         else:
             self.wings_stride = None
-            self.wings_chunk = chunk
+            self.wings_chunk = wings_chunk or chunk
             csr = list(lc.tile_line_ranges(s_wide, e_wide, n_out, tile,
-                                           chunk))
+                                           self.wings_chunk))
             nlines = static["num_lines"]
             self.core_plan = lc.CorePlan(core_lo, core_hi, n_out, tile,
                                          sort_key=y_ref, mode=core_mode)
@@ -480,7 +491,9 @@ class _LineStage:
         self.arrays = as_tensors(arrays_np, device, dtype)
         self.core_inst = None if self.core_plan.mode == "rows" \
             else self.core_plan.expand_line_arrays(self.arrays)
-        self.pad = -nlines % chunk
+        # The SoA holds whole wings chunks (JAX pads to ``chunk``, which
+        # every default wings chunk divides).
+        self.pad = -nlines % math.lcm(chunk, self.wings_chunk)
 
     def assemble(self, t, p, x, origin=0):
         """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
@@ -540,20 +553,21 @@ class _LineStage:
 
 def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
                              tile=None, chunk=None, t_max=350.0,
-                             p_max_atm=5.0, backend="kernel", device="cuda",
-                             dtype=torch.float32, wings_tail=128,
-                             core_mode=None):
+                             p_max_atm=5.0, backend="kernel",
+                             interpret=False, core_mode=None,
+                             wings_chunk=None, wings_tail=128, *,
+                             device="cuda", dtype=torch.float32):
     """Builds the all-gases batched pipeline for one grid on one device.
 
     One wings pass and one core pass per layer batch cover every gas:
     strided overlapped-tile wings (two chunk classes when ``wings_tail``)
     wherever a stride fits the line windows, the splat wings otherwise,
     and the core pass of ``core_mode`` (the mixed-slot segment-32 core by
-    default).
+    default).  The parameters up to ``wings_tail`` are the JAX function's,
+    in its order.
 
     Args:
         packs: dict name -> LinePack.
-        core_mode: "segmix" (default), "seg" or "rows".
         backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
             plain versions for CPU tensors), "plain" (plain versions on
             any device, in ``dtype``), "xla" (the portable two-pass path,
@@ -561,6 +575,14 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
             once, in ``dtype``; no envelope guard, as it sizes no windows
             ahead) or a spelling runtime/device.resolve_backend maps to
             one of them.
+        interpret: the JAX package's Pallas interpret mode: True runs the
+            kernels' plain versions on ``device`` (``backend="plain"``);
+            the "xla" path, which has no kernel, is unchanged.
+        core_mode: "segmix" (default), "seg" or "rows".
+        wings_chunk: lines per wings chunk (at most ``MAX_CHUNK``, 512):
+            the strided plan's (default ``STRIDED_CHUNK``, 256) or, where
+            no stride fits, the splat CSR's (default ``chunk``);
+            ``fn.wings_chunk`` reports the one used.
         device: torch device of the line constants and outputs: the card
             by default, raising without one; "cpu" runs the plain
             versions on the host.
@@ -577,7 +599,7 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         waits for the card (a caller that checked the layers once with
         ``fn.check_envelope(t, p)`` keeps its calls free of host syncs).
     """
-    backend = resolve_backend(backend, device)
+    backend = resolve_backend(backend, device, interpret)
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     tile = tile or lc.DEFAULT_TILE
@@ -662,7 +684,8 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     core_hi = off + np.clip(center0 + reach, 0, num_points - 1)
     stage = _LineStage(arrays_np, static, off + s_loc, off + e_loc, core_lo,
                        core_hi, y_ref, flat_points, tile, chunk, core_mode,
-                       wings_tail, device, dtype, backend == "plain")
+                       wings_tail, device, dtype, backend == "plain",
+                       wings_chunk=wings_chunk)
     fn = _pipeline(lambda t, p, x: stage.run(t, p, x).reshape(
         t.shape[0], num_gases, num_points), True)
 
@@ -680,7 +703,8 @@ def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
                     wings_tail=None, backend="kernel", device="cuda",
                     dtype=torch.float32):
     """Builds the single-gas batched pipeline for one (gas, grid) on one
-    device (counterpart of ``make_batched_tpu_fn``).
+    device (counterpart of ``make_batched_tpu_fn``, which takes the JAX
+    function's parameters and forwards here).
 
     Line constants go to the device once; each call ships only the [B]
     layer conditions, runs the line physics on the device and feeds the
@@ -759,6 +783,22 @@ def make_batched_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
     fn.assemble_layer = lambda t, p, x: tuple(
         a[0] for a in stage.assemble(*tensors([t], [p], [x])))
     return stage.attach(fn)
+
+
+def make_batched_tpu_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
+                        chunk=None, t_max=350.0, p_max_atm=5.0,
+                        interpret=False, core_mode=None, wings_tail=None, *,
+                        backend="kernel", device="cuda",
+                        dtype=torch.float32):
+    """The JAX package's ``make_batched_tpu_fn``, with its parameters in
+    its order: :func:`make_batched_fn` on ``device``.  ``interpret=True``
+    (Pallas's interpret mode) runs the kernels' plain versions
+    (``backend="plain"``)."""
+    return make_batched_fn(pack, grid, cut_off, tile, chunk, t_max,
+                           p_max_atm, core_mode, wings_tail,
+                           backend=resolve_backend(backend, device,
+                                                   interpret),
+                           device=device, dtype=dtype)
 
 
 def make_stacked_pedestal_remover(packs, grid, cut_off=c.DEFAULT_CUT_OFF):

@@ -307,10 +307,10 @@ def _kernel_step(blocks, q_table, static, info, mesh, weight_density, tile,
     return step
 
 
-def make_lines_sharded_step(static, info, mesh, blocks, q_table,
-                            weight_density=True, chunk=512, backend=None,
-                            tile=None, t_max=350.0, p_max_atm=5.0,
-                            dtype=torch.float32):
+def make_lines_sharded_step(static, info, mesh, weight_density=True,
+                            chunk=512, backend=None, blocks=None, tile=None,
+                            t_max=350.0, p_max_atm=5.0, interpret=False, *,
+                            q_table=None, dtype=torch.float32):
     """Builds this rank's line-sharded absorption step.
 
     Each rank touches only its own block, so per-rank compute and line
@@ -319,11 +319,14 @@ def make_lines_sharded_step(static, info, mesh, blocks, q_table,
     "balanced" mode every rank accumulates the full grid for its lines
     and one reduce-scatter lands each rank its slab.
 
+    The parameters up to ``interpret`` are the JAX function's, in its
+    order.
+
     Args:
         static / info / blocks / q_table: from parallel/shard_plans.py
-            :func:`shard_line_pack` or :func:`shard_stacked_packs` (the
-            JAX step takes the blocks at call time; this one keeps them on
-            the rank's device from the build).
+            :func:`shard_line_pack` or :func:`shard_stacked_packs`, both
+            required (the JAX step takes the blocks at call time; this one
+            keeps them on the rank's device from the build).
         mesh: parallel/mesh.py mesh; the step runs on ``mesh.device``.
         backend: "kernel" (the wrappers: CUDA kernels for CUDA tensors,
             plain versions for CPU tensors), "plain" (plain versions on
@@ -332,6 +335,9 @@ def make_lines_sharded_step(static, info, mesh, blocks, q_table,
             CPU; "pallas" is "kernel").  Where no stride fits, "kernel"
             and "plain" take the portable branch (``step.backend`` says
             which ran).
+        interpret: the JAX package's Pallas interpret mode: True runs the
+            plain versions (``backend="plain"``) unless ``backend`` is
+            "xla".
         dtype: float dtype (the CUDA kernels take float32).
 
     Returns:
@@ -340,8 +346,12 @@ def make_lines_sharded_step(static, info, mesh, blocks, q_table,
         [m2], or absorption [m-1] when ``weight_density``;
         ``step.gather(slab)`` the full [B, padded_points] on every rank.
     """
+    if blocks is None or q_table is None:
+        raise ValueError("make_lines_sharded_step keeps the line blocks "
+                         "from the build: pass blocks= and q_table= (from "
+                         "shard_line_pack or shard_stacked_packs)")
     dtype = resolve_dtype(dtype)
-    backend = resolve_backend(backend or "auto", mesh.device)
+    backend = resolve_backend(backend, mesh.device, interpret)
     if backend in ("kernel", "plain"):
         step = _kernel_step(blocks, q_table, static, info, mesh,
                             weight_density, tile or lc.DEFAULT_TILE, t_max,
@@ -488,8 +498,8 @@ def make_multigas_sharded_pipeline(packs, grid, mesh,
                                    cut_off=c.DEFAULT_CUT_OFF,
                                    mode="balanced", remove_pedestal=False,
                                    weight_density=False, chunk=512,
-                                   backend=None, tile=None,
-                                   dtype=torch.float32):
+                                   backend=None, interpret=False, *,
+                                   tile=None, dtype=torch.float32):
     """All gases, one sharded launch per rank: the config-5 composition.
 
     Gas stacking (one wings and one core pass for every molecule) composed
@@ -497,7 +507,9 @@ def make_multigas_sharded_pipeline(packs, grid, mesh,
     "batch".  The pedestal is removed once per batch group, after its
     slabs are gathered over "spec", on the group's first spec rank
     (parallel/lines.py ``make_stacked_pedestal_remover``), and broadcast
-    to the group.
+    to the group.  The parameters up to ``interpret`` are the JAX
+    function's, in its order; ``interpret`` and ``backend`` as
+    :func:`make_lines_sharded_step`.
 
     Returns:
         ``fn(temperature[B], pressure[B], vmr[B, G])`` -> numpy float64
@@ -516,9 +528,11 @@ def make_multigas_sharded_pipeline(packs, grid, mesh,
     spec = mesh.shape[SPEC_AXIS]
     blocks, q_table, static, info, names = shard_stacked_packs(
         packs, grid, spec, cut_off, mode)
-    step = make_lines_sharded_step(static, info, mesh, blocks, q_table,
-                                   weight_density=False, chunk=chunk,
-                                   backend=backend, tile=tile, dtype=dtype)
+    step = make_lines_sharded_step(static, info, mesh, weight_density=False,
+                                   chunk=chunk, backend=backend,
+                                   blocks=blocks, tile=tile,
+                                   interpret=interpret, q_table=q_table,
+                                   dtype=dtype)
     remover = make_stacked_pedestal_remover(packs, grid, cut_off) \
         if remove_pedestal else None
     flat = static["flat_points"]
@@ -547,10 +561,12 @@ def make_multigas_sharded_pipeline(packs, grid, mesh,
 def make_sharded_pipeline(pack, grid, mesh, cut_off=c.DEFAULT_CUT_OFF,
                           mode="balanced", remove_pedestal=False,
                           weight_density=True, chunk=512, backend=None,
-                          tile=None, dtype=torch.float32):
+                          interpret=False, *, tile=None,
+                          dtype=torch.float32):
     """End-to-end sharded absorption of one gas, with optional pedestal
     removal (once per batch group, as
-    :func:`make_multigas_sharded_pipeline`).
+    :func:`make_multigas_sharded_pipeline`).  The parameters up to
+    ``interpret`` are the JAX function's, in its order.
 
     Returns:
         ``fn(temperature[B], pressure[B], vmr[B])`` -> numpy float64 [B,
@@ -566,9 +582,11 @@ def make_sharded_pipeline(pack, grid, mesh, cut_off=c.DEFAULT_CUT_OFF,
     keep = pack.compat_break_filter(v0, vn, cut_off)
     blocks, q_table, static, info = shard_line_pack(pack, grid, spec,
                                                     cut_off, mode)
-    step = make_lines_sharded_step(static, info, mesh, blocks, q_table,
-                                   weight_density=False, chunk=chunk,
-                                   backend=backend, tile=tile, dtype=dtype)
+    step = make_lines_sharded_step(static, info, mesh, weight_density=False,
+                                   chunk=chunk, backend=backend,
+                                   blocks=blocks, tile=tile,
+                                   interpret=interpret, q_table=q_table,
+                                   dtype=dtype)
     remover = make_stacked_pedestal_remover({pack.formula: pack}, grid,
                                             cut_off) \
         if remove_pedestal and keep else None

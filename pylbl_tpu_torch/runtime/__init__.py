@@ -1,0 +1,1 @@
+from . import native  # noqa: F401

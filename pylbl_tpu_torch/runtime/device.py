@@ -40,17 +40,23 @@ def resolve_dtype(dtype):
     raise TypeError(f"dtype {dtype!r} is neither float32 nor float64")
 
 
-def resolve_backend(backend, device):
+def resolve_backend(backend, device, interpret=False):
     """The lines backend ``backend`` names on ``device``.
 
     "kernel" (the wrappers: CUDA kernels for CUDA tensors, plain versions
     for CPU tensors), "plain" (plain versions anywhere) and "xla" (the
     portable two-pass path, ops/lineshape.py ``accumulate``) stay as they
     are; "pallas", the JAX package's name of its kernels, is "kernel";
-    "auto" is "kernel" on a CUDA device and "xla" elsewhere, as the JAX
-    ``Gas`` picks its kernels on a TPU only.  Unknown names raise
-    ``ValueError``.
+    "auto" (or None) is "kernel" on a CUDA device and "xla" elsewhere, as
+    the JAX ``Gas`` picks its kernels on a TPU only.  ``interpret``, the
+    JAX package's Pallas interpret mode (the kernels' bodies run without
+    the chip), selects the plain versions on ``device`` for every name but
+    "xla", which launches no kernel.  Unknown names raise ``ValueError``.
     """
+    if backend is None:
+        backend = "auto"
+    if interpret and backend in ("pallas", "auto", "kernel", "plain"):
+        return "plain"
     if backend == "pallas":
         return "kernel"
     if backend == "auto":

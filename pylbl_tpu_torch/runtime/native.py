@@ -3,7 +3,7 @@
 The port compiles its own copy of the JAX package's C++ source
 (``pylbl_tpu_torch/csrc/pylbl_native.cpp``, held byte-identical to
 ``csrc/pylbl_native.cpp`` by tests/test_torch_selfcontained.py) with g++
-into ``build/pylbl_tpu_torch/`` (runtime/build.py); the tracked
+into runtime/build.py's ``build_dir()``; the tracked
 ``csrc/libpylbl_native.so`` belongs to the JAX package and is never loaded
 here.  Two entry points: the HITRAN CSV parser of the ingest path
 (database/db.py ``Database.create``) and the pedestal scan, the
@@ -36,9 +36,12 @@ def _dp(dtype):
     return np.ctypeslib.ndpointer(dtype, flags="C_CONTIGUOUS")
 
 
-def load():
-    """The loaded library (built on first use); raises BuildError."""
-    lib = load_library("libpylbl_native.so", [SOURCE], _command)
+def load(build=True):
+    """The loaded library, built on first use; raises BuildError.  With
+    ``build=False`` it compiles nothing: it loads an up-to-date library
+    or raises BuildError (it never returns None, as the JAX loader does
+    for a missing library)."""
+    lib = load_library("libpylbl_native.so", [SOURCE], _command, build)
     if not getattr(lib, "_pylbl_bound", False):
         i64, u8, f64 = _dp(np.int64), _dp(np.uint8), _dp(np.float64)
         lib.parse_transitions_csv.restype = ctypes.c_int64

@@ -63,10 +63,11 @@ class Spectroscopy:
 
     def __init__(self, atmosphere, grid, database, mapping=None,
                  lines_backend="pyLBL", continua_backend="mt_ckd",
-                 cross_sections_backend="arts_crossfit", device="cuda",
-                 dtype=torch.float32, device_mechanisms=None,
-                 backend="kernel", mesh=None, sharding_mode="balanced"):
-        """Initializes the object.
+                 cross_sections_backend="arts_crossfit", mesh=None,
+                 sharding_mode="balanced", device_mechanisms=None, *,
+                 device="cuda", dtype=torch.float32, backend="kernel"):
+        """Initializes the object (the JAX package's parameters in its
+        order, then the port's ``device``, ``dtype`` and ``backend``).
 
         Args:
             atmosphere: dataset describing atmospheric conditions
@@ -77,21 +78,6 @@ class Spectroscopy:
                 (reference spectroscopy.py:93-103).
             lines_backend / continua_backend / cross_sections_backend:
                 string backend names; unknown names raise KeyError.
-            device: torch device of the lines pipeline and the device
-                mechanisms; "cuda" without a card raises.  Under a mesh the
-                mesh's device (the rank's card, or the CPU) is used.
-            dtype: lines pipeline float dtype, a torch or numpy spelling
-                (the CUDA kernels take float32; float64 runs the plain
-                versions).
-            device_mechanisms: evaluate continua and cross sections on
-                ``device`` instead of host numpy.  Default: True on CUDA,
-                False on the CPU (where the float64 host path is the
-                parity anchor).
-            backend: "kernel" (CUDA kernels on the card, plain versions on
-                the CPU), "plain" (plain versions on any device), "xla"
-                (the portable path, computed by the per-gas engines) or a
-                spelling runtime/device.resolve_backend maps to one of
-                them.
             mesh: optional (batch, spec) rank mesh (parallel/mesh.py
                 ``make_mesh``, parallel/distributed.py ``global_mesh``):
                 every rank of the mesh constructs this object with the same
@@ -102,6 +88,21 @@ class Spectroscopy:
             sharding_mode: line decomposition under ``mesh``: "balanced"
                 (default), "halo" or "ring"
                 (parallel/shard_plans.py ``shard_line_pack``).
+            device_mechanisms: evaluate continua and cross sections on
+                ``device`` instead of host numpy.  Default: True on CUDA,
+                False on the CPU (where the float64 host path is the
+                parity anchor).
+            device: torch device of the lines pipeline and the device
+                mechanisms; "cuda" without a card raises.  Under a mesh the
+                mesh's device (the rank's card, or the CPU) is used.
+            dtype: lines pipeline float dtype, a torch or numpy spelling
+                (the CUDA kernels take float32; float64 runs the plain
+                versions).
+            backend: "kernel" (CUDA kernels on the card, plain versions on
+                the CPU), "plain" (plain versions on any device), "xla"
+                (the portable path, computed by the per-gas engines) or a
+                spelling runtime/device.resolve_backend maps to one of
+                them.
         """
         self.mesh = mesh
         self.sharding_mode = sharding_mode

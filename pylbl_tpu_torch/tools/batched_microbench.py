@@ -14,7 +14,11 @@ a CUDA card::
 
     python -m pylbl_tpu_torch.tools.batched_microbench [--multigas]
         [--lines N] [--layers B] [--reps R] [--core-mode MODE]
-        [--step STEP] [--tile T] [--wings-tail W]
+        [--step STEP] [--tile T] [--wings-tail W] [--wings-chunk C]
+
+``--wings-chunk`` (the stacked pipeline's, as the JAX tool's multigas
+form takes it) sets the wings pass's line chunk: the strided plan's
+(default 256) or the splat CSR's (default 512), at most 512.
 
 Without CUDA it exits with code 2.
 """
@@ -52,17 +56,20 @@ def column(num_layers, num_gases=None):
 
 
 def build(packs, grid, num_layers, core_mode=None, device="cuda", tile=None,
-          wings_tail=None):
+          wings_tail=None, wings_chunk=None):
     """(pipeline, (t, p, x) tensors): the single-gas pipeline for one pack,
-    the stacked one for a dict of packs; ``wings_tail=None`` keeps each
-    builder's default."""
+    the stacked one for a dict of packs (which alone takes
+    ``wings_chunk``); ``wings_tail=None`` keeps each builder's default."""
     kwargs = {} if wings_tail is None else {"wings_tail": wings_tail}
     if isinstance(packs, dict):
         fn = make_multigas_batched_fn(packs, grid, tile=tile,
-                                      core_mode=core_mode, device=device,
+                                      core_mode=core_mode,
+                                      wings_chunk=wings_chunk, device=device,
                                       **kwargs)
         cond = column(num_layers, len(packs))
     else:
+        if wings_chunk is not None:
+            raise ValueError("wings_chunk is the stacked pipeline's")
         fn = make_batched_fn(packs, grid, tile=tile, core_mode=core_mode,
                              device=device, **kwargs)
         cond = column(num_layers)
@@ -100,20 +107,21 @@ def build_stages(fn, t, p, x):
 
 
 def run(multigas=False, num_lines=300000, num_layers=16, reps=5,
-        core_mode=None, step=0.1, tile=None, wings_tail=None):
+        core_mode=None, step=0.1, tile=None, wings_tail=None,
+        wings_chunk=None):
     """Times each stage on the CUDA card and prints one line each; returns
     [(name, ms)]."""
     require_cuda("batched_microbench")
     grid = np.arange(1.0, 5000.0, step)
     packs = multigas_packs() if multigas else headline_pack(num_lines)
     fn, (t, p, x) = build(packs, grid, num_layers, core_mode, "cuda", tile,
-                          wings_tail)
+                          wings_tail, wings_chunk)
     plan = fn.core_plan
     print(f"batched_microbench on {card()}: "
           f"{'7-gas stacked' if multigas else 'single-gas'}, {num_layers} "
           f"layers, {plan.num_points} points, step {step}, core_mode "
-          f"{plan.mode}, wings_stride {fn.wings_stride}, prepacked "
-          f"{fn.wings_prepacked}", flush=True)
+          f"{plan.mode}, wings_stride {fn.wings_stride}, wings_chunk "
+          f"{fn.wings_chunk}, prepacked {fn.wings_prepacked}", flush=True)
     records = []
     for name, stage in build_stages(fn, t, p, x):
         ms = device_ms(stage, reps)
@@ -133,10 +141,13 @@ def main(argv=None):
     parser.add_argument("--step", type=float, default=0.1)
     parser.add_argument("--tile", type=int, default=None)
     parser.add_argument("--wings-tail", type=int, default=None)
+    parser.add_argument("--wings-chunk", type=int, default=None)
     args = parser.parse_args(argv)
+    if args.wings_chunk is not None and not args.multigas:
+        parser.error("--wings-chunk needs --multigas")
     return run_main("batched_microbench", run, args.multigas, args.lines,
                     args.layers, args.reps, args.core_mode, args.step,
-                    args.tile, args.wings_tail)
+                    args.tile, args.wings_tail, args.wings_chunk)
 
 
 if __name__ == "__main__":

@@ -56,7 +56,8 @@ def _rank(num_lines, grid, spec, mode, reps, device):
     mesh = make_mesh(batch=1, spec=spec, device=device)
     blocks, q_table, static, info = shard_line_pack(
         scaling_pack(num_lines), grid, spec, mode=mode)
-    step = make_lines_sharded_step(static, info, mesh, blocks, q_table)
+    step = make_lines_sharded_step(static, info, mesh, blocks=blocks,
+                                   q_table=q_table)
     slab = step(*CONDITIONS)
 
     def sync():

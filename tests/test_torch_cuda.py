@@ -47,13 +47,18 @@ def rel_err(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("step,tile,tail", [
-    (0.1, 1024, 128), (0.1, 1024, None), (0.01, 1024, 128),
-    (0.2, 256, 128), (0.2, 512, 128)])
-def test_kernels_match_plain_versions(cuda_device, step, tile, tail):
+@pytest.mark.parametrize("step,tile,tail,wings_chunk", [
+    (0.1, 1024, 128, None), (0.1, 1024, None, None), (0.01, 1024, 128, None),
+    (0.2, 256, 128, None), (0.2, 512, 128, None), (0.1, 1024, 128, 128),
+    (0.01, 1024, 128, 128)])
+def test_kernels_match_plain_versions(cuda_device, step, tile, tail,
+                                      wings_chunk):
     grid = np.arange(1.0, 220.0 if step > 0.05 else 120.0, step)
     fn = make_multigas_batched_fn(packs(), grid, tile=tile,
-                                  wings_tail=tail, device=cuda_device)
+                                  wings_chunk=wings_chunk, wings_tail=tail,
+                                  device=cuda_device)
+    assert fn.wings_chunk == (wings_chunk or (
+        lc.DEFAULT_CHUNK if fn.wings_stride is None else lc.STRIDED_CHUNK))
     soa, core = fn.assemble(T, P, VMR)
     lc.reset_launches()
     for run, arg in ((fn.wings_pass, soa), (fn.core_pass, core)):

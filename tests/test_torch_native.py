@@ -93,7 +93,7 @@ def test_pedestal_scan_native_against_sequential(monkeypatch):
 def test_missing_compiler_raises(monkeypatch, tmp_path):
     """Without a compiler the parser raises BuildError; it never returns
     None or falls back to Python."""
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
     monkeypatch.setattr(build, "_loaded", {})
     monkeypatch.setattr(native, "_command", lambda sources, out: [
         str(tmp_path / "no-such-compiler"), *map(str, sources), str(out)])

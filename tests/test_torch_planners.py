@@ -124,7 +124,7 @@ def test_stack_device_packs_identical(stacked):
 
 
 @pytest.mark.parametrize("tile,chunk", [(256, 128), (512, 128),
-                                        (1024, 512)])
+                                        (1024, 128), (1024, 512)])
 def test_tile_line_ranges_identical(stacked, tile, chunk):
     _, (ta, th, ts, _) = stacked
     s_wide, e_wide, _, _, _ = windows(th, ta, ts)
@@ -135,19 +135,23 @@ def test_tile_line_ranges_identical(stacked, tile, chunk):
         assert_same(got, want)
 
 
-@pytest.mark.parametrize("tile,tail", [(512, 128), (512, None),
-                                       (1024, 128), (256, None)])
-def test_plan_strided_stage_identical(stacked, tile, tail):
+@pytest.mark.parametrize("tile,tail,chunk", [
+    (512, 128, None), (512, None, None), (1024, 128, None),
+    (256, None, None), (1024, 128, 128), (512, None, 128)])
+def test_plan_strided_stage_identical(stacked, tile, tail, chunk):
+    """The strided plan at the default wings chunk (256) and at the
+    ``wings_chunk=128`` the stacked pipelines take."""
     _, (ta, th, ts, _) = stacked
     s_wide, e_wide, core_lo, core_hi, y_ref = windows(th, ta, ts)
     n = ts["flat_points"]
     window = int((e_wide - s_wide).max()) + 1
     assert tlc.pick_wings_stride(tile, window) == \
         jlp.pick_wings_stride(tile, window)
+    chunk = chunk or tlc.STRIDED_CHUNK
     got = tlc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi, y_ref, n,
-                                 tile=tile, tail=tail)
+                                 tile=tile, chunk=chunk, tail=tail)
     want = jlp.plan_strided_stage(s_wide, e_wide, core_lo, core_hi, y_ref, n,
-                                  tile=tile, tail=tail)
+                                  tile=tile, chunk=chunk, tail=tail)
     if want is None:
         assert got is None
         return

@@ -95,7 +95,8 @@ def task_lines_step(batch, spec, mode, backend):
     blocks, q_table, static, info = sp.shard_line_pack(port_pack(), GRID,
                                                        spec, mode=mode)
     lc.reset_launches()
-    step = sh.make_lines_sharded_step(static, info, mesh, blocks, q_table,
+    step = sh.make_lines_sharded_step(static, info, mesh, blocks=blocks,
+                                      q_table=q_table,
                                       backend=backend, tile=256)
     slab = step(T, P, X)
     again = step(T, P, X)
@@ -132,7 +133,8 @@ def task_two_process_rows():
     local, global_rows = tdist.host_local_batch_array(T[:2][rows], mesh)
     blocks, q_table, static, info = sp.shard_line_pack(port_pack(), GRID, 1,
                                                        mode="halo")
-    step = sh.make_lines_sharded_step(static, info, mesh, blocks, q_table,
+    step = sh.make_lines_sharded_step(static, info, mesh, blocks=blocks,
+                                      q_table=q_table,
                                       backend="kernel", tile=256)
     slab = step(T[:2], P[:2], X[:2])
     assert slab.rows == global_rows == rows

@@ -93,7 +93,8 @@ def task_density(mode, backend):
     mesh = rank_mesh()
     blocks, q_table, static, info, names = sp.shard_stacked_packs(
         packs(), GRID, 2, mode=mode)
-    step = sh.make_lines_sharded_step(static, info, mesh, blocks, q_table,
+    step = sh.make_lines_sharded_step(static, info, mesh, blocks=blocks,
+                                      q_table=q_table,
                                       weight_density=True, backend=backend,
                                       tile=1024)
     return step.backend, step.gather(step(T, P, VMR)).numpy()
