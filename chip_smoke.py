@@ -144,7 +144,14 @@ correction 41 (region 1's path, the one beyond xlim1, about nine tenths
 of a core window; the points nearer the center cost more, so the bound
 stays below the work).  No single PyTorch call computes a windowed line
 sum, so ``library_ms`` is null.  The split kernels' records also carry
-their piece counts (the segment pass its chunk and stream counts).
+their piece counts (the segment pass its chunk and stream counts).  The
+prepacked wings' records (the Lorentzian walk: ``wings_strided``,
+``wings_splat`` and their single-layer launches) carry beside each time
+its reciprocal floor, ``rcp_floor_ms``: the Lorentzian terms over 16
+MUFU reciprocals a clock on each of 132 SMs at the SM clock nvidia-smi
+reads while the kernel runs (phase 17: at phase 5's clock, beside each
+bench stage's time), and the walk's registers and spills from this
+build's ``-Xptxas -v`` report (phase 2 removes an earlier build first).
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -164,8 +171,10 @@ from types import SimpleNamespace
 import numpy as np
 
 try:
-    from pylbl_tpu_torch.tools import (PEAK_BYTES, PEAK_OPS, class_ops,
-                                       core_ops, tile_ops)
+    from pylbl_tpu_torch.tools import (OPS_LORENTZ, PEAK_BYTES, PEAK_OPS,
+                                       canonical_layers, class_ops, core_ops,
+                                       ptxas_usage, rcp_floor_ms,
+                                       sm_clock_mhz, tile_ops, walk_usage)
 except ImportError:         # alone: main() reports the missing package
     pass
 
@@ -175,19 +184,6 @@ GASES = ["H2O", "CO2", "O3", "N2O", "CO", "CH4", "O2"]
 STANDARD = {"H2O": "water_vapor", "CO2": "carbon_dioxide", "O3": "ozone",
             "N2O": "nitrous_oxide", "CO": "carbon_monoxide",
             "CH4": "methane", "O2": "oxygen", "N2": "nitrogen"}
-# The canonical 4-layer test column (tests/conftest.py).
-CANON_P = np.asarray([117.0, 1032.0, 11419.0, 98388.0])
-CANON_T = np.asarray([269.01, 227.74, 203.37, 288.99])
-CANON_VMR = {
-    "H2O": [5.244536e-06, 4.763972e-06, 3.039952e-06, 6.637074e-03],
-    "CO2": [0.00036, 0.00036, 0.00036, 0.00035999],
-    "O3": [2.936688e-06, 7.415223e-06, 2.609510e-07, 6.859128e-08],
-    "N2O": [1.050928e-08, 1.319584e-07, 2.895416e-07, 3.199949e-07],
-    "CH4": [2.947482e-07, 8.817705e-07, 1.588336e-06, 1.700002e-06],
-    "CO": [3.621464e-08, 1.761450e-08, 3.315927e-08, 1.482969e-07],
-    "O2": [0.209, 0.209, 0.2090003, 0.208996],
-    "N2": [0.78, 0.78, 0.78, 0.78],
-}
 # Kernel (its launch counter) -> the TPU kernel it replaces.
 PALLAS = "pylbl_tpu/ops/lineshape_pallas.py"
 KERNELS = {
@@ -211,6 +207,10 @@ KERNELS = {
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
+# The launches of the Lorentzian walk (the prepacked wings): each record
+# carries its reciprocal floor and the walk's registers and spills.
+WALK = ("wings_strided", "wings_splat", "wings_strided_single",
+        "wings_strided_tail_single")
 # Phase 17: the kernels each stage of the bench launches.
 BENCH_KERNELS = {
     "headline": ("wings_strided_single", "core_segmix_single"),
@@ -357,19 +357,15 @@ class TipsStandIn:
 
 
 def column(num_layers, Dataset):
-    """A column of ``num_layers`` spanning the canonical one: pressure
-    log-spaced 117-98388 Pa, temperature and mole fractions interpolated
-    in log pressure."""
-    p = np.geomspace(CANON_P[0], CANON_P[-1], num_layers)
-    order = np.argsort(CANON_P)
-    logp = np.log(CANON_P[order])
-    t = np.interp(np.log(p), logp, CANON_T[order])
+    """A column of ``num_layers`` spanning the canonical one
+    (``tools.canonical_layers``: pressure log-spaced 117-98388 Pa,
+    temperature and mole fractions interpolated in log pressure)."""
+    t, p, vmr = canonical_layers(num_layers)
     data = {"p": (["layer"], p, {"standard_name": "air_pressure",
                                  "units": "Pa"}),
             "t": (["layer"], t, {"standard_name": "air_temperature",
                                  "units": "K"})}
-    for name, values in CANON_VMR.items():
-        x = np.interp(np.log(p), logp, np.asarray(values)[order])
+    for name, x in vmr.items():
         data[name.lower()] = (["layer"], x, {
             "standard_name": f"mole_fraction_of_{STANDARD[name]}_in_air",
             "units": "mol mol-1"})
@@ -551,16 +547,18 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
                            records[name], reps=20,
                            ops=tile_ops(soa, stage.n_out, "pre"),
                            inputs=[soa, *stage.csr_dev],
-                           pieces=stage.wings_pieces)
+                           pieces=stage.wings_pieces, rcp=True)
 
 
 def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
-                   inputs=(), pieces=None):
+                   inputs=(), pieces=None, rcp=False):
     """One kernel against its plain version on the same inputs: bit for
     bit, kernel ms (``reps`` after a warm-up) and plain ms (one rep after
     the call that gives the reference); with ``ops`` the record's bound
     over ``inputs`` and the output, with ``pieces`` (a TilePieces,
-    GroupWalk or SegStreams) its piece or stream counts."""
+    GroupWalk or SegStreams) its piece or stream counts; with ``rcp`` (a
+    Lorentzian walk, ``ops`` its operations) its reciprocal floor at the
+    SM clock nvidia-smi reads while it runs."""
     got = run()
     want = run_plain()
     torch.cuda.synchronize()
@@ -581,6 +579,12 @@ def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
     bound = (f", bound {record['bound_ms']:.6f} ms ({record['bound_by']}: "
              f"{record['operations']:.6e} operations, {record['bytes']} "
              "bytes)") if ops is not None else ""
+    if rcp:
+        mhz = sm_clock_mhz(run)
+        record.update(sm_mhz=mhz, rcp_floor_ms=rcp_floor_ms(
+            ops / OPS_LORENTZ, mhz))
+        bound += (f", reciprocal floor {record['rcp_floor_ms']:.6f} ms at "
+                  f"{mhz:.0f} MHz")
     print(f"{name}: shape {tuple(got.shape)}, max rel {rel:.3e}, max abs "
           f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{bound}"
           f"{split}")
@@ -686,7 +690,7 @@ def phase_gas(torch, P, lc, fixtures, records, card):
                    records["wings_strided_single"], reps=20,
                    ops=tile_ops(plan.soa, n, "pre"),
                    inputs=[plan.soa, plan.w_start, plan.w_n],
-                   pieces=plan.wings_pieces)
+                   pieces=plan.wings_pieces, rcp=True)
     compare_kernel(torch, "core_segmix_single", plan.core_pass,
                    lambda: plan.core_pass(plain=True),
                    records["core_segmix_single"], reps=20,
@@ -876,7 +880,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                    records["wings_strided_tail_single"],
                    ops=tile_ops(soa_t, n, "pre"),
                    inputs=[soa_t, *csr],
-                   pieces=lc.TilePieces.of_csr(lay.w_n, lay.t_n))
+                   pieces=lc.TilePieces.of_csr(lay.w_n, lay.t_n), rcp=True)
     records["wings_strided_tail_single"]["launches"] = \
         counts["wings_strided_tail_single"]
 
@@ -1370,9 +1374,9 @@ def phase_streamed(torch, P, lc, db, pack, records, card):
     phase_kernels(torch, lc, stacked_fn(spec), col, list(block), block,
                   layers=STREAM_BLOCK)
     for name, record in block.items():
-        records[name].update(ms_streamed_block=record["ms"],
-                             plain_ms_streamed_block=record["plain_ms"],
-                             bound_ms_streamed_block=record["bound_ms"])
+        records[name].update({
+            f"{key}_streamed_block": record[key] for key in (
+                "ms", "plain_ms", "bound_ms", "rcp_floor_ms") if key in record})
 
     # Float64 parity of the two end layers' totals (as phase 6), streamed
     # without the pedestal (one block of 2) and with it (the cold pass).
@@ -1447,7 +1451,7 @@ def shard_kernels(torch, lc, step, t, p, x, timed):
                    lambda: stage.wings_pass(soa),
                    lambda: stage.wings_pass(soa, plain=True),
                    records["wings_strided"], reps=10,
-                   ops=tile_ops(soa, n_out, "pre"), inputs=[soa])
+                   ops=tile_ops(soa, n_out, "pre"), inputs=[soa], rcp=True)
     compare_kernel(torch, "phase 15 shard core_segmix",
                    lambda: stage.core_pass(core),
                    lambda: stage.core_pass(core, plain=True),
@@ -1618,7 +1622,8 @@ def phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want64,
             for name, rec in lead["kernels"].items():
                 records[name].update({
                     f"{key}_shard": rec[key] for key in (
-                        "ms", "plain_ms", "bound_ms", "bound_by")})
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "rcp_floor_ms") if key in rec})
     stream = outs[0]["stream"]
     print(f"phase 15 streamed under the mesh (blocks of {STREAM_BLOCK}): "
           f"rank 0 wall {stream['wall_s']:.4f} s, launches "
@@ -1795,13 +1800,14 @@ def phase_wings_chunk(torch, lc, packs, spec, two, grid, label, ref64,
     got = chunked[f"{wings} at wings_chunk {WINGS_CHUNK}"]
     base = records[wings]
     print(f"  {wings}: {got['ms']:.4f} ms at chunk {WINGS_CHUNK} (bound "
-          f"{got['bound_ms']:.6f} ms, {got['operations']:.6e} operations), "
+          f"{got['bound_ms']:.6f} ms, {got['operations']:.6e} operations, "
+          f"reciprocal floor {got['rcp_floor_ms']:.6f} ms), "
           f"{base['ms']:.4f} ms at phase 5's chunk (bound "
           f"{base['bound_ms']:.6f} ms, {base['operations']:.6e} "
-          "operations)")
+          f"operations, reciprocal floor {base['rcp_floor_ms']:.6f} ms)")
     base.update({f"{key}_wings_chunk_{WINGS_CHUNK}": got[key]
                  for key in ("ms", "plain_ms", "bound_ms", "operations",
-                             "bytes")})
+                             "bytes", "rcp_floor_ms")})
     base[f"launches_wings_chunk_{WINGS_CHUNK}"] = counts[wings]
     rel, err = rel_diff(total, ref64.total(*layer_pair(two, ref64.names)),
                         1e-6)
@@ -1926,6 +1932,17 @@ def phase_bench(headline_rate, card, records):
         for k in kernels:
             records[k]["launches_bench"] = records[k].get(
                 "launches_bench", 0) + record["launches"][k]
+        # The wings' reciprocal floor beside the stage's time per call (a
+        # config-5 block), at phase 5's SM clock.
+        terms = record.get("wings_terms",
+                           record.get("device_wings_terms_per_block"))
+        stage_ms = record.get("ms_per_call",
+                              record.get("device_ms_per_block"))
+        floor = rcp_floor_ms(terms, records["wings_strided"]["sm_mhz"])
+        records[kernels[0]].setdefault("rcp_floor_ms_bench", {})[name] = \
+            floor
+        print(f"    {stage_ms:.4f} ms a call; its {kernels[0]}: "
+              f"{terms:.6e} terms, reciprocal floor {floor:.6f} ms")
     c5 = stages["config5"]
     print(f"  config5 streamed: wall {c5['wall_s']:.4f} s (cold "
           f"{c5['cold_wall_s']:.4f}), compute+fetch "
@@ -1953,19 +1970,11 @@ def phase_bench(headline_rate, card, records):
 
 def print_ptxas(log):
     """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: its
-    registers, shared memory and spill bytes."""
-    name = None
-    spills = ""
-    for line in log.splitlines():
-        line = line.strip()
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "spill stores" in line:
-            spills = line
-        elif line.startswith("ptxas info") and "Used" in line and name:
-            print(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; "
-                  f"{spills}")
-            name, spills = None, ""
+    registers, static shared memory and spill bytes."""
+    for name, use in ptxas_usage(log).items():
+        print(f"  ptxas {name}: {use['registers']} registers, {use['smem']} "
+              f"bytes smem, {use['spill_stores']} bytes spill stores, "
+              f"{use['spill_loads']} bytes spill loads")
 
 
 def main():
@@ -1999,7 +2008,11 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     print(optional_modules(("h5py", "netCDF4", "pyarts")))
 
-    # Phase 2: build, the nvcc and g++ builds started together.
+    # Phase 2: build, the nvcc and g++ builds started together, from the
+    # sources (an earlier run's libraries are removed first, so that the
+    # compiler's report of this build is read).
+    for name in ("liblineshape_cuda.so", "libpylbl_native.so"):
+        (build.build_dir() / name).unlink(missing_ok=True)
     t0 = time.perf_counter()
 
     def timed_build(load):
@@ -2011,12 +2024,20 @@ def main():
         native_s = pool.submit(timed_build, native.load)
         print(f"build: CUDA kernels {cuda_s.result():.2f} s, native scan "
               f"{native_s.result():.2f} s (concurrent)")
-    print_ptxas(build.BUILD_LOGS.get("liblineshape_cuda.so", ""))
+    log = build.BUILD_LOGS.get("liblineshape_cuda.so", "")
+    print_ptxas(log)
+    walk = walk_usage(log)
+    check(walk is not None, f"the Lorentzian walk compiled: {walk}")
 
     records = {name: {"name": name, "route": "cuda",
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
                       "replaces": replaces}
                for name, replaces in KERNELS.items()}
+    for name in WALK:
+        records[name].update(registers=walk["registers"],
+                             spill_stores=walk["spill_stores"],
+                             spill_loads=walk["spill_loads"],
+                             points_per_lane=walk["points"])
     WORK.mkdir(parents=True, exist_ok=True)
     db_path = WORK / "smoke.db"
     if db_path.exists():
@@ -2079,9 +2100,8 @@ def main():
     phase_kernels(torch, lc, fn_a, col_a, list(sixteen), sixteen,
                   layers=16)
     for name, record in sixteen.items():
-        records[name].update(ms_16_layers=record["ms"],
-                             plain_ms_16_layers=record["plain_ms"],
-                             bound_ms_16_layers=record["bound_ms"])
+        records[name].update({f"{key}_16_layers": record[key] for key in (
+            "ms", "plain_ms", "bound_ms", "rcp_floor_ms") if key in record})
     pieces = fn_a.core_plan.pieces
     print(f"core_segmix scratch at 16 layers: {pieces.num_slots} slots of "
           f"split tiles per layer, {16 * pieces.num_slots * 1024 * 4} bytes")

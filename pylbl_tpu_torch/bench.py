@@ -69,7 +69,8 @@ import torch
 from .database.fixtures import synthetic_line_pack
 from .ops import lineshape_cuda as lc
 from .ops.lineshape import prepare_kernel_arrays
-from .tools import (CUT_OFF, PEAK_OPS, SURFACE, NoCudaError, card, core_ops,
+from .tools import (CUT_OFF, OPS_LORENTZ, PEAK_OPS, SURFACE, NoCudaError,
+                    card, core_ops,
                     device_ms, headline_pack, layer_workload, require_cuda,
                     tile_ops, window_evals)
 
@@ -141,16 +142,26 @@ def guarded_ms(fn, reps, evals, rate_hi, timer=device_ms):
     return float(np.median(taken)), INVALID
 
 
+def lines_ops(soa, n_out, core):
+    """(operations, the wings' operations) of one call of the prepacked
+    wings (tools.tile_ops) and the segment core (tools.core_ops)."""
+    wings = tile_ops(soa, n_out, "pre")
+    return wings + core_ops(core), wings
+
+
 def measure(fn, reps, evals, points, ops, timer=device_ms):
     """A stage's timed record: rates per second of ``evals`` and
     ``points`` per call, the guard's method, the operations' bound and
-    the band's top."""
+    the band's top; ``ops`` from :func:`lines_ops`, whose wings'
+    operations give the record's Lorentzian terms (``wings_terms``)."""
+    ops, wings = ops
     rate_hi = band_top(evals, ops)
     ms, method = guarded_ms(fn, reps, evals, rate_hi, timer)
     return {"evals_per_s": evals / (ms / 1e3),
             "points_per_s": points / (ms / 1e3), "ms_per_call": ms,
             "method": method, "evals_per_call": int(evals),
             "points_per_call": int(points), "operations": ops,
+            "wings_terms": wings / OPS_LORENTZ,
             "bound_ms": ops / PEAK_OPS * 1e3, "rate_hi": rate_hi}
 
 
@@ -256,9 +267,8 @@ def headline(pack, grid, device="cuda", timer=device_ms, reps=30):
     def run():
         return plan.run_with(plan.soa, plan.groups)
 
-    ops = tile_ops(plan.soa, n, "pre") + core_ops(plan.groups)
-    result = measure(run, reps, window_evals(work["keep"], npv), n, ops,
-                     timer)
+    result = measure(run, reps, window_evals(work["keep"], npv), n,
+                     lines_ops(plan.soa, n, plan.groups), timer)
     out = run()
     plan64 = lc.make_device_plan(
         prepare_kernel_arrays(work["kin"], npv, np.float64), work["kin"], n,
@@ -287,7 +297,7 @@ def batched(pack, grid, num_layers=4, device="cuda", timer=device_ms,
     soa, core = fn.stage.assemble(*dev)
     result = measure(run, reps, num_layers * window_evals(
         static["num_lines"], static["n_per_v"]), num_layers * n,
-        tile_ops(soa, fn.stage.n_out, "pre") + core_ops(core), timer)
+        lines_ops(soa, fn.stage.n_out, core), timer)
     out = run()
     fn64 = make_batched_fn(pack, grid, t_max=envelope[0],
                            p_max_atm=envelope[1], backend="plain",
@@ -322,7 +332,7 @@ def multigas(packs, grid, num_layers=4, device="cuda", timer=device_ms,
     result = measure(run, reps, num_layers * window_evals(
         static["num_lines"], static["n_per_v"]),
         num_layers * len(packs) * static["num_points"],
-        tile_ops(soa, fn.stage.n_out, "pre") + core_ops(core), timer)
+        lines_ops(soa, fn.stage.n_out, core), timer)
     out = run()
     fn64 = make_multigas_batched_fn(packs, grid, t_max=envelope[0],
                                     p_max_atm=envelope[1], backend="plain",
@@ -453,12 +463,13 @@ def config5(packs, grid, directory, num_layers=16, block=4, device="cuda",
         lambda: fn.inner(*first), reps,
         block * window_evals(static["num_lines"], static["n_per_v"]),
         block * len(packs) * static["num_points"],
-        tile_ops(soa, fn.stage.n_out, "pre") + core_ops(core), timer)
+        lines_ops(soa, fn.stage.n_out, core), timer)
     result.update(device_evals_per_s=device_rate["evals_per_s"],
                   device_method=device_rate["method"],
                   device_ms_per_block=device_rate["ms_per_call"],
                   evals_per_block=device_rate["evals_per_call"],
                   device_bound_ms_per_block=device_rate["bound_ms"],
+                  device_wings_terms_per_block=device_rate["wings_terms"],
                   host_syncs=host_syncs(lambda: dispatch(0), device))
     return result, path
 
@@ -501,7 +512,7 @@ def sharded(pack, grid, num_layers=4, device="cuda", timer=device_ms,
         n = static["num_points"]
         result = measure(run, reps, num_layers * window_evals(
             static["num_lines"], static["n_per_v"]), num_layers * n,
-            tile_ops(soa, stage.n_out, "pre") + core_ops(core), timer)
+            lines_ops(soa, stage.n_out, core), timer)
         out = step.gather(run())[:, :n]
         result.update(backend=step.backend, transport=mesh.transport,
                       host_syncs=host_syncs(run, device))

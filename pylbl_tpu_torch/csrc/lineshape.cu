@@ -8,37 +8,65 @@
 // -fmad=false keeps every a*b+c as two rounded operations, so the kernels
 // produce the values of the plain PyTorch versions beside their wrappers.
 //
-// pylbl_wings: the tile kernel, templated on its line function.
+// pylbl_wings: the tile kernel, by line function.
 //   PRE (prepacked Lorentzian, Y row = y^2, PREF row = pref*y/sqrt(pi)):
 //   strided wings with an optional tail chunk class (replaces
 //   _tile_kernel_strided_pre_tail(_batched) and, with no tail,
 //   _tile_kernel_strided_pre(_batched) in pylbl_tpu/ops/lineshape_pallas.py)
 //   and, with stride == tile, the splat wings (_tile_kernel(_batched) with
 //   _lorentz_line_pre).  RAW (_lorentz_line: ((pref*y)/sqrt(pi)) /
-//   (x^2 + y^2) from the raw rows) and CORR (_correction_line: the per-line
+//   (x^2 + y^2) from the raw rows) serves _tile_kernel(_batched) with
+//   stride == tile.  OWN is RAW with the line's strength zeroed unless its
+//   _PAD row equals the tile index as float32: the ownership-checked
+//   strided wings over a straddle CSR, where neighbouring tiles read
+//   shared chunks (replaces _tile_kernel_strided(_batched)); a zeroed
+//   foreign line adds +0.0.  CORR (_correction_line: the per-line
 //   Humlicek correction, class picked from the line's own y, lines with
-//   y >= 70.55 skipped) serve _tile_kernel(_batched) with stride == tile.
-//   OWN is RAW with the line's strength zeroed unless its _PAD row equals
-//   the tile index as float32: the ownership-checked strided wings over a
-//   straddle CSR, where neighbouring tiles read shared chunks (replaces
-//   _tile_kernel_strided(_batched)); a zeroed foreign line adds +0.0.
-//   A single layer is a batch of one.  On this card the work is set by the
-//   in-window line-points (about 7 operations each, one an IEEE f32
-//   divide: compute-bound, tens of microseconds on a layer), but a tile's
-//   chunk count is very uneven (up to ~70 chunks against a mean of ~12 on
-//   the headline layer), so one block per tile made the kernel as long as
-//   its busiest tile's serial walk.  The design: the tile's chunk walk
-//   (main chunks, then tail chunks) is cut into pieces of at most K
-//   chunks (the host's piece list, ops/lineshape_cuda.py TilePieces), one
-//   block of 256 threads per (piece, layer), each thread owning tile/256
-//   output points; chunk k+1 of the 8-row SoA is copied into a 2-stage
-//   shared-memory ring with cp.async while chunk k's lines are walked in
-//   order into a per-chunk partial that lands in the piece accumulator;
-//   a warp skips a (line, point group) whose window misses its 32
-//   consecutive points (the term would add +0.0, so the sums are
-//   unchanged).  Pieces fold into the tile in piece order (piece_store).
-//   CORR is bound by the Humlicek rationals; its point loop is not
-//   unrolled, so the four class bodies are compiled once each.
+//   y >= 70.55 skipped) serves _tile_kernel(_batched) with stride == tile.
+//   A single layer is a batch of one.
+//   The work is the in-window line-points, each one Lorentzian term: 7
+//   operations, one of them a reciprocal.  So the kernel is bound by
+//   instruction issue, not memory (the line block is read once a tile):
+//   every instruction spent on a line rather than on a term, every masked
+//   term, and every stall of a term's dependent chain is time; the MUFU's
+//   16 reciprocals a clock per SM floor it.  A tile's chunk count is very
+//   uneven (up to ~70 chunks against a mean of ~12 on the headline
+//   layer), so the tile's chunk walk (main chunks, then tail chunks) is
+//   cut into pieces of at most K chunks (the host's piece list,
+//   ops/lineshape_cuda.py TilePieces), one block per (piece, layer); the
+//   pieces fold into the tile in piece order (piece_fold).
+//   PRE takes the Lorentzian walk (lorentz_walk_kernel): tile / kWalkPoints
+//   threads, warp w owning the tile's 32 * kWalkPoints consecutive points
+//   from w * 32 * kWalkPoints (lane l the points 32j + l of them), compiled
+//   for kWalkBlocks blocks an SM (32 registers, 64 warps: the terms'
+//   dependent chains need the warps, and one chunk a piece gives the blocks).
+//   Chunk k + 1 is copied with 4-byte cp.async into a 2-slot ring while chunk
+//   k is walked (one slot when a piece is one chunk); the ring holds the
+//   chunk line major (walk_slot), so a line's fields reach a warp as two
+//   16-byte broadcasts, not seven 4-byte ones.  Per 32 lines of the chunk
+//   each lane tests one line's window against its warp's points, and two
+//   ballots give the warp the lines whose window reaches its points and those
+//   whose window holds them all; the warp walks the set bits in line order.
+//   A line that misses the warp's points is never loaded (it would add +0.0
+//   to every point, and a sum that starts at +0.0 with terms >= +0.0 never
+//   holds -0.0, so skipping it leaves the bits unchanged); a line whose
+//   window holds the warp's points takes the body without the window mask
+//   (every term is in window); only a line whose window edge falls inside the
+//   warp's points keeps the per-group test and the mask.  The term is pref_y
+//   * rcp(x^2 + y^2), an IEEE reciprocal and an IEEE multiply (lorentz_term):
+//   div.rn.f32's range check and slow-path branch around each divide cost
+//   more than the second rounding, which the plain version repeats.  Each
+//   point's sum is the same chain as before: per chunk a partial over its
+//   lines in line order from +0.0, added into the piece accumulator in walk
+//   order.  The splat's chunk padding (lines rounding each tile's walk up to
+//   whole chunks) has empty windows and costs one test per lane per 32 lines.
+//   RAW, OWN and CORR keep the earlier walk (wings_kernel): 256 threads,
+//   thread x owning the points x + 256j, chunks staged SoA and walked
+//   line by line with seven broadcasts a line, a warp skipping a (line,
+//   point group) whose window misses its 32 points (the term would add
+//   +0.0), the IEEE divide.  CORR is bound by the Humlicek rationals; its
+//   point loop is not unrolled, so the four class bodies are compiled
+//   once each.
 //
 // pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
 //   _seg_kernel_batched).  Every 128-instance chunk carries ONE segment
@@ -138,6 +166,21 @@ constexpr int kSeg0Rel = 0, kCoreCFrac = 1, kCoreSrw = 2, kCoreY = 3,
 
 // Tile-kernel line functions (pylbl_wings' line_fn argument).
 constexpr int kLinePre = 0, kLineRaw = 1, kLineCorr = 2, kLineOwn = 3;
+// The Lorentzian walk: points per lane (a warp owns 32 * kWalkPoints
+// consecutive points of the tile), floats per staged line, and the
+// blocks of kWingsThreads an SM holds (the compiler keeps a thread within
+// 32 registers, so the SM holds its 64 warps).
+constexpr int kWalkPoints = 4;
+constexpr int kLineFloats = 8;
+constexpr int kWalkBlocks = 8;
+
+// Where a staged line keeps SoA row r: the window first, so that a lane
+// reads it as one 8-byte load, then the rest in row order:
+// {S_IDX, E_IDX, C_INT, C_FRAC}, {SRW, Y, PREF, _PAD}.
+__host__ __device__ constexpr int walk_slot(int r)
+{
+    return r == kSIdx ? 0 : r == kEIdx ? 1 : r < kSIdx ? r + 2 : r;
+}
 // Rows core: threads per block (8 warps, one per row), groups per chunk,
 // groups per piece (ROWS_PIECE_GROUPS, one cp.async stage), and the min-y
 // row of a group block.
@@ -163,6 +206,15 @@ __device__ __forceinline__ float safe_div(float num, float den)
 __device__ __forceinline__ float lorentz(float x, float y)
 {
     return (y * F(kRsqrpi)) / (x * x + y * y);
+}
+
+// A prepacked Lorentzian term (pref*y/sqrt(pi)) / (x^2 + y^2) as the
+// IEEE reciprocal of the denominator times the numerator, two rounded
+// operations (the plain version's pref_y * (1 / den)).
+__device__ __forceinline__ float lorentz_term(float pref_y, float x,
+                                              float ysq)
+{
+    return __fmul_rn(pref_y, __frcp_rn(x * x + ysq));
 }
 
 __device__ __forceinline__ float region1(float xq, float y, float yq)
@@ -426,6 +478,128 @@ __device__ __forceinline__ void piece_fold(const Pieces& pc, float* o,
     }
 }
 
+// The prepacked Lorentzian walk (PRE; see the note at the top).  Block:
+// tile / PPT threads; warp w owns the tile's points w*32*PPT ..
+// (w+1)*32*PPT - 1, lane l the points w*32*PPT + 32j + l.  The ring holds
+// two chunks (one for pieces of one chunk) line-major, 8 floats a line
+// (walk_slot), in dynamic shared memory of max(chunk, tail) * 32 bytes a
+// slot.
+template <int PPT>
+__global__ void __launch_bounds__(kWingsThreads, kWalkBlocks)
+lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
+                    long long soa_r, const int* __restrict__ w_start,
+                    const int* __restrict__ w_n,
+                    const int* __restrict__ t_start,
+                    const int* __restrict__ t_n, long long csr_b,
+                    float* __restrict__ out, int num_tiles, int tile,
+                    int stride, int chunk, int tail, Pieces pc)
+{
+    constexpr int kSpan = 32 * PPT;
+    constexpr int kRows = 7;
+    extern __shared__ float4 ring[];
+    const int ring_lines = max(chunk, tail);
+    const int b = blockIdx.y;
+    const int t = pc.tile[blockIdx.x];
+    const int piece = blockIdx.x - pc.first[t];
+    const float* lines = soa + b * soa_b;
+    const long long csr = b * csr_b + t;
+    // The tile's walk: its main chunks, then its tail chunks.
+    const int n_main = w_n[csr];
+    const int n_walk = n_main + (t_start == nullptr ? 0 : t_n[csr]);
+    const int k0 = piece * pc.piece;
+    const int k1 = min(k0 + pc.piece, n_walk);
+    const int lane = threadIdx.x & 31;
+    const int offset = (threadIdx.x >> 5) * kSpan;   // the warp's first
+    const float lo = (float)(t * stride + offset);
+    const float hi = lo + (float)(kSpan - 1);
+
+    float point[PPT], acc[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+        point[j] = lo + (float)(32 * j + lane);
+        acc[j] = 0.0f;
+    }
+    auto width_of = [&](int k) { return k < n_main ? chunk : tail; };
+    auto stage = [&](int k, int s) {
+        const int width = width_of(k);
+        const long long line0 = k < n_main
+            ? (long long)w_start[csr] + (long long)k * chunk
+            : (long long)t_start[csr] + (long long)(k - n_main) * tail;
+        float* dst = reinterpret_cast<float*>(ring + 2LL * s * ring_lines);
+        for (int i = threadIdx.x; i < kRows * width; i += blockDim.x) {
+            const int r = i / width;
+            const int l = i - r * width;
+            cp_async4(dst + l * kLineFloats + walk_slot(r),
+                      lines + r * soa_r + line0 + l);
+        }
+    };
+    if (k0 < k1) stage(k0, 0);
+    cp_async_commit();
+    for (int k = k0; k < k1; ++k) {
+        const int s = (k - k0) & 1;
+        if (k + 1 < k1) stage(k + 1, s ^ 1);
+        cp_async_commit();
+        cp_async_wait_prev();
+        __syncthreads();
+        const float4* staged = ring + 2LL * s * ring_lines;
+        const int width = width_of(k);
+        float part[PPT];
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
+        for (int g = 0; g < width; g += 32) {
+            // Lane l tests line g + l against the warp's points: ``meet``
+            // lists the lines whose window reaches them, ``full`` those
+            // whose window holds them all.
+            const int l = g + lane;
+            bool meets = false, covers = false;
+            if (l < width) {
+                const float2 w = reinterpret_cast<const float2*>(staged)[
+                    l * (kLineFloats / 2)];
+                meets = !(w.y < lo || w.x > hi);
+                covers = w.x <= lo && w.y >= hi;
+            }
+            unsigned meet = __ballot_sync(0xffffffffu, meets);
+            const unsigned full = __ballot_sync(0xffffffffu, covers);
+            while (meet != 0u) {                 // warp-uniform, in order
+                const int i = __ffs(meet) - 1;
+                meet &= meet - 1u;
+                // {ws, we, c_int, c_frac}, {srw, y^2, pref*y/sqrt(pi), -}.
+                const float4 f0 = staged[2 * (g + i)];
+                const float4 f1 = staged[2 * (g + i) + 1];
+                if ((full >> i) & 1u) {
+#pragma unroll
+                    for (int j = 0; j < PPT; ++j) {
+                        const float x = ((point[j] - f0.z) - f0.w) * f1.x;
+                        part[j] = part[j] + lorentz_term(f1.z, x, f1.y);
+                    }
+                } else {
+#pragma unroll
+                    for (int j = 0; j < PPT; ++j) {
+                        // The 32 points of group j: warp-uniform test.
+                        const float lo_j = lo + (float)(32 * j);
+                        if (f0.y < lo_j || f0.x > lo_j + 31.0f) continue;
+                        const float x = ((point[j] - f0.z) - f0.w) * f1.x;
+                        const float val = lorentz_term(f1.z, x, f1.y);
+                        const bool in = (point[j] >= f0.x)
+                            && (point[j] <= f0.y);
+                        part[j] = part[j] + (in ? val : 0.0f);
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
+        __syncthreads();   // the ring slot is restaged next iteration
+    }
+    float* o = out + ((long long)b * num_tiles + t) * tile;
+    float* dst = piece_dst(pc, o, b, t, piece, tile) + offset + lane;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) dst[32 * j] = acc[j];
+    piece_fold(pc, o, b, t, num_tiles, tile);
+}
+
+// RAW, OWN and CORR (see the note at the top): 256 threads, thread x
+// owning the points x + 256j, chunks staged SoA.
 template <int PPT, int LINE>
 __global__ void __launch_bounds__(kWingsThreads)
 wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
@@ -502,16 +676,13 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
                     part[j] = part[j] + (in ? pref * val : 0.0f);
                 }
             } else {
-                // PRE rows carry pref*y/sqrt(pi) and y^2 already; OWN is
-                // RAW with a foreign line's strength zeroed.
-                constexpr bool raw = LINE == kLineRaw || LINE == kLineOwn;
+                // OWN is RAW with a foreign line's strength zeroed.
                 float strength = pref;
                 if constexpr (LINE == kLineOwn) {
                     strength = buf[s][kPad][l] == tile_f ? pref : 0.0f;
                 }
-                const float pref_y = raw ? (strength * y) * F(kRsqrpi)
-                                         : pref;
-                const float ysq = raw ? y * y : y;
+                const float pref_y = (strength * y) * F(kRsqrpi);
+                const float ysq = y * y;
 #pragma unroll
                 for (int j = 0; j < PPT; ++j) {
                     if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
@@ -866,6 +1037,21 @@ void launch_rows(dim3 grid, cudaStream_t s, const float* groups,
     }
 }
 
+void launch_walk(dim3 grid, cudaStream_t s, const float* soa,
+                 long long soa_b, long long soa_r, const int* w_start,
+                 const int* w_n, const int* t_start, const int* t_n,
+                 long long csr_b, float* out, int num_tiles, int tile,
+                 int stride, int chunk, int tail, const Pieces& pc)
+{
+    // A piece of one chunk stages it once: one ring slot.
+    const size_t ring = (pc.piece > 1 ? 2 : 1) * (size_t)max(chunk, tail)
+        * kLineFloats * sizeof(float);
+    lorentz_walk_kernel<kWalkPoints>
+        <<<grid, tile / kWalkPoints, ring, s>>>(
+            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+            num_tiles, tile, stride, chunk, tail, pc);
+}
+
 template <int LINE>
 int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
                  long long soa_b, long long soa_r, const int* w_start,
@@ -916,17 +1102,17 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Pieces pc{p_tile, p_first, p_count, p_slot, num_slots, piece,
                     scratch, done};
-    if (piece < 1 || tail > kMaxChunk || chunk > kMaxChunk)
+    if (piece < 1 || tail > kMaxChunk || chunk > kMaxChunk
+            || tile > kMaxTile || tile % (32 * kWalkPoints))
         return (int)cudaErrorInvalidValue;
     if (num_pieces > 0 && num_layers > 0) {
         const int ppt = tile / kWingsThreads;
-        int err;
+        int err = 0;
         switch (line_fn) {
         case kLinePre:
-            err = launch_wings<kLinePre>(grid, s, ppt, soa, soa_b, soa_r,
-                                         w_start, w_n, t_start, t_n, csr_b,
-                                         out, num_tiles, tile, stride, chunk,
-                                         tail, pc);
+            launch_walk(grid, s, soa, soa_b, soa_r, w_start, w_n, t_start,
+                        t_n, csr_b, out, num_tiles, tile, stride, chunk,
+                        tail, pc);
             break;
         case kLineRaw:
             err = launch_wings<kLineRaw>(grid, s, ppt, soa, soa_b, soa_r,

@@ -32,9 +32,10 @@ Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
    (:class:`TilePieces`), the segment pass works per chunk and folds per
    stream (:class:`SegStreams`); the plans build both once.
 3. **Plain PyTorch versions** (``*_plain``) with the same plan, tile,
-   chunking and summation order as the kernels (per-chunk partials, then
-   pieces of :data:`PIECE_CHUNKS` chunks, then the tile in piece order for
-   the split kernels; the rows core per piece of :data:`ROWS_PIECE_GROUPS`
+   chunking, summation order and term as the kernels (per-chunk
+   partials, then pieces of :data:`WINGS_PIECE_CHUNKS` chunks for the tile
+   kernel and :data:`PIECE_CHUNKS` for the mixed-slot core, then the tile
+   in piece order; the rows core per piece of :data:`ROWS_PIECE_GROUPS`
    groups; warp partials summed in warp order), in any float dtype and on
    any device.  They work in slabs so they also run at main-path size on
    the card.
@@ -49,13 +50,21 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   lineshape_pallas.py:2148-2257, ``_tile_kernel_strided(_batched)``
   :2260/:2321, and ``_tile_kernel(_batched)`` :1528/:1662 with
   ``_lorentz_line_pre`` :2088, ``_lorentz_line`` :110 or
-  ``_correction_line`` :119).  One block per (piece, layer); 256 threads
-  own the tile's points, the piece's chunks of the 8-row SoA are staged
-  into a 2-slot shared-memory ring with ``cp.async`` and walked line by
-  line in order, a warp skipping the lines whose window misses its 32
-  points.  Bound: about 7 operations per in-window line-point, one an
-  IEEE f32 divide, for the Lorentzian line functions (operations, not
-  memory); the Humlicek rationals for the correction.
+  ``_correction_line`` :119).  One block per (piece, layer) of
+  :data:`WINGS_PIECE_CHUNKS` chunks; the piece's chunks of the SoA are
+  staged into a shared-memory ring with ``cp.async`` (two slots, one
+  for a piece of one chunk).  The
+  prepacked Lorentzian (every strided and splat wings pass of the main
+  path) takes the Lorentzian walk: tile/4 threads, a warp owning 128
+  consecutive points, the ring line-major, per 32 lines two ballots
+  listing the lines that reach the warp's points and those that cover
+  them, the listed lines walked in order (the covering ones without the
+  window mask), the term ``pref_y * rcp(x^2 + y^2)``.  The raw
+  Lorentzian, the ownership-checked raw Lorentzian and the correction
+  keep the earlier walk: 256 threads, a warp skipping the lines whose
+  window misses its 32 points, the IEEE divide.  Bound: about 7
+  operations per in-window line-point, one a reciprocal (instruction
+  issue, not memory); the Humlicek rationals for the correction.
 - Mixed-slot core (replaces ``_seg_kernel_mixed(_batched)`` :1113/:1148
   with ``_seg_chunk_accumulate_mixed`` :1070).  One block of 4 warps per
   (piece, layer); per 128-instance chunk (the next one staged with
@@ -124,9 +133,12 @@ Y_FIELD = 3               # index of y in the group-params field order.
 GROUP_ROWS = 64
 YMIN_ROW = 56
 
-# Chunks per piece of the tile and mixed-slot core kernels' split chunk
-# walks (:class:`TilePieces`); the plain versions fold in the same pieces.
+# Chunks per piece of the mixed-slot core kernel's split chunk walk
+# (:class:`TilePieces`) and of the tile kernel's (every wings pass: one
+# chunk a block was the fastest of 1, 2 and 4 on every wings cell of the
+# H100, PERF.md); the plain versions fold in the same pieces.
 PIECE_CHUNKS = 4
+WINGS_PIECE_CHUNKS = 1
 # Groups per piece of the rows core's split group walk (the kernel's
 # kRowsPiece): a quarter of a 128-group chunk, staged in one go (PERF.md
 # says why this width).
@@ -1020,7 +1032,14 @@ _PIECE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
 
 def cuda_library():
     """The kernels' shared library, built with nvcc on first use."""
-    lib = load_library("liblineshape_cuda.so", [CUDA_SOURCE], _nvcc_command)
+    return bind_library(load_library("liblineshape_cuda.so", [CUDA_SOURCE],
+                                     _nvcc_command))
+
+
+def bind_library(lib):
+    """Sets the argument types of the kernels' C entries on ``lib`` (a
+    ctypes library built from ``csrc/lineshape.cu``, or from another
+    version of it); returns ``lib``."""
     if not getattr(lib, "_pylbl_bound", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.pylbl_wings.restype = ctypes.c_int
@@ -1095,11 +1114,12 @@ class TilePieces:
         self._dev = {}
 
     @classmethod
-    def of_csr(cls, *counts):
+    def of_csr(cls, *counts, piece=WINGS_PIECE_CHUNKS):
         """Pieces of the walk over one or more chunk classes (the main and
-        tail CSR counts, numpy or tensors, [T] or [B, T])."""
+        tail CSR counts, numpy or tensors, [T] or [B, T]), by default the
+        tile kernel's (:data:`WINGS_PIECE_CHUNKS`)."""
         total = sum(_host(c) for c in counts if c is not None)
-        return cls(total)
+        return cls(total, piece=piece)
 
     @property
     def num_pieces(self):
@@ -1395,7 +1415,8 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
             elif line in ("raw", "own"):
                 val = ((pref * y) * RSQRPI) / (x * x + y * y)
             else:
-                val = pref / (x * x + y)
+                # The walk's term: the reciprocal, then the product.
+                val = pref * (1.0 / (x * x + y))
             mask = (point >= vals[:, S_IDX]) & (point <= vals[:, E_IDX])
             part = part + torch.where(mask, val, torch.zeros_like(val))
         out[:, lo:hi] = part
@@ -1417,8 +1438,8 @@ def _fold_in_order(parts, targets, seq, shape):
     return acc
 
 
-def _fold_pieces(parts, tiles, seq, shape):
-    """The split kernels' three-level order: each piece of PIECE_CHUNKS
+def _fold_pieces(parts, tiles, seq, shape, piece=PIECE_CHUNKS):
+    """The split kernels' three-level order: each piece of ``piece``
     chunks of a tile's walk sums its chunk partials in walk order, and the
     tile is ((0 + piece 0) + piece 1) + ...  ``parts`` [B, M, ...] are the
     chunk partials, ``tiles``/``seq`` each chunk's tile and place in its
@@ -1426,20 +1447,21 @@ def _fold_pieces(parts, tiles, seq, shape):
     is P: a sum that starts at +0.0 is never -0.0)."""
     if seq.numel() == 0:
         return parts.new_zeros(shape)
-    piece = seq // PIECE_CHUNKS
-    span = int(piece.max()) + 1
-    keys, of_piece = torch.unique(tiles * span + piece, return_inverse=True)
-    sums = _fold_in_order(parts, of_piece, seq % PIECE_CHUNKS,
+    of = seq // piece
+    span = int(of.max()) + 1
+    keys, of_piece = torch.unique(tiles * span + of, return_inverse=True)
+    sums = _fold_in_order(parts, of_piece, seq % piece,
                           (shape[0], keys.numel()) + tuple(shape[2:]))
     return _fold_in_order(sums, keys // span, keys % span, shape)
 
 
 def wings_tiles_plain(soa, w_start, w_n, num_tiles, tile, stride, chunk,
-                      t_start=None, t_n=None, tail=128, line="pre"):
+                      t_start=None, t_n=None, tail=128, line="pre",
+                      piece=WINGS_PIECE_CHUNKS):
     """Plain version of the tile kernel: [B, 8, N] SoA and a per-tile
     chunk CSR ([T], shared by every layer) -> [B, T, tile] tile sums;
     point = t * stride + offset, main chunks then tail chunks, folded in
-    the kernel's pieces (:func:`_fold_pieces`)."""
+    the kernel's pieces of ``piece`` chunks (:func:`_fold_pieces`)."""
     device = soa.device
     zero = torch.zeros(num_tiles, dtype=torch.int64, device=device)
     tiles, line0, seq = _chunk_pairs(w_start, w_n, chunk, zero, device)
@@ -1452,7 +1474,8 @@ def wings_tiles_plain(soa, w_start, w_n, num_tiles, tile, stride, chunk,
         tiles = torch.cat([tiles, tt])
         seq = torch.cat([seq, ts])
         parts = torch.cat([parts, tparts], dim=1)
-    return _fold_pieces(parts, tiles, seq, (soa.shape[0], num_tiles, tile))
+    return _fold_pieces(parts, tiles, seq, (soa.shape[0], num_tiles, tile),
+                        piece)
 
 
 def strided_combine(out, num_points, tile, stride):
@@ -1472,10 +1495,11 @@ def strided_combine(out, num_points, tile, stride):
 
 
 def _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
-                t_start, t_n, tail, line):
+                t_start, t_n, tail, line, piece=WINGS_PIECE_CHUNKS):
     """The tile kernel's plain version over [T] CSRs or [B, T] ones
     (numpy or torch); layers whose [B, T] rows differ run one by one, each
-    with its own row, as the kernel's blocks do."""
+    with its own row, as the kernel's blocks do; ``piece``: the kernel's
+    chunks per piece."""
     soa, single = _as_batch(soa)
     num_tiles = (num_points - 1) // stride + 1
     csr = [None if c is None else torch.as_tensor(c, device=soa.device)
@@ -1489,7 +1513,7 @@ def _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
         block = soa if b is None else soa[b:b + 1]
         tiles = wings_tiles_plain(block, rows[0], rows[1], num_tiles, tile,
                                   stride, chunk, rows[2], rows[3], tail,
-                                  line)
+                                  line, piece)
         outs.append(strided_combine(tiles, num_points, tile, stride))
     return _unbatch(torch.cat(outs), single)
 
@@ -1536,11 +1560,12 @@ def wings_strided_pass(soa, w_start, w_n, num_points, tile, stride,
 
 def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
                         chunk=STRIDED_CHUNK, t_start=None, t_n=None,
-                        tail=128):
+                        tail=128, piece=WINGS_PIECE_CHUNKS):
     """:func:`wings_strided_pass` through the plain version on any device
-    and float dtype."""
+    and float dtype (``piece``: the pieces' chunks, as the kernel's
+    :class:`TilePieces`)."""
     return _tile_plain(soa, w_start, w_n, num_points, tile, stride, chunk,
-                       t_start, t_n, tail, "pre")
+                       t_start, t_n, tail, "pre", piece)
 
 
 def wings_strided_checked_pass(soa, start, nchunks, num_points, tile, stride,
@@ -1588,11 +1613,11 @@ def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
 
 
 def tile_plain(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
-               pass_kind="wings_pre"):
+               pass_kind="wings_pre", piece=WINGS_PIECE_CHUNKS):
     """:func:`tile_pass` through the plain version on any device and float
-    dtype."""
+    dtype (``piece`` as :func:`wings_strided_plain`)."""
     return _tile_plain(soa, start, nchunks, num_points, tile, tile, chunk,
-                       None, None, 128, _PLAIN_LINES[pass_kind])
+                       None, None, 128, _PLAIN_LINES[pass_kind], piece)
 
 
 # --------------------------------------------------------------------------
@@ -1659,7 +1684,7 @@ def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
                          "128..1024 points and whole chunks of instances")
     batch = params.shape[0]
     if pieces is None:
-        pieces = TilePieces.of_csr(tile_chunks)
+        pieces = TilePieces.of_csr(tile_chunks, piece=PIECE_CHUNKS)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=params.device)
     piece_args, _keep = pieces.launch_args(batch, num_tiles, tile,
@@ -2226,7 +2251,7 @@ def accumulate_batched(kernel_arrays, kin, num_points, n_per_v, cut_off,
     ce = np.where(all_lorentz, cs - 1, ce)
     plan = CorePlan(cs, ce, int(num_points), tile,
                     sort_key=np.asarray(kernel_arrays["y"]).min(axis=0))
-    pieces = TilePieces(w_n)
+    pieces = TilePieces.of_csr(w_n)
     soa, w_start, w_n, params = (torch.as_tensor(a, device=device) for a in
                                  (soa, w_start, w_n,
                                   plan.gather(kernel_arrays)))

@@ -10,7 +10,10 @@
 - ``envelope_compare``: the single-gas batched pipeline under the default
   kernel envelope against the atmosphere-derived one;
 - ``bench_scaling``: the line-sharded step at spec 1, 2 and 4 on gloo
-  ranks that share the card (work-model efficiency, float64 error).
+  ranks that share the card (work-model efficiency, float64 error);
+- ``wings_ab``: the wings kernel of this checkout against libraries built
+  from other versions of ``csrc/lineshape.cu``, in turns on the smoke's
+  inputs.
 
 The benchmark entry point, ``python -m pylbl_tpu_torch bench``
 (``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
@@ -23,6 +26,7 @@ workload and plan builders run on any device (the tests build them on the
 CPU at a small size).  Every time is printed beside the card's name and
 power limit.
 """
+import re
 import subprocess
 
 import numpy as np
@@ -46,6 +50,24 @@ PEAK_BYTES = 3.35e12
 OPS_LORENTZ = 7
 OPS_K1 = 28
 OPS_REGIONS = 41
+# The floor of a term that needs one reciprocal: Hopper's MUFU gives 16
+# reciprocals a clock on each of the H100 SXM's 132 SMs.
+RCP_PER_CLOCK = 16
+SMS = 132
+# The canonical 4-layer test column (tests/conftest.py): pressure [Pa],
+# temperature [K] and mole fractions, by gas.
+CANON_P = np.asarray([117.0, 1032.0, 11419.0, 98388.0])
+CANON_T = np.asarray([269.01, 227.74, 203.37, 288.99])
+CANON_VMR = {
+    "H2O": [5.244536e-06, 4.763972e-06, 3.039952e-06, 6.637074e-03],
+    "CO2": [0.00036, 0.00036, 0.00036, 0.00035999],
+    "O3": [2.936688e-06, 7.415223e-06, 2.609510e-07, 6.859128e-08],
+    "N2O": [1.050928e-08, 1.319584e-07, 2.895416e-07, 3.199949e-07],
+    "CH4": [2.947482e-07, 8.817705e-07, 1.588336e-06, 1.700002e-06],
+    "CO": [3.621464e-08, 1.761450e-08, 3.315927e-08, 1.482969e-07],
+    "O2": [0.209, 0.209, 0.2090003, 0.208996],
+    "N2": [0.78, 0.78, 0.78, 0.78],
+}
 
 
 class NoCudaError(RuntimeError):
@@ -79,6 +101,79 @@ def device_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def canonical_layers(num_layers):
+    """``num_layers`` layers spanning the canonical column: pressure
+    log-spaced 117-98388 Pa, temperature and mole fractions interpolated in
+    log pressure.  Returns (t, p, {gas: mole fractions}), float64."""
+    p = np.geomspace(CANON_P[0], CANON_P[-1], num_layers)
+    order = np.argsort(CANON_P)
+    logp = np.log(CANON_P[order])
+    t = np.interp(np.log(p), logp, CANON_T[order])
+    vmr = {name: np.interp(np.log(p), logp, np.asarray(values)[order])
+           for name, values in CANON_VMR.items()}
+    return t, p, vmr
+
+
+def sm_clock_mhz(fn, seconds=0.3):
+    """The SM clock [MHz] that nvidia-smi reads while launches of ``fn``
+    keep the card busy for about ``seconds`` (an idle card reads its idle
+    clock)."""
+    reps = max(1, int(seconds * 1e3 / device_ms(fn, 3)))
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return float(out.stdout.split()[0])
+
+
+def rcp_floor_ms(evals, mhz):
+    """The least time ``evals`` Lorentzian terms take when each needs one
+    MUFU reciprocal: ``RCP_PER_CLOCK`` x ``SMS`` a clock at ``mhz``."""
+    return evals / (RCP_PER_CLOCK * SMS * mhz * 1e6) * 1e3
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_usage(log):
+    """{kernel's mangled name: {"registers", "spill_stores",
+    "spill_loads", "smem"}} from nvcc's ``-Xptxas -v`` output (bytes, static
+    shared memory only)."""
+    usage = {}
+    name = None
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            name = entry.group(1)
+            usage[name] = {"registers": None, "spill_stores": 0,
+                           "spill_loads": 0, "smem": 0}
+        elif name is not None and _SPILLS.search(line):
+            stores, loads = _SPILLS.search(line).groups()
+            usage[name].update(spill_stores=int(stores),
+                               spill_loads=int(loads))
+        elif name is not None and _USED.search(line):
+            smem = _SMEM.search(line)
+            usage[name].update(registers=int(_USED.search(line).group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+            name = None
+    return usage
+
+
+def walk_usage(log):
+    """The ``ptxas_usage`` of the Lorentzian walk (the prepacked wings),
+    with its points per lane as ``points``; None when the log has none."""
+    for name, use in ptxas_usage(log).items():
+        found = re.search(r"lorentz_walk_kernelILi(\d+)E", name)
+        if found:
+            return dict(use, points=int(found.group(1)))
+    return None
 
 
 def run_main(tool, run, *args):

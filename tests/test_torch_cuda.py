@@ -559,6 +559,172 @@ def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
         core.seg_pass(shifted)
 
 
+# --- The Lorentzian walk's edge cases on synthetic walks: windows that
+# start and end inside a warp's points, warps wholly inside and outside a
+# window, padded chunks, an empty tile, a tile of many pieces, the tail
+# class, [B, T] CSRs that differ by layer, tiles of 256, 512 and 1024. ---
+
+WALK_POINTS = 128        # a warp's consecutive points (32 lanes x 4)
+CHUNK, TAIL = 100, 128   # a chunk that is not whole groups of 32 lines
+
+
+def synthetic_walk(tile, stride, num_tiles=6, layers=2, tail=True, seed=0):
+    """A prepacked SoA [B, 8, N] and a per-layer [B, T] CSR (main chunks
+    of CHUNK lines, with ``tail`` tail chunks of TAIL) over private
+    per-tile chunks: tile 0 walks nothing, tile 1 walks 3K + 1 main
+    chunks (many pieces), the rest 1-3; layer 1 walks one chunk fewer
+    where it can.  Windows: random around the tile's points, with edges
+    inside a warp's points and on its edges, some holding all of them;
+    one line in five is padding (an empty window and zero strength).
+    Returns (soa, csr list, num_points)."""
+    rng = np.random.default_rng(seed)
+    k = lc.WINGS_PIECE_CHUNKS
+    main = np.r_[0, 3 * k + 1, rng.integers(1, 4, num_tiles - 2)]
+    tails = rng.integers(0, 3, num_tiles) if tail else np.zeros(num_tiles,
+                                                                int)
+    tails[0] = 0
+    w_start = np.r_[0, np.cumsum(main * CHUNK)[:-1]]
+    t_start = main.sum() * CHUNK + np.r_[0, np.cumsum(tails * TAIL)[:-1]]
+    total = int(main.sum() * CHUNK + tails.sum() * TAIL)
+    owner = np.zeros(total, int)
+    for t in range(num_tiles):
+        owner[w_start[t]:w_start[t] + main[t] * CHUNK] = t
+        owner[t_start[t]:t_start[t] + tails[t] * TAIL] = t
+    soa = np.zeros((layers, 8, total), np.float32)
+    for b in range(layers):
+        lo = owner * stride
+        center = lo + rng.integers(-tile // 4, tile + tile // 4, total)
+        ws = center - rng.choice([3, 31, 64, 200, 2 * tile], total)
+        we = center + rng.integers(0, 2 * tile, total)
+        # Windows on a warp's first and last points.
+        edge = rng.random(total) < 0.1
+        ws = np.where(edge, lo + WALK_POINTS * rng.integers(0, 4, total), ws)
+        we = np.where(edge, ws + WALK_POINTS * rng.integers(1, 3, total) - 1,
+                      we)
+        dead = rng.random(total) < 0.2
+        soa[b, lc.C_INT] = center
+        soa[b, lc.C_FRAC] = rng.random(total)
+        soa[b, lc.SRW] = rng.uniform(0.02, 0.6, total)
+        soa[b, lc.Y] = rng.uniform(0.05, 9.0, total)
+        soa[b, lc.PREF] = np.where(dead, 0.0, rng.uniform(0.1, 3.0, total))
+        soa[b, lc.S_IDX] = np.where(dead, -1.0, ws)
+        soa[b, lc.E_IDX] = np.where(dead, -2.0, we)
+    w_n = np.stack([np.maximum(main - b, 0) for b in range(layers)])
+    csr = [np.broadcast_to(w_start, w_n.shape), w_n]
+    if tail:
+        csr += [np.broadcast_to(t_start, w_n.shape),
+                np.broadcast_to(tails, w_n.shape)]
+    csr = [np.ascontiguousarray(a, np.int32) for a in csr]
+    return soa, csr, stride * num_tiles
+
+
+def walk_cases(soa, csr, tile, stride):
+    """How often each case of the walk occurs over every (layer, tile,
+    walked line, warp): a window edge inside the warp's points, a window
+    holding them all, one missing them, and a padding line."""
+    cases = {"edge inside a warp": 0, "warp inside a window": 0,
+             "warp outside a window": 0, "padding": 0}
+    classes = [(csr[0], csr[1], CHUNK)] + (
+        [(csr[2], csr[3], TAIL)] if len(csr) == 4 else [])
+    for b in range(soa.shape[0]):
+        for t in range(csr[0].shape[1]):
+            lines = [first + i for start, count, width in classes
+                     for first in [int(start[b, t])]
+                     for i in range(int(count[b, t]) * width)]
+            for line in lines:
+                ws, we = soa[b, lc.S_IDX, line], soa[b, lc.E_IDX, line]
+                if we < ws:
+                    cases["padding"] += 1
+                    continue
+                for w in range(tile // WALK_POINTS):
+                    lo = t * stride + w * WALK_POINTS
+                    hi = lo + WALK_POINTS - 1
+                    if we < lo or ws > hi:
+                        cases["warp outside a window"] += 1
+                    elif ws <= lo and we >= hi:
+                        cases["warp inside a window"] += 1
+                    else:
+                        cases["edge inside a warp"] += 1
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 512, 1024])
+@pytest.mark.parametrize("form", ["strided", "tail", "splat"])
+def test_walk_edge_cases_equal_plain(cuda_device, tile, form):
+    """The prepacked wings on synthetic per-layer walks equal the plain
+    version bit for bit and repeat bit for bit: strided (stride tile/4)
+    with and without the tail class, and the splat (stride = tile); each
+    layer alone gives its row of the batch."""
+    stride = tile if form == "splat" else tile // 4
+    soa, csr, n = synthetic_walk(tile, stride, tail=form == "tail",
+                                 seed=tile)
+    cases = walk_cases(soa, csr, tile, stride)
+    assert all(v > 0 for v in cases.values()), cases
+    counts = csr[1] + (csr[3] if len(csr) == 4 else 0)
+    assert counts[:, 0].max() == 0                   # an empty tile
+    pieces = lc.TilePieces.of_csr(*csr[1::2])
+    assert pieces.per_tile.max() > 3                 # many pieces
+    soa_d = torch.as_tensor(soa, device=cuda_device)
+    dev = [torch.as_tensor(a, device=cuda_device) for a in csr]
+
+    def run(data, rows, plain=False, pieces=None):
+        if form == "splat":
+            if plain:
+                return lc.tile_plain(data, *rows, n, tile, CHUNK,
+                                     "wings_pre")
+            return lc.tile_pass(data, *rows, n, tile, CHUNK, "wings_pre",
+                                pieces)
+        args = (*rows[:2], n, tile, stride, CHUNK, *(rows[2:] or
+                                                     [None, None]))
+        if plain:
+            return lc.wings_strided_plain(data, *args, tail=TAIL)
+        return lc.wings_strided_pass(data, *args, tail=TAIL, pieces=pieces)
+
+    lc.reset_launches()
+    got = run(soa_d, dev, pieces=pieces)
+    again = run(soa_d, dev)
+    want = run(soa_d, dev, plain=True)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(got, again)
+    key = "wings_splat" if form == "splat" else "wings_strided"
+    assert lc.LAUNCHES[key] == 2
+    for b in range(soa.shape[0]):
+        assert torch.equal(run(soa_d[b], [a[b] for a in dev]), got[b])
+
+
+@pytest.mark.gpu
+def test_walk_refusals(cuda_device):
+    """The wings launch refuses what the kernel does not take: another
+    dtype, a strided block, a CSR of other tiles or layers or on another
+    device, a tile other than 256/512/1024, chunks above 512 lines, a tail
+    that is not a multiple of 128."""
+    soa, csr, n = synthetic_walk(1024, 256, tail=False)
+    soa_d = torch.as_tensor(soa, device=cuda_device)
+    dev = [torch.as_tensor(a, device=cuda_device) for a in csr]
+    with pytest.raises(TypeError, match="float32"):
+        lc.wings_strided_pass(soa_d.double(), *dev, n, 1024, 256, CHUNK)
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.wings_strided_pass(soa_d[:, :, ::2], *dev, n, 1024, 256, CHUNK)
+    with pytest.raises(ValueError, match="CSR of shape"):
+        lc.wings_strided_pass(soa_d, *(a[:, :-1] for a in dev), n, 1024,
+                              256, CHUNK)
+    with pytest.raises(ValueError, match="CSR of shape"):
+        lc.wings_strided_pass(soa_d, *(a[:1] for a in dev), n, 1024, 256,
+                              CHUNK)
+    with pytest.raises(ValueError, match="CSR on"):
+        lc.wings_strided_pass(soa_d, *(torch.as_tensor(a) for a in csr), n,
+                              1024, 256, CHUNK)
+    with pytest.raises(ValueError, match="takes tile 256/512/1024"):
+        lc.wings_strided_pass(soa_d, *dev, n, 128, 256, CHUNK)
+    with pytest.raises(ValueError, match="takes tile 256/512/1024"):
+        lc.wings_strided_pass(soa_d, *dev, n, 1024, 256, 640)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        lc.wings_strided_pass(soa_d, *dev, n, 1024, 256, CHUNK, *dev,
+                              tail=96)
+
+
 # --- The portable two-pass backend (ops/lineshape.py accumulate). ---
 
 @pytest.mark.gpu

@@ -572,8 +572,10 @@ def test_tile_pieces_plan():
                               "most_chunks_piece": k}
     layered = lc.TilePieces(np.stack([counts, counts[::-1]]))
     assert list(layered.per_tile) == [3, 2, 1, 2, 3]
-    both = lc.TilePieces.of_csr(counts, torch.as_tensor(counts))
+    both = lc.TilePieces.of_csr(counts, torch.as_tensor(counts), piece=k)
     assert list(both.per_tile) == list(lc.TilePieces(2 * counts).per_tile)
+    # The chunk classes' pieces are the tile kernel's by default.
+    assert lc.TilePieces.of_csr(counts).piece == lc.WINGS_PIECE_CHUNKS
 
 
 def test_fold_pieces_is_the_kernels_order():
