@@ -152,6 +152,14 @@ MUFU reciprocals a clock on each of 132 SMs at the SM clock nvidia-smi
 reads while the kernel runs (phase 17: at phase 5's clock, beside each
 bench stage's time), and the walk's registers and spills from this
 build's ``-Xptxas -v`` report (phase 2 removes an earlier build first).
+The mixed-slot core's records (``core_segmix``, ``core_segmix_single``)
+carry its registers and spills the same way, and the census of their
+phase's inputs (``pylbl_tpu_torch/tools/core_census.py``: the in-window
+points and those that need a correction, by Humlicek list).  Their bound
+is the census bound (``pylbl_tpu_torch/tools`` ``census_bound``): the
+larger of the operations of the needed points over 67 TFLOP/s and the
+bytes; ``ops41_bound_ms`` keeps the bound of 41 operations an in-window
+point (``core_ops``).
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -172,7 +180,9 @@ import numpy as np
 
 try:
     from pylbl_tpu_torch.tools import (OPS_LORENTZ, PEAK_BYTES, PEAK_OPS,
-                                       canonical_layers, class_ops, core_ops,
+                                       canonical_layers, census_bound,
+                                       census_ops, class_ops, core_bytes,
+                                       core_ops, core_usage,
                                        ptxas_usage, rcp_floor_ms,
                                        sm_clock_mhz, tile_ops, walk_usage)
 except ImportError:         # alone: main() reports the missing package
@@ -535,12 +545,16 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
     stage = fn.stage
     for name in kernels:
         if name.startswith("core_segmix"):
-            compare_kernel(torch, name, lambda: fn.core_pass(core),
-                           lambda: fn.core_pass(core, plain=True),
-                           records[name], reps=20,
-                           ops=core_ops(core),
-                           inputs=[core, *core_csr(stage.core_plan, core)],
-                           pieces=stage.core_plan.pieces)
+            got = compare_kernel(torch, name, lambda: fn.core_pass(core),
+                                 lambda: fn.core_pass(core, plain=True),
+                                 records[name], reps=20,
+                                 ops=core_ops(core),
+                                 inputs=[core, *core_csr(stage.core_plan,
+                                                         core)],
+                                 pieces=stage.core_plan.pieces)
+            core_census_record(name, records[name], core,
+                               stage.core_plan.t_start,
+                               stage.core_plan.t_chunks, got)
         else:
             compare_kernel(torch, name, lambda: fn.wings_pass(soa),
                            lambda: fn.wings_pass(soa, plain=True),
@@ -548,6 +562,33 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
                            ops=tile_ops(soa, stage.n_out, "pre"),
                            inputs=[soa, *stage.csr_dev],
                            pieces=stage.wings_pieces, rcp=True)
+
+
+def core_census_record(name, record, params, t_start, t_chunks, out):
+    """The mixed-slot core's census of ``params`` walked through the chunk
+    CSR (tools/core_census.py: its walked chunks' pairs by list) and its
+    census bound over ``params``, the CSR and the output ``out``, into
+    ``record`` (None: printed only), whose bound it becomes; the
+    41-operation bound ``compare_kernel`` set moves to ``ops41_*``."""
+    from pylbl_tpu_torch.tools.core_census import census
+
+    counts = census(params, t_start, t_chunks)
+    nbytes = core_bytes(params, len(t_chunks), out.shape[-1])
+    ms, bound_by = census_bound(counts, nbytes)
+    print(f"{name} census: {counts['in_window']} in-window points, "
+          f"{counts['needed_total']} needed {counts['needed']}, "
+          f"{counts['rounds']} rounds of 32; census bound {ms:.6f} ms "
+          f"({bound_by})")
+    if record is None:
+        return
+    record.update(ops41_bound_ms=record["bound_ms"],
+                  ops41_bound_by=record["bound_by"],
+                  ops41_operations=record["operations"])
+    record.update(census={key: counts[key] for key in (
+        "chunks", "chunks_by_class", "lane_evals", "in_window", "needed",
+        "needed_total", "instances", "instances_needing_nothing",
+        "rounds")}, operations=census_ops(counts), bytes=nbytes,
+        bound_ms=ms, bound_by=bound_by)
 
 
 def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
@@ -691,12 +732,16 @@ def phase_gas(torch, P, lc, fixtures, records, card):
                    ops=tile_ops(plan.soa, n, "pre"),
                    inputs=[plan.soa, plan.w_start, plan.w_n],
                    pieces=plan.wings_pieces, rcp=True)
-    compare_kernel(torch, "core_segmix_single", plan.core_pass,
-                   lambda: plan.core_pass(plain=True),
-                   records["core_segmix_single"], reps=20,
-                   ops=core_ops(plan.groups),
-                   inputs=[plan.groups, *core_csr(plan.core, plan.groups)],
-                   pieces=plan.core.pieces)
+    got = compare_kernel(torch, "core_segmix_single", plan.core_pass,
+                         lambda: plan.core_pass(plain=True),
+                         records["core_segmix_single"], reps=20,
+                         ops=core_ops(plan.groups),
+                         inputs=[plan.groups, *core_csr(plan.core,
+                                                        plan.groups)],
+                         pieces=plan.core.pieces)
+    core_census_record("core_segmix_single", records["core_segmix_single"],
+                       plan.groups, plan.core.t_start, plan.core.t_chunks,
+                       got)
     for name in ("wings_strided_single", "core_segmix_single"):
         records[name]["launches"] = counts[name]
     lines_ms = kernel_ms(torch, plan, 20)
@@ -731,12 +776,16 @@ def phase_gas(torch, P, lc, fixtures, records, card):
                    inputs=[plan_f.soa, plan_f.w_start, plan_f.w_n],
                    pieces=plan_f.wings_pieces)
     records["tile_lorentz"]["launches"] = counts9["tile_lorentz"]
-    compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
-                   plan_f.core_pass, lambda: plan_f.core_pass(plain=True),
-                   None, ops=core_ops(plan_f.groups),
-                   inputs=[plan_f.groups,
-                           *core_csr(plan_f.core, plan_f.groups)],
-                   pieces=plan_f.core.pieces)
+    got = compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
+                         plan_f.core_pass,
+                         lambda: plan_f.core_pass(plain=True), None,
+                         ops=core_ops(plan_f.groups),
+                         inputs=[plan_f.groups,
+                                 *core_csr(plan_f.core, plan_f.groups)],
+                         pieces=plan_f.core.pieces)
+    core_census_record("core_segmix_single at 0.01 cm-1", None,
+                       plan_f.groups, plan_f.core.t_start,
+                       plan_f.core.t_chunks, got)
     return gas, gas64, grid, kin, arrays, npv, n, plan, k64, k, \
         evals / (lines_ms / 1e3)
 
@@ -1376,7 +1425,8 @@ def phase_streamed(torch, P, lc, db, pack, records, card):
     for name, record in block.items():
         records[name].update({
             f"{key}_streamed_block": record[key] for key in (
-                "ms", "plain_ms", "bound_ms", "rcp_floor_ms") if key in record})
+                "ms", "plain_ms", "bound_ms", "rcp_floor_ms",
+                "ops41_bound_ms") if key in record})
 
     # Float64 parity of the two end layers' totals (as phase 6), streamed
     # without the pedestal (one block of 2) and with it (the cold pass).
@@ -1452,11 +1502,15 @@ def shard_kernels(torch, lc, step, t, p, x, timed):
                    lambda: stage.wings_pass(soa, plain=True),
                    records["wings_strided"], reps=10,
                    ops=tile_ops(soa, n_out, "pre"), inputs=[soa], rcp=True)
-    compare_kernel(torch, "phase 15 shard core_segmix",
-                   lambda: stage.core_pass(core),
-                   lambda: stage.core_pass(core, plain=True),
-                   records["core_segmix"], reps=10,
-                   ops=core_ops(core), inputs=[core])
+    got = compare_kernel(torch, "phase 15 shard core_segmix",
+                         lambda: stage.core_pass(core),
+                         lambda: stage.core_pass(core, plain=True),
+                         records["core_segmix"], reps=10,
+                         ops=core_ops(core),
+                         inputs=[core, *core_csr(stage.core_plan, core)])
+    core_census_record("phase 15 shard core_segmix", records["core_segmix"],
+                       core, stage.core_plan.t_start,
+                       stage.core_plan.t_chunks, got)
     return [True, True], records
 
 
@@ -1623,7 +1677,7 @@ def phase_sharded(torch, P, lc, db, db_path, col_a, grid_a, total_a, want64,
                 records[name].update({
                     f"{key}_shard": rec[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
-                        "rcp_floor_ms") if key in rec})
+                        "rcp_floor_ms", "ops41_bound_ms") if key in rec})
     stream = outs[0]["stream"]
     print(f"phase 15 streamed under the mesh (blocks of {STREAM_BLOCK}): "
           f"rank 0 wall {stream['wall_s']:.4f} s, launches "
@@ -2028,6 +2082,8 @@ def main():
     print_ptxas(log)
     walk = walk_usage(log)
     check(walk is not None, f"the Lorentzian walk compiled: {walk}")
+    core_use = core_usage(log)
+    check(core_use is not None, f"the mixed-slot core compiled: {core_use}")
 
     records = {name: {"name": name, "route": "cuda",
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
@@ -2038,6 +2094,9 @@ def main():
                              spill_stores=walk["spill_stores"],
                              spill_loads=walk["spill_loads"],
                              points_per_lane=walk["points"])
+    for name in ("core_segmix", "core_segmix_single"):
+        records[name].update({key: core_use[key] for key in (
+            "registers", "spill_stores", "spill_loads", "smem")})
     WORK.mkdir(parents=True, exist_ok=True)
     db_path = WORK / "smoke.db"
     if db_path.exists():
@@ -2101,7 +2160,8 @@ def main():
                   layers=16)
     for name, record in sixteen.items():
         records[name].update({f"{key}_16_layers": record[key] for key in (
-            "ms", "plain_ms", "bound_ms", "rcp_floor_ms") if key in record})
+            "ms", "plain_ms", "bound_ms", "rcp_floor_ms", "ops41_bound_ms")
+            if key in record})
     pieces = fn_a.core_plan.pieces
     print(f"core_segmix scratch at 16 layers: {pieces.num_slots} slots of "
           f"split tiles per layer, {16 * pieces.num_slots * 1024 * 4} bytes")

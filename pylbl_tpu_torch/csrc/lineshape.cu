@@ -92,26 +92,37 @@
 //
 // pylbl_core_segmix: mixed-slot segment-32 Humlicek core correction
 //   (replaces _seg_kernel_mixed(_batched) with _seg_chunk_accumulate_mixed;
-//   a single layer is a batch of one).  Bound on this card by the
-//   Humlicek math of the in-window instance points (microseconds per
-//   layer), but one block per (tile, layer) walked all of its tile's
-//   chunks in order, and the busiest tile holds ~35x the mean (519 of a
-//   mean 15 on the 7-gas 0.1 cm-1 column), so the walk of one tile, with
-//   one warp per scheduler waiting on its dependent chain, set the time.
-//   The design: the tile's chunk walk is cut into pieces of at most K
-//   chunks, one block of 4 warps per (piece, layer).  Per 128-instance
-//   chunk: the 8 parameter rows of chunk k+1 are copied into a 2-stage
-//   shared-memory ring with cp.async while chunk k is worked; reduce min
-//   y, pick the correction class once for the chunk (block-uniform
-//   branch; skip at >= 70.55), then warp w walks instances 32w..32w+31 in
-//   order with lane = point offset in the 32-point segment, adding
-//   pref * (K_class - K_lorentz) into its private [slot][offset] partial
-//   tile in shared memory.  The four partials are summed in warp order
-//   into the piece accumulator (per-chunk partials), and the pieces fold
-//   into the tile in piece order (piece_store).  Direct indexed adds
-//   replace the TPU's one-hot matrix product: no tensor cores (TF32 would
-//   round the values), no float atomics (runs are bit-identical).
-//
+//   a single layer is a batch of one).  Every (instance, offset) of a
+//   128-instance chunk's [instance, 32-point segment] block is in the
+//   walk, but on the main path only 15-50% of the in-window points need a
+//   correction (|x| < xlim0; the rest are +0.0), and those that do take
+//   one of the Humlicek regions by their own |x|, CPF12 about ten times
+//   the work of region 1.  Lane = offset ran every point and diverged
+//   across the regions, so the kernel was bound by instruction issue on
+//   work it threw away.  The design, one block of 4 warps per (piece of
+//   at most K chunks, layer), the chunks' 8 parameter rows staged with
+//   cp.async into a 2-slot ring; per chunk (class from its min y,
+//   block-uniform; skip at >= 70.55): (1) classify, lane = instance, the
+//   one phase compiled per class: the y-only limits once, then each window
+//   offset's x and its list (K1, or region 1, 2, 3, CPF12), the offsets
+//   that need nothing left out (core_needs); (2) list the needed pairs by
+//   a block scan, each list padded to whole rounds of 32 (core_lists);
+//   (3) evaluate the lists 32 pairs a round, one region body a warp, into
+//   a zeroed [instance][offset] value block in shared memory, by one copy
+//   of each region's code, the code correction<CLASS> runs (core_eval);
+//   (4) sum in the one-block walk's order: warp w owns slots w, w+4, ...,
+//   and per slot adds each warp group's live instances in order from
+//   +0.0, then ((g0 + g1) + g2) + g3 into its registers' piece accumulator
+//   (core_sum).  A skipped term is +/-0.0 and a sum that starts at +0.0
+//   never holds -0.0, so the bits are those of every term added; the
+//   pieces fold into the tile in piece order (piece_fold).  The kernel is
+//   bound by instruction issue and its barriers: more code (a phase
+//   compiled per class, two entries a lane, unrolled or regrouped sums)
+//   was slower on the card, and so were one and two chunks a piece on the
+//   larger walks (PERF.md).  Direct indexed adds replace the
+//   TPU's one-hot matrix product: no tensor cores (TF32 would round the
+//   values), no float atomics (runs are bit-identical).
+
 // Piece split (pylbl_wings, pylbl_core_segmix, pylbl_rows): piece j of
 //   tile t walks units jK .. min(jK + K, count) - 1 of the tile's walk
 //   (chunks; groups for the rows core).  A tile of one
@@ -188,6 +199,24 @@ constexpr int kRowsThreads = 256;
 constexpr int kRowsChunk = 128;
 constexpr int kRowsPiece = 32;
 constexpr int kYminRow = 56;
+// Mixed-slot core: warps of a block, slots of the largest tile, its
+// pair lists (K1, regions 1, 2, 3 and CPF12, then the whole correction)
+// and their room (every pair of a chunk, each list padded to whole
+// rounds of 32), and the blocks an SM holds (the block's static shared
+// memory allows 6).
+constexpr int kCoreWarps = kCoreThreads / 32;
+constexpr int kCoreSlots = kMaxTile / 32;
+constexpr int kListK1 = 0, kListR1 = 1, kListAny = 5, kCoreLists = 6;
+constexpr int kCoreListCap = kCoreThreads * 32 + kCoreLists * 32;
+constexpr int kCoreBlocks = 6;
+
+// Where val keeps instance i's offset o: row i, the offset swizzled by the
+// instance, so that a round's scattered writes and a warp's row reads
+// (lane = offset) fall in distinct banks.
+__host__ __device__ constexpr int core_val(int i, int o)
+{
+    return i * 32 + (o ^ (i & 31));
+}
 // Segment-pass kinds (pylbl_seg's kind argument), chunks (warps) per block
 // of the chunk-sum kernel and threads per block of the fold.
 constexpr int kSegCore = 0, kSegWings = 1;
@@ -335,21 +364,65 @@ __device__ __forceinline__ Limits region_limits(float y)
     return l;
 }
 
-// voigt_correction_k1: y >= 8.425, one combined rational.
-__device__ __forceinline__ float corr_k1(float x, float y)
+// voigt_correction_k1: y >= 8.425, one combined rational; a point needs
+// it where x^2 < k1_limit(y) (and y < 70.55).
+__device__ __forceinline__ float k1_limit(float y)
+{
+    return fmaxf(F(15100.0) + y * (F(40.0) - y * F(3.6)), 0.0f);
+}
+
+__device__ __forceinline__ float k1_value(float x, float y)
 {
     const float xq = x * x;
     const float yq = y * y;
-    const float xlim0q = fmaxf(F(15100.0) + y * (F(40.0) - y * F(3.6)),
-                               0.0f);
     const float a0 = yq + F(0.5);
     const float d0 = a0 * a0;
     const float d2 = (yq + yq) - F(1.0);
     const float num = (y * F(kRsqrpi)) * (F(1.5) * xq - (F(0.5) * yq
                                                          + F(0.25)));
     const float den = (d0 + xq * (d2 + xq)) * (xq + yq);
-    const bool needs = (xq < xlim0q) && (y < F(70.55));
-    return needs ? num / den : 0.0f;
+    return num / den;
+}
+
+__device__ __forceinline__ float corr_k1(float x, float y)
+{
+    const bool needs = (x * x < k1_limit(y)) && (y < F(70.55));
+    return needs ? k1_value(x, y) : 0.0f;
+}
+
+// The Humlicek regions of corr_regions, in reference order.
+constexpr int kRegion1 = 0, kRegion2 = 1, kRegion3 = 2, kRegionCpf = 3;
+
+// The region corr_regions<CLASS> takes at |x| = abx for a point that needs
+// a correction (abx < xlim0, y < 70.55).
+template <int CLASS>
+__device__ __forceinline__ int region_at(float abx, const Limits& l)
+{
+    if (abx >= l.xlim1) return kRegion1;
+    if (CLASS == 2 || abx >= l.xlim2) return kRegion2;
+    if (CLASS == 3 || abx < l.xlim3) return kRegion3;
+    return kRegionCpf;
+}
+
+// K_region - K_lorentz at x: the value corr_regions gives a point of
+// REGION (yq and xlim4 as region_limits computes them).
+template <int REGION>
+__device__ __forceinline__ float region_correction(float x, float y)
+{
+    const float abx = fabsf(x);
+    const float xq = abx * abx;
+    const float yq = y * y;
+    float inner;
+    if (REGION == kRegion1) {
+        inner = region1(xq, y, yq);
+    } else if (REGION == kRegion2) {
+        inner = region2(xq, y, yq);
+    } else if (REGION == kRegion3) {
+        inner = region3(xq, y);
+    } else {
+        inner = cpf12(x, xq, abx, y, F(18.1) * y + F(1.65));
+    }
+    return inner - lorentz(x, y);
 }
 
 // voigt_correction_k12 (regions 1-2), _k123 (regions 1-3) and the full
@@ -359,20 +432,14 @@ __device__ __forceinline__ float corr_regions(float x, float y)
 {
     const Limits l = region_limits(y);
     const float abx = fabsf(x);
-    const float xq = abx * abx;
     const bool needs = (abx < l.xlim0) && (y < F(70.55));
     if (!needs) return 0.0f;
-    float inner;
-    if (abx >= l.xlim1) {
-        inner = region1(xq, y, l.yq);
-    } else if (CLASS == 2 || abx >= l.xlim2) {
-        inner = region2(xq, y, l.yq);
-    } else if (CLASS == 3 || abx < l.xlim3) {
-        inner = region3(xq, y);
-    } else {
-        inner = cpf12(x, xq, abx, y, l.xlim4);
+    switch (region_at<CLASS>(abx, l)) {
+    case kRegion1: return region_correction<kRegion1>(x, y);
+    case kRegion2: return region_correction<kRegion2>(x, y);
+    case kRegion3: return region_correction<kRegion3>(x, y);
+    default: return region_correction<kRegionCpf>(x, y);
     }
-    return inner - lorentz(x, y);
 }
 
 template <int CLASS>
@@ -704,98 +771,316 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-template <int CLASS>
-__device__ __forceinline__ void core_chunk(const float (*prm)[kCoreThreads],
-                                           float* part, int warp, int lane)
+// ---- The mixed-slot core (pylbl_core_segmix; see the note at the top) ----
+
+// Offset o's x of core instance i: seg0-relative, as _seg_chunk_accumulate
+// (o a whole float).
+__device__ __forceinline__ float core_x(const float (*prm)[kCoreThreads],
+                                        int i, float o)
 {
-    const float o = (float)lane;
-    for (int j = 0; j < 32; ++j) {
-        const int i = warp * 32 + j;
-        const float x = ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i])
-                        * prm[kCoreSrw][i];
-        const float val = correction<CLASS>(x, prm[kCoreY][i]);
-        const bool in = (o >= prm[kSRel][i]) && (o <= prm[kERel][i]);
-        const int slot = (int)prm[kSlot][i];
-        float* cell = part + slot * 32 + lane;
-        *cell = *cell + (in ? prm[kCorePref][i] * val : 0.0f);
+    return ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i]) * prm[kCoreSrw][i];
+}
+
+// Offsets 0..31 of instance i that need a correction, as bit masks by
+// list, in the kernel's float32 arithmetic: the window test o in [s_rel,
+// e_rel] as integer bounds, then x^2 < k1_limit (class 1: kListK1) or
+// |x| < xlim0 and region_at's tests (kListR1 + region).  Every other
+// in-window offset's correction is +0.0, so its term pref * 0.0 adds
+// nothing.  An instance of a non-finite prefactor (a skipped term would
+// be NaN, not +0.0) lists every in-window offset in kListAny, which
+// evaluates the whole correction.  ``slots``: the tile's slots (a slot
+// outside them adds nowhere, as in the plain version's one-hot).
+template <int CLASS>
+__device__ __forceinline__ void core_needs(const float (*prm)[kCoreThreads],
+                                           int i, int slots,
+                                           unsigned (&need)[kCoreLists])
+{
+#pragma unroll
+    for (int r = 0; r < kCoreLists; ++r) need[r] = 0u;
+    const float s_rel = prm[kSRel][i];
+    const float e_rel = prm[kERel][i];
+    const int slot = (int)prm[kSlot][i];
+    if (!(e_rel >= 0.0f && s_rel <= 31.0f) || slot < 0 || slot >= slots)
+        return;
+    const float f0 = fmaxf(ceilf(s_rel), 0.0f);
+    const float f1 = fminf(floorf(e_rel), 31.0f);
+    if (f0 > f1) return;
+    const int o0 = (int)f0, o1 = (int)f1;
+    if (!isfinite(prm[kCorePref][i])) {
+        need[kListAny] = (0xffffffffu >> (31 - o1)) & (0xffffffffu << o0);
+        return;
+    }
+    const float y = prm[kCoreY][i];
+    if (!(y < F(70.55))) return;
+    if (CLASS == 1) {
+        const float lim = k1_limit(y);
+        unsigned k1 = 0u;
+        float of = f0;
+        for (unsigned bit = 1u << o0; bit <= 1u << o1 && bit; bit <<= 1) {
+            const float x = core_x(prm, i, of);
+            k1 |= x * x < lim ? bit : 0u;
+            of = of + 1.0f;
+        }
+        need[kListK1] = k1;
+        return;
+    }
+    const Limits l = region_limits(y);
+    // region_at's tests as bit masks over the offsets.
+    unsigned lt0 = 0u, ge1 = 0u, ge2 = 0u, lt3 = 0u;
+    float of = f0;
+    for (unsigned bit = 1u << o0; bit <= 1u << o1 && bit; bit <<= 1) {
+        const float abx = fabsf(core_x(prm, i, of));
+        lt0 |= abx < l.xlim0 ? bit : 0u;
+        ge1 |= abx >= l.xlim1 ? bit : 0u;
+        if (CLASS >= 3) ge2 |= abx >= l.xlim2 ? bit : 0u;
+        if (CLASS == 4) lt3 |= abx < l.xlim3 ? bit : 0u;
+        of = of + 1.0f;
+    }
+    // Region 1 at |x| >= xlim1, else region 2 (class 2, or |x| >= xlim2),
+    // else region 3 (class 3, or |x| < xlim3), else CPF12.
+    const unsigned r2 = CLASS == 2 ? ~0u : ge2;
+    const unsigned r3 = CLASS == 3 ? ~0u : lt3;
+    need[kListR1 + kRegion1] = lt0 & ge1;
+    need[kListR1 + kRegion2] = lt0 & ~ge1 & r2;
+    need[kListR1 + kRegion3] = lt0 & ~ge1 & ~r2 & r3;
+    need[kListR1 + kRegionCpf] = lt0 & ~ge1 & ~r2 & ~r3;
+}
+
+// correction<cls>(x, y), out of line: the pairs of kListAny, which no plan
+// gives (one copy of the bodies, kept out of the hot loop).
+__device__ __noinline__ float any_correction(int cls, float x, float y)
+{
+    switch (cls) {
+    case 1: return correction<1>(x, y);
+    case 2: return correction<2>(x, y);
+    case 3: return correction<3>(x, y);
+    default: return correction<4>(x, y);
     }
 }
 
-__global__ void __launch_bounds__(kCoreThreads)
+// Evaluates entry e < end of list ``lst`` (warp-uniform) of a chunk of
+// class ``cls``: val[i][o] = pref_i * correction, instance i = list[e] >>
+// 5, offset o = list[e] & 31, swizzled by the instance (core_val).  The
+// value is the one correction<cls>(x, y) gives the pair, by the same code.
+__device__ __forceinline__ void core_eval(const float (*prm)[kCoreThreads],
+                                          const unsigned short* list,
+                                          float* val, int lst, int cls,
+                                          int e, int end)
+{
+    if (e >= end) return;
+    const int i = list[e] >> 5;
+    const int o = list[e] & 31;
+    const float x = core_x(prm, i, (float)o);
+    const float y = prm[kCoreY][i];
+    float v;
+    switch (lst) {
+    case kListK1: v = k1_value(x, y); break;
+    case kListR1 + kRegion1: v = region_correction<kRegion1>(x, y); break;
+    case kListR1 + kRegion2: v = region_correction<kRegion2>(x, y); break;
+    case kListR1 + kRegion3: v = region_correction<kRegion3>(x, y); break;
+    case kListR1 + kRegionCpf: v = region_correction<kRegionCpf>(x, y); break;
+    default: v = any_correction(cls, x, y);
+    }
+    val[core_val(i, o)] = prm[kCorePref][i] * v;
+}
+
+struct CoreShared {
+    float prm[2][8][kCoreThreads];      // the cp.async ring of chunks
+    float val[kCoreThreads * 32];       // pref * correction, core_val
+    unsigned short list[kCoreListCap];  // (instance << 5 | offset) by list
+    unsigned slot_of[kCoreSlots][kCoreWarps];  // warp w's live instances
+    int count[kCoreWarps][kCoreLists];  // warp w's pairs of each list
+    unsigned touched[kCoreWarps];       // the slots warp w's instances hit
+};
+
+// Lists the chunk's needed pairs, instance i = threadIdx.x with ``need``
+// (core_needs): list r takes entries base[r] .. end[r] - 1 (base[r] in
+// whole rounds of 32), instance i's pairs after those of the instances
+// before it, in offset order; records each warp's live instances by slot
+// (slot_of) and its slots (touched).  Returns the entries with padding
+// (0: the chunk needs nothing; block-uniform).
+__device__ __forceinline__ int core_lists(CoreShared& sh, int s,
+                                          const unsigned (&need)[kCoreLists],
+                                          int (&base)[kCoreLists],
+                                          int (&end)[kCoreLists])
+{
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    unsigned any = 0u;
+#pragma unroll
+    for (int r = 0; r < kCoreLists; ++r) any |= need[r];
+    const bool live = any != 0u;
+    const int slot = (int)sh.prm[s][kSlot][tid];
+    const unsigned live_w = __ballot_sync(0xffffffffu, live);
+    const unsigned same = __match_any_sync(0xffffffffu, slot) & live_w;
+    if (live && lane == __ffs(same) - 1) sh.slot_of[slot][warp] = same;
+    const unsigned hit = __reduce_or_sync(0xffffffffu,
+                                          live ? 1u << slot : 0u);
+    // Per-list pair counts: a warp scan of two 16-bit counts a word.
+    unsigned own[kCoreLists / 2], inc[kCoreLists / 2];
+#pragma unroll
+    for (int q = 0; q < kCoreLists / 2; ++q) {
+        own[q] = (unsigned)__popc(need[2 * q])
+                 | (unsigned)__popc(need[2 * q + 1]) << 16;
+        inc[q] = own[q];
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+        for (int q = 0; q < kCoreLists / 2; ++q) {
+            const unsigned up = __shfl_up_sync(0xffffffffu, inc[q], d);
+            if (lane >= d) inc[q] += up;
+        }
+    }
+    if (lane == 31) {
+#pragma unroll
+        for (int r = 0; r < kCoreLists; ++r) {
+            sh.count[warp][r] = (inc[r / 2] >> (16 * (r & 1))) & 0xffffu;
+        }
+        sh.touched[warp] = hit;
+    }
+    __syncthreads();
+    int next = 0;
+#pragma unroll
+    for (int r = 0; r < kCoreLists; ++r) {
+        int total = 0, before = 0;
+#pragma unroll
+        for (int w = 0; w < kCoreWarps; ++w) {
+            const int c = sh.count[w][r];
+            total += c;
+            before += w < warp ? c : 0;
+        }
+        const unsigned field = (inc[r / 2] - own[r / 2]) >> (16 * (r & 1));
+        int k = next + before + (int)(field & 0xffffu);
+        for (unsigned m = need[r]; m != 0u; m &= m - 1u) {
+            sh.list[k++] = (unsigned short)((tid << 5) | (__ffs(m) - 1));
+        }
+        base[r] = next;
+        end[r] = next + total;
+        next += (total + 31) & ~31;
+    }
+    return next;
+}
+
+// Adds the chunk's values into the piece accumulator (acc[k]: slot 4k +
+// warp, lane = offset) in the order of the one-block walk: per slot, each
+// warp group's live instances of the slot in order from +0.0 (the skipped
+// instances' terms are +/-0.0, which leave a sum that is never -0.0
+// unchanged), the groups as ((g0 + g1) + g2) + g3.  The values read are
+// zeroed for the next chunk.
+__device__ __forceinline__ void core_sum(CoreShared& sh,
+                                         float (&acc)[kCoreSlots / 4])
+{
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const unsigned hits = sh.touched[0] | sh.touched[1] | sh.touched[2]
+                          | sh.touched[3];
+#pragma unroll
+    for (int k = 0; k < kCoreSlots / 4; ++k) {
+        const int sl = 4 * k + warp;
+        if (!((hits >> sl) & 1u)) continue;        // warp-uniform
+        float total = 0.0f;
+#pragma unroll 1
+        for (int g = 0; g < kCoreWarps; ++g) {
+            float part = 0.0f;
+            for (unsigned m = sh.slot_of[sl][g]; m != 0u; m &= m - 1u) {
+                const int c = core_val(32 * g + __ffs(m) - 1, lane);
+                part = part + sh.val[c];
+                sh.val[c] = 0.0f;
+            }
+            total = g == 0 ? part : total + part;
+        }
+        __syncwarp();
+        if (lane < kCoreWarps) sh.slot_of[sl][lane] = 0u;
+        acc[k] = acc[k] + total;
+    }
+}
+
+__global__ void __launch_bounds__(kCoreThreads, kCoreBlocks)
 core_segmix_kernel(const float* __restrict__ params, long long p_b,
                    long long p_r, const int* __restrict__ tile_start,
                    const int* __restrict__ tile_chunks,
                    float* __restrict__ out, int num_tiles, int tile,
                    Pieces pc)
 {
-    __shared__ float prm[2][8][kCoreThreads];
-    __shared__ float part[kCoreThreads / 32][kMaxTile];
-    __shared__ float acc[kMaxTile];
-    __shared__ float wmin[kCoreThreads / 32];
+    __shared__ CoreShared sh;
     const int b = blockIdx.y;
     const int t = pc.tile[blockIdx.x];
     const int piece = blockIdx.x - pc.first[t];
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
+    const int slots = tile / 32;
     const float* p = params + b * p_b;
 
-    for (int c = tid; c < tile; c += kCoreThreads) {
-        acc[c] = 0.0f;
+    for (int c = tid; c < kCoreThreads * 32; c += kCoreThreads)
+        sh.val[c] = 0.0f;
+    sh.slot_of[tid / kCoreWarps][tid % kCoreWarps] = 0u;
+    float acc[kCoreSlots / 4];
 #pragma unroll
-        for (int w = 0; w < kCoreThreads / 32; ++w) part[w][c] = 0.0f;
-    }
+    for (int k = 0; k < kCoreSlots / 4; ++k) acc[k] = 0.0f;
     const int first = tile_start[t];
     const int k0 = piece * pc.piece;
     const int k1 = min(k0 + pc.piece, tile_chunks[t]);
     auto stage = [&](int k, int s) {
         const long long col = (long long)(first + k) * kCoreThreads + tid;
 #pragma unroll
-        for (int r = 0; r < 8; ++r) cp_async4(&prm[s][r][tid],
+        for (int r = 0; r < 8; ++r) cp_async4(&sh.prm[s][r][tid],
                                               p + r * p_r + col);
     };
     if (k0 < k1) stage(k0, 0);
     cp_async_commit();
     for (int k = k0; k < k1; ++k) {
         const int s = (k - k0) & 1;
-        // Ring slot s ^ 1 was last read before the previous chunk's last
-        // barrier.
+        // Chunk k has landed, and every thread is done with chunk k - 1,
+        // whose ring slot s ^ 1 takes chunk k + 1 while chunk k is worked.
+        cp_async_wait_all();
+        __syncthreads();
         if (k + 1 < k1) stage(k + 1, s ^ 1);
         cp_async_commit();
-        cp_async_wait_prev();
-        __syncthreads();
-        float m = prm[s][kCoreY][tid];
+        // The chunk's min y, every warp for itself: no barrier.
+        const float* yrow = sh.prm[s][kCoreY];
+        float m = fminf(fminf(yrow[lane], yrow[lane + 32]),
+                        fminf(yrow[lane + 64], yrow[lane + 96]));
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (lane == 0) wmin[warp] = m;
-        __syncthreads();
-        const float ymin = fminf(fminf(wmin[0], wmin[1]),
-                                 fminf(wmin[2], wmin[3]));
-        if (ymin >= F(70.55)) continue;   // pure Lorentz chunk: no-op
-        float* mine = part[warp];
-        if (ymin >= F(8.425)) {
-            core_chunk<1>(prm[s], mine, warp, lane);
-        } else if (ymin >= F(6.8)) {
-            core_chunk<2>(prm[s], mine, warp, lane);
-        } else if (ymin >= F(2.0)) {
-            core_chunk<3>(prm[s], mine, warp, lane);
-        } else {
-            core_chunk<4>(prm[s], mine, warp, lane);
+        if (m >= F(70.55)) continue;   // pure Lorentz chunk: no-op
+        const int cls = m >= F(8.425) ? 1 : m >= F(6.8) ? 2
+            : m >= F(2.0) ? 3 : 4;
+        unsigned need[kCoreLists];
+        switch (cls) {                 // block-uniform
+        case 1: core_needs<1>(sh.prm[s], tid, slots, need); break;
+        case 2: core_needs<2>(sh.prm[s], tid, slots, need); break;
+        case 3: core_needs<3>(sh.prm[s], tid, slots, need); break;
+        default: core_needs<4>(sh.prm[s], tid, slots, need);
         }
+        int base[kCoreLists], end[kCoreLists];
+        const int entries = core_lists(sh, s, need, base, end);
+        if (entries == 0) continue;    // block-uniform: nothing needed
         __syncthreads();
-        for (int c = tid; c < tile; c += kCoreThreads) {
-            const float sum = ((part[0][c] + part[1][c]) + part[2][c])
-                              + part[3][c];
-            acc[c] = acc[c] + sum;
+        // Rounds of 32 entries of one list, round-robin over the warps.
+        for (int q = warp * 32; q < entries; q += kCoreThreads) {
+            int lst = 0;               // the list of round q: uniform
 #pragma unroll
-            for (int w = 0; w < kCoreThreads / 32; ++w) part[w][c] = 0.0f;
+            for (int r = 1; r < kCoreLists; ++r) lst = q >= base[r] ? r : lst;
+            int stop = end[0];
+#pragma unroll
+            for (int r = 1; r < kCoreLists; ++r) {
+                stop = lst == r ? end[r] : stop;
+            }
+            core_eval(sh.prm[s], sh.list, sh.val, lst, cls, q + lane, stop);
         }
+        __syncthreads();
+        core_sum(sh, acc);
     }
-    __syncthreads();
     float* o = out + ((long long)b * num_tiles + t) * tile;
     float* dst = piece_dst(pc, o, b, t, piece, tile);
-    for (int c = tid; c < tile; c += kCoreThreads) dst[c] = acc[c];
+#pragma unroll
+    for (int k = 0; k < kCoreSlots / 4; ++k) {
+        if (4 * k + warp < slots) dst[(4 * k + warp) * 32 + lane] = acc[k];
+    }
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 

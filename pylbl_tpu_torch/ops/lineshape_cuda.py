@@ -34,7 +34,7 @@ Counterpart of pylbl_tpu/ops/lineshape_pallas.py.  Four parts:
 3. **Plain PyTorch versions** (``*_plain``) with the same plan, tile,
    chunking, summation order and term as the kernels (per-chunk
    partials, then pieces of :data:`WINGS_PIECE_CHUNKS` chunks for the tile
-   kernel and :data:`PIECE_CHUNKS` for the mixed-slot core, then the tile
+   kernel and :func:`core_piece_chunks` for the mixed-slot core, then the tile
    in piece order; the rows core per piece of :data:`ROWS_PIECE_GROUPS`
    groups; warp partials summed in warp order), in any float dtype and on
    any device.  They work in slabs so they also run at main-path size on
@@ -134,11 +134,15 @@ GROUP_ROWS = 64
 YMIN_ROW = 56
 
 # Chunks per piece of the mixed-slot core kernel's split chunk walk
-# (:class:`TilePieces`) and of the tile kernel's (every wings pass: one
-# chunk a block was the fastest of 1, 2 and 4 on every wings cell of the
-# H100, PERF.md); the plain versions fold in the same pieces.
+# (:class:`TilePieces`, where :func:`core_piece_chunks` does not take one
+# chunk) and of the tile kernel's (every wings pass: one chunk a block was
+# the fastest of 1, 2 and 4 on every wings cell of the H100, PERF.md); the
+# plain versions fold in the same pieces.
 PIECE_CHUNKS = 4
 WINGS_PIECE_CHUNKS = 1
+# The mixed-slot core's blocks one wave of the H100 holds: 132 SMs, 6
+# blocks of 128 threads an SM by the kernel's shared memory (kCoreBlocks).
+CORE_WAVE_BLOCKS = 132 * 6
 # Groups per piece of the rows core's split group walk (the kernel's
 # kRowsPiece): a quarter of a 128-group chunk, staged in one go (PERF.md
 # says why this width).
@@ -616,7 +620,7 @@ class CorePlan:
                 core_start, core_end, num_points, tile=tile, seg=seg,
                 chunk=chunk, sort_key=sort_key)
             self.c_slot = None
-            self.pieces = TilePieces(self.t_chunks)
+            self.pieces = TilePieces.of_core(self.t_chunks)
         elif self.mode == "rows":
             self.inst_line, self.g_start, self.g_n = build_core_groups(
                 core_start, core_end, num_points, tile, chunk,
@@ -751,7 +755,8 @@ class CorePlan:
             if plain:
                 return core_segmix_plain(params, c["t_start"], c["t_chunks"],
                                          self.num_points, self.tile,
-                                         self.chunk, self.seg)
+                                         self.chunk, self.seg,
+                                         self.pieces.piece)
             return core_segmix_pass(params, c["t_start"], c["t_chunks"],
                                     self.num_points, self.tile, self.chunk,
                                     self.seg, self.pieces)
@@ -1114,6 +1119,13 @@ class TilePieces:
         self._dev = {}
 
     @classmethod
+    def of_core(cls, counts):
+        """Pieces of the mixed-slot core's walk of ``counts`` chunks per
+        tile, of :func:`core_piece_chunks` chunks."""
+        counts = _host(counts)
+        return cls(counts, piece=core_piece_chunks(counts))
+
+    @classmethod
     def of_csr(cls, *counts, piece=WINGS_PIECE_CHUNKS):
         """Pieces of the walk over one or more chunk classes (the main and
         tail CSR counts, numpy or tensors, [T] or [B, T]), by default the
@@ -1158,6 +1170,18 @@ class TilePieces:
             self.num_pieces, self.num_slots, self.piece, _ptr(scratch),
             _ptr(done)]
         return args, keep
+
+
+def core_piece_chunks(counts):
+    """Chunks per piece of the mixed-slot core's walk of ``counts`` chunks
+    per tile ([T] or [B, T], numpy or a tensor): 1 when the walk of one
+    layer at one chunk a block fits one wave of the card
+    (:data:`CORE_WAVE_BLOCKS`), where a block of 4 chunks would leave
+    most SMs idle through its chunks' serial latency; else
+    :data:`PIECE_CHUNKS`.  The plan decides once for every batch that
+    uses it (a batch of B layers launches B times the blocks)."""
+    one = TilePieces(_host(counts), piece=1)
+    return 1 if one.num_pieces <= CORE_WAVE_BLOCKS else PIECE_CHUNKS
 
 
 class GroupWalk:
@@ -1684,7 +1708,7 @@ def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
                          "128..1024 points and whole chunks of instances")
     batch = params.shape[0]
     if pieces is None:
-        pieces = TilePieces.of_csr(tile_chunks, piece=PIECE_CHUNKS)
+        pieces = TilePieces.of_core(tile_chunks)
     out = torch.empty((batch, num_tiles, tile), dtype=torch.float32,
                       device=params.device)
     piece_args, _keep = pieces.launch_args(batch, num_tiles, tile,
@@ -1698,7 +1722,8 @@ def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
 
 
 def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
-                     chunk=ROWS_CHUNK, seg=SEG, max_elems=1 << 22):
+                     chunk=ROWS_CHUNK, seg=SEG, max_elems=1 << 22,
+                     piece=None):
     """Plain version of the mixed-slot core kernel: [B, 8, I] params ->
     [B, T, tile].
 
@@ -1707,7 +1732,10 @@ def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
     window-masked; warp w (instances 32w..32w+31) adds its instances in
     order into a private [slot, offset] partial through a one-hot slot
     select; the chunk sum is ((p0 + p1) + p2) + p3; tiles fold their
-    chunks in the kernel's pieces (:func:`_fold_pieces`)."""
+    chunks in the kernel's pieces of ``piece`` chunks (by default
+    :func:`core_piece_chunks`'s, as the kernel's) (:func:`_fold_pieces`)."""
+    if piece is None:
+        piece = core_piece_chunks(tile_chunks)
     device = params.device
     dtype = params.dtype
     batch = params.shape[0]
@@ -1736,7 +1764,7 @@ def core_tiles_plain(params, tile_start, tile_chunks, num_tiles, tile,
                 part = part + onehot[..., None] * val[:, :, j, None, :]
             sums[sel[:, 0], sel[:, 1]] = _in_warp_order(part)
     acc = _fold_pieces(sums, chunk_tile, chunk_seq,
-                       (batch, num_tiles, slots, seg))
+                       (batch, num_tiles, slots, seg), piece)
     return acc.reshape(batch, num_tiles, tile)
 
 
@@ -1750,10 +1778,11 @@ def core_segmix_pass(params, tile_start, tile_chunks, num_points, tile,
     """Mixed-slot core pass -> [B, num_points] or [num_points] (point =
     t*tile + seg*slot + offset).  ``params`` [B, 8, I] or [8, I] from
     :meth:`CorePlan.seg_params` / :meth:`CorePlan.gather`; ``pieces`` as
-    :func:`wings_strided_pass`."""
+    :func:`wings_strided_pass` (by default :meth:`TilePieces.of_core`)."""
     if params.device.type == "cpu":
         return core_segmix_plain(params, tile_start, tile_chunks, num_points,
-                                 tile, chunk, seg)
+                                 tile, chunk, seg,
+                                 None if pieces is None else pieces.piece)
     _refuse_device("core", params)
     p, single = _as_batch(params)
     tiles = _launch_core(p, tile_start, tile_chunks,
@@ -1763,13 +1792,15 @@ def core_segmix_pass(params, tile_start, tile_chunks, num_points, tile,
 
 
 def core_segmix_plain(params, tile_start, tile_chunks, num_points, tile,
-                      chunk=ROWS_CHUNK, seg=SEG):
+                      chunk=ROWS_CHUNK, seg=SEG, piece=None):
     """:func:`core_segmix_pass` through the plain version on any device
-    and float dtype."""
+    and float dtype (``piece``: the kernel's chunks per piece, by default
+    :func:`core_piece_chunks`'s)."""
     p, single = _as_batch(params)
     num_tiles = -(-num_points // tile)
     return _unbatch(_core_out(core_tiles_plain(p, tile_start, tile_chunks,
-                                               num_tiles, tile, chunk, seg),
+                                               num_tiles, tile, chunk, seg,
+                                               piece=piece),
                               num_points), single)
 
 

@@ -180,7 +180,7 @@ class _RingStop:
                                                  entry.get("tw_n"))
         self.t_start = dev(entry["t_start"])
         self.t_chunks = dev(entry["t_chunks"])
-        self.core_pieces = lc.TilePieces(entry["t_chunks"])
+        self.core_pieces = lc.TilePieces.of_core(entry["t_chunks"])
         self.static = static
         self.n_out = n_out
         self.tile = tile
@@ -220,7 +220,8 @@ class _RingStop:
     def core_pass(self, core, plain=None):
         if self.plain if plain is None else plain:
             return lc.core_segmix_plain(core, self.t_start, self.t_chunks,
-                                        self.n_out, self.tile)
+                                        self.n_out, self.tile,
+                                        piece=self.core_pieces.piece)
         return lc.core_segmix_pass(core, self.t_start, self.t_chunks,
                                    self.n_out, self.tile,
                                    pieces=self.core_pieces)

@@ -13,7 +13,12 @@
   ranks that share the card (work-model efficiency, float64 error);
 - ``wings_ab``: the wings kernel of this checkout against libraries built
   from other versions of ``csrc/lineshape.cu``, in turns on the smoke's
-  inputs.
+  inputs (the turns: ``ab``);
+- ``core_census``: the mixed-slot core's work on the smoke's inputs, by
+  chunk class and Humlicek region, in the kernel's float32 arithmetic
+  (runs on the CPU too);
+- ``core_ab``: the mixed-slot core kernel of this checkout against
+  libraries built from other versions of ``csrc/lineshape.cu``, in turns.
 
 The benchmark entry point, ``python -m pylbl_tpu_torch bench``
 (``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
@@ -50,6 +55,20 @@ PEAK_BYTES = 3.35e12
 OPS_LORENTZ = 7
 OPS_K1 = 28
 OPS_REGIONS = 41
+# The mixed-slot core's work as its census counts it (tools/core_census.py):
+# operations per point that needs a correction, by list, counted from
+# csrc/lineshape.cu as above: x (3), the list's body with the xq and yq it
+# computes (K1: k1_value 18; region 1: 2 + region1 11; region 2: 2 +
+# region2 44; region 3: 1 + region3 128; CPF12: 1 + cpf12 234, the
+# reciprocals of its 24 divides and its exp among them), for the regions
+# the Lorentzian (5) and the difference (1), then pref * value (1) and the
+# add into the sum (1); and per instance with such a point its y-only
+# limits once (region_limits 17, class 1's k1_limit 5).  A point that
+# needs none costs nothing here.  Divides among them: K1 1, regions 1-3
+# 2 each, CPF12 25 (and its exp); the bound counts each as one operation.
+CENSUS_OPS = {"k1": 23, "r1": 24, "r2": 57, "r3": 140, "cpf12": 246}
+OPS_LIMITS = 17
+OPS_K1_LIMIT = 5
 # The floor of a term that needs one reciprocal: Hopper's MUFU gives 16
 # reciprocals a clock on each of the H100 SXM's 132 SMs.
 RCP_PER_CLOCK = 16
@@ -101,6 +120,26 @@ def device_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(fn, reps, name):
+    """Mean device milliseconds per call of ``fn()`` spent in the CUDA
+    kernels whose name holds ``name``, over ``reps`` warm calls, from a
+    ``torch.profiler`` trace of the card (the kernels alone: no host
+    time, no idle gap between launches); None when the trace holds no
+    such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    return sum(spans) / reps / 1e3 if spans else None
 
 
 def canonical_layers(num_layers):
@@ -173,6 +212,15 @@ def walk_usage(log):
         found = re.search(r"lorentz_walk_kernelILi(\d+)E", name)
         if found:
             return dict(use, points=int(found.group(1)))
+    return None
+
+
+def core_usage(log):
+    """The ``ptxas_usage`` of the mixed-slot core kernel; None when the
+    log has none."""
+    for name, use in ptxas_usage(log).items():
+        if "core_segmix_kernel" in name:
+            return use
     return None
 
 
@@ -258,3 +306,33 @@ def core_ops(params):
     e = blocks[:, lc.SR_EREL].double().clamp_max(31)
     points = (e - s + 1).clamp_min(0).sum(dim=-1)
     return float((points * class_ops(blocks[:, lc.SR_Y].amin(-1))).sum())
+
+
+def census_ops(census):
+    """Operations of the mixed-slot core's work from its census
+    (:func:`pylbl_tpu_torch.tools.core_census.census`): each needed point
+    at its list's :data:`CENSUS_OPS`, each instance with one at its
+    limits' cost."""
+    points = census["needed"]
+    ops = sum(CENSUS_OPS[k] * points[k] for k in ("k1", "r1", "r2", "r3"))
+    ops += CENSUS_OPS["cpf12"] * (points["cpf12_i"] + points["cpf12_ii"])
+    return float(ops + OPS_K1_LIMIT * census["needing_k1_chunks"]
+                 + OPS_LIMITS * census["needing_region_chunks"])
+
+
+def core_bytes(params, num_tiles, num_points):
+    """Bytes the mixed-slot core pass must move: its float32 parameters
+    [B, 8, I] (or [8, I]) and the int32 chunk CSR (starts and counts of
+    ``num_tiles`` tiles) read once, its [B, num_points] output written
+    once."""
+    layers = params.numel() // (lc.SEGP_ROWS * params.shape[-1])
+    return 4 * (params.numel() + 2 * num_tiles + layers * num_points)
+
+
+def census_bound(census, nbytes):
+    """The mixed-slot core's bound from its census: (ms, "operations" or
+    "bytes"), the larger of :func:`census_ops` over the FP32 peak and
+    ``nbytes`` (:func:`core_bytes`) over the memory rate."""
+    t_ops, t_bytes = census_ops(census) / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")

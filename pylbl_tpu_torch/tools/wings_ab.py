@@ -9,11 +9,10 @@ kernel source, in one process on one card, on the inputs of
     python -m pylbl_tpu_torch.tools.wings_ab --other PATH.cu[:K] [...]
         [--cells A16,A,B,C,Ct,F,G] [--reps N] [--json OUT]
 
-Each ``--other`` names a source file, for example an earlier commit's
-``lineshape.cu`` unpacked into an ignored directory, or ``this`` for this
-checkout's library, and the chunks per piece its wings walk takes
-(default: :data:`WINGS_PIECE_CHUNKS`); another library must have this
-checkout's C entry ``pylbl_wings``.  Cells:
+Each ``--other`` names a source file or ``this``, and the chunks per
+piece its wings walk takes (default: :data:`WINGS_PIECE_CHUNKS`), as
+``tools/ab.py`` says; another library must have this checkout's C entry
+``pylbl_wings``.  Cells:
 
 - ``A16`` / ``A``: the 7-gas column A at 0.1 cm-1 (strided wings with the
   tail class), 16 layers / the first 2 (phase 5);
@@ -27,31 +26,22 @@ checkout's C entry ``pylbl_wings``.  Cells:
 - ``G``: rank 0's balanced shard of a (2, 2) mesh on A: spec shard 0,
   layers 0-7 (phase 15).
 
-Per cell the builds run in turns: the others, this checkout's twice, the
-others in reverse, each timed with CUDA events over ``reps`` warm
-launches.  Each build's result is compared with the plain version at its
-piece size (max abs difference; 0 is bit for bit).  Each cell prints its
+Per cell the builds run in turns and are compared with the plain version
+at their piece size (``tools/ab.py``).  Each cell prints its
 counted evaluations, its bound (``tile_ops`` at 67 TFLOP/s), its
 reciprocal floor (:func:`rcp_floor_ms` at the SM clock nvidia-smi reads
 under load) and each build's times; each build prints its Lorentzian
 walk's registers and spills from ``-Xptxas -v``.  Without CUDA it exits
 with code 2.
 """
-import argparse
-import concurrent.futures
-import hashlib
-import json
-from pathlib import Path
-
 import numpy as np
 import torch
 
-from . import (CUT_OFF, OPS_LORENTZ, PEAK_BYTES, PEAK_OPS, canonical_layers,
-               card, device_ms, headline_workload, rcp_floor_ms,
-               require_cuda, run_main, sm_clock_mhz, tile_ops, walk_usage)
+from . import (CUT_OFF, OPS_LORENTZ, PEAK_BYTES, PEAK_OPS, ab,
+               canonical_layers, card, headline_workload, rcp_floor_ms,
+               require_cuda, sm_clock_mhz, tile_ops, walk_usage)
 from ..database.fixtures import synthetic_line_pack
 from ..ops import lineshape_cuda as lc
-from ..runtime.build import BUILD_LOGS, load_library
 
 CELLS = ("A16", "A", "B", "C", "Ct", "F", "G")
 GASES = ["H2O", "CO2", "O3", "N2O", "CO", "CH4", "O2"]
@@ -77,9 +67,9 @@ def layer_inputs(names, layers):
 
 
 class Cell:
-    """One cell's wings inputs: ``run(piece, plain)`` runs the pass with
-    pieces of ``piece`` chunks through the current library (or its plain
-    version), ``evals`` its counted terms."""
+    """One cell's wings inputs: ``run(piece)`` runs the pass with pieces
+    of ``piece`` chunks through the current library, ``plain(piece)`` its
+    plain version, ``evals`` its counted terms."""
 
     def __init__(self, name, soa, n_out, launch, plain, counts, inputs):
         self.name = name
@@ -94,9 +84,7 @@ class Cell:
         self.bound_ms = max(self.ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
         self._pieces = {}
 
-    def run(self, piece, plain=False):
-        if plain:
-            return self.plain(piece)
+    def run(self, piece):
         if piece not in self._pieces:
             self._pieces[piece] = lc.TilePieces.of_csr(*self.counts,
                                                        piece=piece)
@@ -131,12 +119,19 @@ def stage_cell(name, stage, soa):
                 [soa, *csr])
 
 
-def stacked_cell(name, packs, grid, layers, device):
+def stacked_stage(packs, grid, layers, device):
+    """(stage, wings SoA, core parameters) of the stacked pipeline on
+    ``grid`` for the canonical column's ``layers``."""
     from ..parallel.lines import make_multigas_batched_fn
 
     fn = make_multigas_batched_fn(packs, grid, device=device)
-    soa, _ = fn.assemble(*layer_inputs(fn.names, layers))
-    return stage_cell(name, fn.stage, soa)
+    soa, core = fn.assemble(*layer_inputs(fn.names, layers))
+    return fn.stage, soa, core
+
+
+def stacked_cell(name, packs, grid, layers, device):
+    stage, soa, _ = stacked_stage(packs, grid, layers, device)
+    return stage_cell(name, stage, soa)
 
 
 def single_cell(device):
@@ -182,9 +177,15 @@ def tail_cell(device):
                 [lay.w_n, lay.t_n], [soa, *csr])
 
 
-def shard_cell(packs, grid, device, spec=2, mode="balanced", tile=1024):
+def shard_cell(packs, grid, device):
     """G: spec shard 0 of a balanced (2, 2) mesh, its batch group's 8
     layers, planned as the sharded step plans rank 0's stage."""
+    stage, soa, _ = shard_stage(packs, grid, device)
+    return stage_cell("G", stage, soa)
+
+
+def shard_stage(packs, grid, device, spec=2, mode="balanced", tile=1024):
+    """(stage, wings SoA, core parameters) of G (:func:`shard_cell`)."""
     from ..parallel.lines import _LineStage
     from ..parallel.shard_plans import shard_plan_list, shard_stacked_packs
 
@@ -197,10 +198,10 @@ def shard_cell(packs, grid, device, spec=2, mode="balanced", tile=1024):
                        lc.STRIDED_CHUNK, "segmix", meta["tail"], device,
                        torch.float32, False,
                        planned=(meta["stride"], lay, core))
-    soa, _ = stage.assemble(*(torch.as_tensor(a, device=device,
-                                              dtype=torch.float32)
-                              for a in layer_inputs(names, slice(0, 8))))
-    return stage_cell("G", stage, soa)
+    soa, core = stage.assemble(*(torch.as_tensor(a, device=device,
+                                                 dtype=torch.float32)
+                                 for a in layer_inputs(names, slice(0, 8))))
+    return stage, soa, core
 
 
 def build_cells(names, device):
@@ -220,90 +221,31 @@ def build_cells(names, device):
     return [makers[name]() for name in names]
 
 
-def parse_other(spec):
-    """``PATH[:K]`` -> (Path, or None for ``this``, K)."""
-    path, _, piece = spec.partition(":")
-    return (None if path == "this" else Path(path),
-            int(piece) if piece else lc.WINGS_PIECE_CHUNKS)
-
-
-def other_library(path):
-    """A library built from ``path`` with the port's nvcc flags (named by
-    the source's hash), bound as the port's: (library, build log name);
-    this checkout's for None."""
-    if path is None:
-        return lc.cuda_library(), "liblineshape_cuda.so"
-    tag = hashlib.sha256(path.read_bytes()).hexdigest()[:12]
-    name = f"libwings_ab_{tag}.so"
-    return lc.bind_library(load_library(name, [path.resolve()],
-                                        lc._nvcc_command)), name
-
-
 def run(others, cells=CELLS, reps=10, out=None):
     require_cuda("wings_ab")
-    device = torch.device("cuda")
-    builds = []
-    with concurrent.futures.ThreadPoolExecutor(len(others) + 1) as pool:
-        mine = pool.submit(lc.cuda_library)
-        theirs = [pool.submit(other_library, path) for path, _ in others]
-        builds.append(("this", mine.result(), "liblineshape_cuda.so",
-                       lc.WINGS_PIECE_CHUNKS))
-        for (path, piece), done in zip(others, theirs):
-            lib, name = done.result()
-            builds.append((f"{path or 'this'}:{piece}", lib, name,
-                           piece))
+    builds = ab.load_builds(others, lc.WINGS_PIECE_CHUNKS)
     print(f"wings_ab on {card()}")
-    for label, _, name, _ in builds:
-        print(f"  {label}: Lorentzian walk (PRE) "
-              f"{walk_usage(BUILD_LOGS.get(name, ''))}")
-    own = lc.cuda_library
+    for label, use in ab.build_usage(builds, walk_usage).items():
+        print(f"  {label}: Lorentzian walk (PRE) {use}")
     report = {"card": card(), "cells": {}}
-    try:
-        for cell in build_cells(list(cells), device):
-            order = builds[1:] + [builds[0], builds[0]] + builds[:0:-1]
-            times = {label: [] for label, *_ in builds}
-            diffs, plain = {}, {}
-            for label, lib, _, piece in order:
-                lc.cuda_library = lambda lib=lib: lib
-                times[label].append(device_ms(lambda: cell.run(piece), reps))
-                if label not in diffs:
-                    if piece not in plain:
-                        plain[piece] = cell.run(piece, plain=True)
-                    diffs[label] = float(
-                        (cell.run(piece) - plain[piece]).abs().max())
-            lc.cuda_library = own
-            mhz = sm_clock_mhz(lambda: cell.run(lc.WINGS_PIECE_CHUNKS))
-            record = {"evals": cell.evals, "bound_ms": cell.bound_ms,
-                      "sm_mhz": mhz,
-                      "rcp_floor_ms": rcp_floor_ms(cell.evals, mhz),
-                      "builds": {label: {"ms": times[label],
-                                         "max_abs_vs_plain": diffs[label]}
-                                 for label in times}}
-            report["cells"][cell.name] = record
-            print(f"{cell.name}: {cell.evals:.6e} evaluations, bound "
-                  f"{cell.bound_ms:.6f} ms, reciprocal floor "
-                  f"{record['rcp_floor_ms']:.6f} ms at {mhz:.0f} MHz")
-            for label in times:
-                ms = ", ".join(f"{t:.4f}" for t in times[label])
-                print(f"  {label}: {ms} ms (max abs vs its plain "
-                      f"{diffs[label]:.3e})")
-    finally:
-        lc.cuda_library = own
-    if out:
-        Path(out).write_text(json.dumps(report, indent=1))
-    return report
+    for cell in build_cells(list(cells), torch.device("cuda")):
+        turns = ab.in_turns(builds, cell.run, cell.plain, reps)
+        mhz = sm_clock_mhz(lambda: cell.run(lc.WINGS_PIECE_CHUNKS))
+        record = {"evals": cell.evals, "bound_ms": cell.bound_ms,
+                  "sm_mhz": mhz,
+                  "rcp_floor_ms": rcp_floor_ms(cell.evals, mhz),
+                  "builds": turns}
+        report["cells"][cell.name] = record
+        print(f"{cell.name}: {cell.evals:.6e} evaluations, bound "
+              f"{cell.bound_ms:.6f} ms, reciprocal floor "
+              f"{record['rcp_floor_ms']:.6f} ms at {mhz:.0f} MHz")
+        ab.print_turns(turns)
+    return ab.write_report(report, out)
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", action="append", default=[],
-                    help="another lineshape.cu, PATH[:chunks per piece]")
-    ap.add_argument("--cells", default=",".join(CELLS))
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--json", default=None)
-    args = ap.parse_args(argv)
-    return run_main("wings_ab", run, [parse_other(o) for o in args.other],
-                    args.cells.split(","), args.reps, args.json)
+    return ab.main("wings_ab", __doc__, run, CELLS, lc.WINGS_PIECE_CHUNKS,
+                   argv)
 
 
 if __name__ == "__main__":

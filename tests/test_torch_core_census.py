@@ -1,0 +1,191 @@
+"""The mixed-slot core's census (pylbl_tpu_torch/tools/core_census.py).
+
+Its float32 counts are held against a brute-force count: every (layer,
+chunk, instance, offset) of the walk visited one by one in numpy float32
+scalars, labelled by the kernel's scalar rules (csrc/lineshape.cu
+``core_needs``, ``region_limits``, ``region_at``), on a small plan with
+every class and region present: a y <= 1e-6 chunk, chunks at y >= 70.55,
+dead instances, and windows inside, across and outside offsets 0..31.
+The counts add up (needed + not needed = in-window, in-window + outside =
+the lane evaluations), on that plan and on a real pipeline's.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pylbl_tpu_torch.database.fixtures import synthetic_line_pack
+from pylbl_tpu_torch.ops import lineshape_cuda as lc
+from pylbl_tpu_torch.parallel.lines import make_multigas_batched_fn
+from pylbl_tpu_torch.tools import (CENSUS_OPS, OPS_K1_LIMIT, OPS_LIMITS,
+                                   census_ops)
+from pylbl_tpu_torch.tools import core_census as cc
+
+torch.set_num_threads(1)
+f32 = np.float32
+
+
+def limits(y):
+    """region_limits in float32 scalars: (xlim0, xlim1, xlim2, xlim3,
+    xlim4)."""
+    xlim0 = np.sqrt(max(f32(15100.0) + y * (f32(40.0) - y * f32(3.6)),
+                        f32(0.0)))
+    xlim1 = f32(0.0) if y >= f32(8.425) else np.sqrt(max(
+        f32(164.0) - y * (f32(4.3) + y * f32(1.8)), f32(0.0)))
+    xlim2 = f32(6.8) - y
+    xlim3 = f32(2.4) * y
+    xlim4 = f32(18.1) * y + f32(1.65)
+    if y <= f32(1e-6):
+        xlim1 = xlim2 = xlim0
+    return xlim0, xlim1, xlim2, xlim3, xlim4
+
+
+def brute_force(params, t_start, t_chunks):
+    """Label counts, chunk classes and instance counts, one point at a
+    time."""
+    labels = {k: 0 for k in ("out", "none", "k1", "r1", "r2", "r3",
+                             "cpf12_i", "cpf12_ii")}
+    classes = [0] * 5
+    instances = nothing = 0
+    by_list = {k: 0 for k in ("k1", "r1", "r2", "r3", "cpf12")}
+    for b in range(params.shape[0]):
+        for t in range(t_chunks.size):
+            for k in range(int(t_chunks[t])):
+                col = (int(t_start[t]) + k) * 128
+                blk = params[b, :, col:col + 128]
+                ymin = blk[lc.SR_Y].min()
+                cls = 0 if ymin >= f32(70.55) else 1 if ymin >= f32(8.425) \
+                    else 2 if ymin >= f32(6.8) else 3 if ymin >= f32(2.0) \
+                    else 4
+                classes[cls] += 1
+                for i in range(128):
+                    seg0, cfrac, srw, y, _, s, e, _ = blk[:, i]
+                    seen = set()
+                    for o in range(32):
+                        of = f32(o)
+                        if not (of >= s and of <= e):
+                            labels["out"] += 1
+                            continue
+                        seen.add("in")
+                        x = ((seg0 + of) - cfrac) * srw
+                        abx = abs(x)
+                        lab = "none"
+                        if cls == 1:
+                            lim = max(f32(15100.0) + y * (f32(40.0)
+                                                          - y * f32(3.6)),
+                                      f32(0.0))
+                            if x * x < lim and y < f32(70.55):
+                                lab = "k1"
+                        elif cls > 1:
+                            x0, x1, x2, x3, x4 = limits(y)
+                            if abx < x0 and y < f32(70.55):
+                                if abx >= x1:
+                                    lab = "r1"
+                                elif cls == 2 or abx >= x2:
+                                    lab = "r2"
+                                elif cls == 3 or abx < x3:
+                                    lab = "r3"
+                                else:
+                                    lab = "cpf12_i" if abx <= x4 \
+                                        else "cpf12_ii"
+                        labels[lab] += 1
+                        seen.add(lab[:5])
+                    if "in" in seen:
+                        instances += 1
+                        nothing += len(seen - {"in", "none"}) == 0
+                    for key in by_list:
+                        by_list[key] += key in seen
+    return labels, classes, instances, nothing, by_list
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_census_matches_brute_force(seed):
+    params, t_start, t_chunks, _ = cc.synthetic_core(seed)
+    got = cc.census(torch.as_tensor(params), t_start, t_chunks)
+    labels, classes, instances, nothing, by_list = brute_force(
+        params, t_start, t_chunks)
+    assert got["chunks"] == 2 * int(t_chunks.sum())
+    assert list(got["chunks_by_class"].values()) == classes
+    assert all(classes)                             # every class present
+    assert got["needed"] == {k: labels[k] for k in got["needed"]}
+    assert all(got["needed"].values())              # every region present
+    assert got["in_window"] == sum(labels.values()) - labels["out"]
+    assert got["instances"] == instances
+    assert got["instances_needing_nothing"] == nothing
+    assert got["instances_by_list"] == by_list
+    # The plan holds what the census must see: tiny y, y >= 70.55 inside
+    # a chunk that is walked, dead fills, windows outside 0..31.
+    y = params[:, lc.SR_Y]
+    assert (y <= 1e-6).any() and (y >= 70.55).any() and (y == 100.0).any()
+    assert ((params[:, lc.SR_EREL] < 0) | (params[:, lc.SR_SREL] > 31)).any()
+
+
+def test_census_counts_add_up():
+    """needed + in-window needing nothing = in-window; in-window + outside
+    = lane evaluations; the classes add up to the chunks; on the
+    synthetic plan and on a real two-gas pipeline at two tiles."""
+    params, t_start, t_chunks, _ = cc.synthetic_core(2, layers=3)
+    cases = [(torch.as_tensor(params), t_start, t_chunks)]
+    packs = {"H2O": synthetic_line_pack("H2O", num_lines=800, nu_min=20.0,
+                                        nu_max=180.0, seed=5,
+                                        band_centers=(60.0, 150.0)),
+             "CO2": synthetic_line_pack("CO2", num_lines=300, nu_min=5.0,
+                                        nu_max=190.0, seed=6,
+                                        band_centers=(100.0,))}
+    for tile in (256, 1024):
+        fn = make_multigas_batched_fn(packs, np.arange(1.0, 200.0, 0.1),
+                                      tile=tile, chunk=128, device="cpu")
+        _, core = fn.assemble(np.asarray([288.99, 227.74]),
+                              np.asarray([98388.0, 1032.0]),
+                              np.asarray([[6.6e-03, 3.6e-04],
+                                          [4.8e-06, 3.6e-04]]))
+        plan = fn.core_plan
+        cases.append((core, plan.t_start, plan.t_chunks))
+    for params, t_start, t_chunks in cases:
+        got = cc.census(params, t_start, t_chunks)
+        label, _ = cc.pair_labels(cc.walked_blocks(params, t_start,
+                                                   t_chunks))
+        none = int((label == cc.NONE).sum())
+        assert got["needed_total"] + none == got["in_window"]
+        assert got["needed_total"] == sum(got["needed"].values())
+        outside = int((label == cc.OUT).sum())
+        assert got["in_window"] + outside == got["lane_evals"]
+        assert sum(got["chunks_by_class"].values()) == got["chunks"]
+        assert got["lane_evals"] == got["chunks"] * 128 * 32
+        assert got["instances_needing_nothing"] <= got["instances"]
+        assert got["needing_k1_chunks"] + got["needing_region_chunks"] \
+            == got["instances"] - got["instances_needing_nothing"]
+        assert got["needed_total"] > 0
+        # Rounds of 32 pairs: at least the pairs over 32, at most that
+        # plus one a list of each chunk.
+        assert got["needed_total"] <= 32 * got["rounds"] \
+            < got["needed_total"] + 32 * 5 * got["chunks"]
+
+
+def test_census_ops_counts_each_list():
+    """census_ops: each needed point at its list's count, each instance
+    with one at its limits' cost."""
+    counts = {"needed": {"k1": 3, "r1": 5, "r2": 7, "r3": 11,
+                         "cpf12_i": 13, "cpf12_ii": 17},
+              "needing_k1_chunks": 19, "needing_region_chunks": 23}
+    want = (3 * CENSUS_OPS["k1"] + 5 * CENSUS_OPS["r1"]
+            + 7 * CENSUS_OPS["r2"] + 11 * CENSUS_OPS["r3"]
+            + 30 * CENSUS_OPS["cpf12"] + 19 * OPS_K1_LIMIT
+            + 23 * OPS_LIMITS)
+    assert census_ops(counts) == want
+    assert CENSUS_OPS["cpf12"] > 10 * CENSUS_OPS["r1"]
+
+
+@pytest.mark.parametrize("scale,by", [(1, "operations"), (10 ** 6, "bytes")])
+def test_census_bound_is_the_larger_of_operations_and_bytes(scale, by):
+    """census_bound: the census's operations over the FP32 peak, or the
+    bytes over the memory rate where they take longer."""
+    from pylbl_tpu_torch.tools import PEAK_BYTES, PEAK_OPS, census_bound
+
+    counts = {"needed": {"k1": 0, "r1": 1000, "r2": 0, "r3": 0,
+                         "cpf12_i": 0, "cpf12_ii": 0},
+              "needing_k1_chunks": 0, "needing_region_chunks": 100}
+    nbytes = 1000 * scale
+    ms, bound_by = census_bound(counts, nbytes)
+    assert bound_by == by
+    assert ms == max(census_ops(counts) / PEAK_OPS,
+                     nbytes / PEAK_BYTES) * 1e3

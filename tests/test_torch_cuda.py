@@ -474,6 +474,69 @@ def test_split_device_plan_equals_plain(cuda_device):
     assert lc.LAUNCHES["core_segmix_single"] == 1
 
 
+# --- The mixed-slot core's lists (csrc/lineshape.cu core_needs):
+# synthetic chunks of every class and Humlicek region. ---
+
+def core_input(seed, device, **kwargs):
+    from pylbl_tpu_torch.tools.core_census import synthetic_core
+
+    params, t_start, t_chunks, n = synthetic_core(seed, **kwargs)
+    return (torch.as_tensor(params, device=device),
+            torch.as_tensor(t_start, device=device),
+            torch.as_tensor(t_chunks, device=device), t_chunks, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece", [1, 2, 4])
+@pytest.mark.parametrize("seed,tile", [(0, 256), (3, 256), (6, 1024)])
+def test_core_lists_equal_plain_at_each_piece(cuda_device, seed, tile,
+                                              piece):
+    """Every class (a skipped chunk, K1, 2, 3, 4 with a tiny y) and every
+    list, dead instances, windows outside offsets 0..31: the kernel
+    equals the plain version at its piece size bit for bit, and two runs
+    are bit-identical."""
+    params, t_start, t_chunks, host, n = core_input(seed, cuda_device,
+                                                    tile=tile)
+    pieces = lc.TilePieces(host, piece=piece)
+    lc.reset_launches()
+    got = lc.core_segmix_pass(params, t_start, t_chunks, n, tile,
+                              pieces=pieces)
+    again = lc.core_segmix_pass(params, t_start, t_chunks, n, tile,
+                                pieces=pieces)
+    want = lc.core_segmix_plain(params, t_start, t_chunks, n, tile,
+                                piece=piece)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert lc.LAUNCHES["core_segmix"] == 2
+    one = lc.core_segmix_pass(params[0], t_start, t_chunks, n, tile,
+                              pieces=pieces)
+    assert torch.equal(one, want[0])
+    assert lc.LAUNCHES["core_segmix_single"] == 1
+
+
+@pytest.mark.gpu
+def test_core_keeps_a_non_finite_prefactor_to_its_points(cuda_device):
+    """An instance of infinite prefactor: its slot's points of its window
+    offsets are not finite (the whole correction times inf), every other
+    point equals the plain version without the instance bit for bit."""
+    params, t_start, t_chunks, host, n = core_input(4, cuda_device,
+                                                    layers=1)
+    col = int(host[:2].sum()) * 128 + 40          # tile 2's first chunk
+    params[0, lc.SR_PREF, col] = float("inf")
+    params[0, lc.SR_SREL, col] = 3.0
+    params[0, lc.SR_EREL, col] = 9.0
+    got = lc.core_segmix_pass(params, t_start, t_chunks, n, 256)
+    gone = params.clone()
+    gone[0, lc.SR_PREF, col] = 0.0
+    want = lc.core_segmix_plain(gone, t_start, t_chunks, n, 256)
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    slot = int(params[0, lc.SR_SLOT, col])
+    bad[0, 512 + 32 * slot + 3:512 + 32 * slot + 10] = True
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert torch.equal(got[~bad], want[~bad])
+
+
 # --- The segment pass per chunk and the rows core per piece on the dense
 # cluster (tests/test_torch_lineshape.py's split tests): streams of more
 # than 8 chunks, tiles of more than 2 pieces. ---

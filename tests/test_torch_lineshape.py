@@ -535,7 +535,7 @@ def test_one_piece_tile_matches_pallas():
     assert pieces.per_tile[dense] == 1 and pieces.slot[dense] == -1
     got = lc.core_segmix_pass(core, torch.as_tensor(plan.t_start),
                               torch.as_tensor(t_chunks), plan.num_points,
-                              plan.tile).numpy()
+                              plan.tile, pieces=pieces).numpy()
     want = np.asarray(jlp._pallas_seg_pass_mixed(
         jnp.asarray(core.numpy()), plan.t_start, t_chunks, plan.num_points,
         plan.tile, plan.chunk, interpret=True))

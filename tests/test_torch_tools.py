@@ -17,10 +17,12 @@ from pylbl_tpu.parallel import lines as jlines
 from pylbl_tpu_torch.models.lines import LinePack
 from pylbl_tpu_torch.ops import lineshape_cuda as lc
 from pylbl_tpu_torch.parallel import lines as tlines
-from pylbl_tpu_torch.tools import (NoCudaError, batched_microbench,
-                                   bench_scaling, envelope_compare,
-                                   headline_pack, kernel_microbench,
-                                   layer_workload, masked_evals, parity_ab)
+from pylbl_tpu_torch.tools import (NoCudaError, ab, batched_microbench,
+                                   bench_scaling, census_bound, core_ab,
+                                   core_bytes, core_census,
+                                   envelope_compare, headline_pack,
+                                   kernel_microbench, layer_workload,
+                                   masked_evals, parity_ab)
 
 torch.set_num_threads(1)
 
@@ -205,3 +207,47 @@ def test_bench_scaling_work_model_on_cpu():
     assert 0.9 < results[1]["work_efficiency"] <= 1.0
     assert all(r["max_rel_err"] < 5e-4 and r["duplication"] == 1.0
                for r in results)
+
+
+def test_core_ab_refuses_without_cuda_and_parses_its_builds(monkeypatch,
+                                                            capsys):
+    """core_ab exits 2 without a card, whatever it was asked; ``--other``
+    takes PATH[:K] (``this`` for this checkout, K by default the tool's
+    own: None, the plan's piece size, for the core; WINGS_PIECE_CHUNKS
+    for the wings); its cells are the census's."""
+    from pathlib import Path
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaError, match="CUDA"):
+        core_ab.run([])
+    assert core_ab.main(["--other", "build/ab_src/parent/lineshape.cu:4",
+                         "--other", "this:1", "--cells", "A,C",
+                         "--reps", "3"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().out
+    assert ab.parse_other("this", None) == (None, None)
+    assert ab.parse_other("this:2", None) == (None, 2)
+    assert ab.parse_other("a/b.cu:1", None) == (Path("a/b.cu"), 1)
+    assert ab.parse_other("a/b.cu", lc.WINGS_PIECE_CHUNKS) == (
+        Path("a/b.cu"), lc.WINGS_PIECE_CHUNKS)
+    assert core_ab.CELLS == core_census.CELLS == ("A16", "A", "B", "C", "D",
+                                                  "F", "G")
+    with pytest.raises(SystemExit):
+        core_ab.main(["--reps", "x"])
+
+
+def test_core_census_describes_a_cell_on_cpu():
+    """The census's lines for a synthetic cell: its counts, both bounds."""
+    params, t_start, t_chunks, _ = core_census.synthetic_core(0)
+    params = torch.as_tensor(params)
+    counts = core_census.census(params, t_start, t_chunks)
+    nbytes = core_bytes(params, t_chunks.size, 256 * t_chunks.size)
+    assert nbytes == 4 * (params.numel() + 2 * t_chunks.size
+                          + params.shape[0] * 256 * t_chunks.size)
+    text = core_census.describe("S", counts, params, nbytes)
+    assert text.startswith(f"S: {counts['chunks']} chunks")
+    bound, bound_by = census_bound(counts, nbytes)
+    assert f"bound {bound:.6f} ms ({bound_by}, {nbytes} bytes)" in text
+    assert f"needed {counts['needed_total']}" in text
+    assert "census operations" in text and "core_ops" in text
+    with pytest.raises(ValueError, match="unknown cell"):
+        core_census.build_cells(["Z"], "cpu")
