@@ -145,13 +145,16 @@ of a core window; the points nearer the center cost more, so the bound
 stays below the work).  No single PyTorch call computes a windowed line
 sum, so ``library_ms`` is null.  The split kernels' records also carry
 their piece counts (the segment pass its chunk and stream counts).  The
-prepacked wings' records (the Lorentzian walk: ``wings_strided``,
-``wings_splat`` and their single-layer launches) carry beside each time
-its reciprocal floor, ``rcp_floor_ms``: the Lorentzian terms over 16
-MUFU reciprocals a clock on each of 132 SMs at the SM clock nvidia-smi
-reads while the kernel runs (phase 17: at phase 5's clock, beside each
-bench stage's time), and the walk's registers and spills from this
-build's ``-Xptxas -v`` report (phase 2 removes an earlier build first).
+records of the Lorentzian walk (the prepacked wings ``wings_strided``,
+``wings_splat`` and their single-layer launches; the raw splat
+``tile_lorentz``; the ownership-checked ``wings_strided_checked`` and
+``_single``) carry beside each time its reciprocal floor,
+``rcp_floor_ms``: the Lorentzian terms over 16 MUFU reciprocals a clock
+on each of 132 SMs at the SM clock nvidia-smi reads while the kernel runs
+(phase 17: at phase 5's clock, beside each bench stage's time), and the
+registers and spills of the walk's instantiation for its line kind
+(``line``: PRE, RAW or OWN) from this build's ``-Xptxas -v`` report
+(phase 2 removes an earlier build first).
 The mixed-slot core's records (``core_segmix``, ``core_segmix_single``)
 carry its registers and spills the same way, and the census of their
 phase's inputs (``pylbl_tpu_torch/tools/core_census.py``: the in-window
@@ -217,10 +220,13 @@ KERNELS = {
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
-# The launches of the Lorentzian walk (the prepacked wings): each record
-# carries its reciprocal floor and the walk's registers and spills.
-WALK = ("wings_strided", "wings_splat", "wings_strided_single",
-        "wings_strided_tail_single")
+# The launches of the Lorentzian walk, by line kind (the prepacked wings,
+# the raw splat, the ownership-checked wings): each record carries its
+# reciprocal floor and the registers and spills of its kind's walk.
+WALK = {"wings_strided": "pre", "wings_splat": "pre",
+        "wings_strided_single": "pre", "wings_strided_tail_single": "pre",
+        "tile_lorentz": "raw", "wings_strided_checked_single": "own",
+        "wings_strided_checked": "own"}
 # Phase 17: the kernels each stage of the bench launches.
 BENCH_KERNELS = {
     "headline": ("wings_strided_single", "core_segmix_single"),
@@ -774,7 +780,7 @@ def phase_gas(torch, P, lc, fixtures, records, card):
                    records["tile_lorentz"],
                    ops=tile_ops(plan_f.soa, n_f, "raw"),
                    inputs=[plan_f.soa, plan_f.w_start, plan_f.w_n],
-                   pieces=plan_f.wings_pieces)
+                   pieces=plan_f.wings_pieces, rcp=True)
     records["tile_lorentz"]["launches"] = counts9["tile_lorentz"]
     got = compare_kernel(torch, "core_segmix_single at 0.01 cm-1",
                          plan_f.core_pass,
@@ -862,7 +868,7 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
         compare_kernel(torch, name if own else f"{name} at 0.1 cm-1", run,
                        lambda: run(plain=True),
                        records[name] if own else None, ops=ops,
-                       inputs=inputs, pieces=pieces)
+                       inputs=inputs, pieces=pieces, rcp=not own)
         if own:
             records[name]["launches"] = counts[name]
 
@@ -944,6 +950,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
     from pylbl_tpu_torch.parallel.lines import make_batched_fn
     from pylbl_tpu_torch.tools import kernel_microbench, parity_ab
+    from pylbl_tpu_torch.tools.wings_ab import straddle_inputs
 
     def exact(name, run, run_plain, **work):
         return compare_kernel(torch, name, run, run_plain, records[name],
@@ -1002,13 +1009,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
 
     # The checked strided wings on the headline layer's straddle CSR.
     stride = plan.wings_stride
-    soa, num = lc.pack_lines_soa(arrays, 512)
-    assign = np.clip(arrays["s_idx"].astype(np.int64), 0, None) // stride
-    soa[lc._PAD, :num] = assign.astype(np.float32)
-    soa[lc._PAD, num:] = -1.0
-    st, nc = (torch.as_tensor(a, device="cuda") for a in
-              lc.strided_line_ranges(assign, (n - 1) // stride + 1))
-    soa = torch.as_tensor(soa, device="cuda")
+    soa, (st, nc) = straddle_inputs(arrays, n, stride, "cuda")
 
     def checked(plain=False):
         fn = lc.wings_strided_checked_plain if plain \
@@ -1017,7 +1018,8 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
 
     got = exact("wings_strided_checked_single", checked,
                 lambda: checked(True), ops=tile_ops(soa, n, "own"),
-                inputs=[soa, st, nc], pieces=lc.TilePieces.of_csr(nc))
+                inputs=[soa, st, nc], pieces=lc.TilePieces.of_csr(nc),
+                rcp=True)
     ref = plan.wings_pass()
     rel = float((got - ref).abs().max() / ref.abs().max())
     print(f"phase 12 checked strided wings ({int(nc.sum())} chunk visits "
@@ -1097,14 +1099,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
                                              x[two], keep=keep),
                          internal_grid(grid)[0], npv, CUT_OFF)
     arrays2 = prepare_kernel_arrays(kin2, npv, np.float32)
-    soa2, num = lc.pack_lines_soa(arrays2, 512)
-    assign = np.clip(arrays2["s_idx"].astype(np.int64).min(axis=0), 0,
-                     None) // stride
-    soa2[:, lc._PAD, :num] = assign.astype(np.float32)
-    soa2[:, lc._PAD, num:] = -1.0
-    st2, nc2 = (torch.as_tensor(a, device="cuda") for a in
-                lc.strided_line_ranges(assign, (n - 1) // stride + 1))
-    soa2 = torch.as_tensor(soa2, device="cuda")
+    soa2, (st2, nc2) = straddle_inputs(arrays2, n, stride, "cuda")
 
     def checked2(plain=False):
         fn2 = lc.wings_strided_checked_plain if plain \
@@ -1118,7 +1113,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
         lc.LAUNCHES["wings_strided_checked"]
     exact("wings_strided_checked", checked2, lambda: checked2(True),
           ops=tile_ops(soa2, n, "own"), inputs=[soa2, st2, nc2],
-          pieces=lc.TilePieces.of_csr(nc2))
+          pieces=lc.TilePieces.of_csr(nc2), rcp=True)
     for b in range(2):
         one = lc.wings_strided_checked_pass(soa2[b], st2, nc2, n, 1024,
                                             stride)
@@ -2080,8 +2075,9 @@ def main():
               f"{native_s.result():.2f} s (concurrent)")
     log = build.BUILD_LOGS.get("liblineshape_cuda.so", "")
     print_ptxas(log)
-    walk = walk_usage(log)
-    check(walk is not None, f"the Lorentzian walk compiled: {walk}")
+    walk = walk_usage(log) or {}
+    check(set(walk) == set(WALK.values()), "the Lorentzian walk compiled "
+          f"for every line kind: {walk}")
     core_use = core_usage(log)
     check(core_use is not None, f"the mixed-slot core compiled: {core_use}")
 
@@ -2089,11 +2085,12 @@ def main():
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
                       "replaces": replaces}
                for name, replaces in KERNELS.items()}
-    for name in WALK:
-        records[name].update(registers=walk["registers"],
-                             spill_stores=walk["spill_stores"],
-                             spill_loads=walk["spill_loads"],
-                             points_per_lane=walk["points"])
+    for name, kind in WALK.items():
+        use = walk[kind]
+        records[name].update(line=kind.upper(), registers=use["registers"],
+                             spill_stores=use["spill_stores"],
+                             spill_loads=use["spill_loads"],
+                             points_per_lane=use["points"])
     for name in ("core_segmix", "core_segmix_single"):
         records[name].update({key: core_use[key] for key in (
             "registers", "spill_stores", "spill_loads", "smem")})

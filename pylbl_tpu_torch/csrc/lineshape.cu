@@ -16,11 +16,12 @@
 //   and, with stride == tile, the splat wings (_tile_kernel(_batched) with
 //   _lorentz_line_pre).  RAW (_lorentz_line: ((pref*y)/sqrt(pi)) /
 //   (x^2 + y^2) from the raw rows) serves _tile_kernel(_batched) with
-//   stride == tile.  OWN is RAW with the line's strength zeroed unless its
-//   _PAD row equals the tile index as float32: the ownership-checked
-//   strided wings over a straddle CSR, where neighbouring tiles read
-//   shared chunks (replaces _tile_kernel_strided(_batched)); a zeroed
-//   foreign line adds +0.0.  CORR (_correction_line: the per-line
+//   stride == tile: the single-layer splat of Gas where no stride fits and
+//   the batched splat under core_mode "seg"/"rows" or wings_mode "tile".
+//   OWN is RAW with the line's strength zeroed unless its _PAD row equals
+//   the tile index as float32: the ownership-checked strided wings over a
+//   straddle CSR, where neighbouring tiles read shared chunks (replaces
+//   _tile_kernel_strided(_batched)).  CORR (_correction_line: the per-line
 //   Humlicek correction, class picked from the line's own y, lines with
 //   y >= 70.55 skipped) serves _tile_kernel(_batched) with stride == tile.
 //   A single layer is a batch of one.
@@ -35,38 +36,49 @@
 //   cut into pieces of at most K chunks (the host's piece list,
 //   ops/lineshape_cuda.py TilePieces), one block per (piece, layer); the
 //   pieces fold into the tile in piece order (piece_fold).
-//   PRE takes the Lorentzian walk (lorentz_walk_kernel): tile / kWalkPoints
-//   threads, warp w owning the tile's 32 * kWalkPoints consecutive points
-//   from w * 32 * kWalkPoints (lane l the points 32j + l of them), compiled
-//   for kWalkBlocks blocks an SM (32 registers, 64 warps: the terms'
-//   dependent chains need the warps, and one chunk a piece gives the blocks).
-//   Chunk k + 1 is copied with 4-byte cp.async into a 2-slot ring while chunk
-//   k is walked (one slot when a piece is one chunk); the ring holds the
-//   chunk line major (walk_slot), so a line's fields reach a warp as two
-//   16-byte broadcasts, not seven 4-byte ones.  Per 32 lines of the chunk
-//   each lane tests one line's window against its warp's points, and two
-//   ballots give the warp the lines whose window reaches its points and those
-//   whose window holds them all; the warp walks the set bits in line order.
-//   A line that misses the warp's points is never loaded (it would add +0.0
-//   to every point, and a sum that starts at +0.0 with terms >= +0.0 never
-//   holds -0.0, so skipping it leaves the bits unchanged); a line whose
-//   window holds the warp's points takes the body without the window mask
-//   (every term is in window); only a line whose window edge falls inside the
-//   warp's points keeps the per-group test and the mask.  The term is pref_y
-//   * rcp(x^2 + y^2), an IEEE reciprocal and an IEEE multiply (lorentz_term):
-//   div.rn.f32's range check and slow-path branch around each divide cost
-//   more than the second rounding, which the plain version repeats.  Each
-//   point's sum is the same chain as before: per chunk a partial over its
-//   lines in line order from +0.0, added into the piece accumulator in walk
-//   order.  The splat's chunk padding (lines rounding each tile's walk up to
-//   whole chunks) has empty windows and costs one test per lane per 32 lines.
-//   RAW, OWN and CORR keep the earlier walk (wings_kernel): 256 threads,
-//   thread x owning the points x + 256j, chunks staged SoA and walked
-//   line by line with seven broadcasts a line, a warp skipping a (line,
-//   point group) whose window misses its 32 points (the term would add
-//   +0.0), the IEEE divide.  CORR is bound by the Humlicek rationals; its
-//   point loop is not unrolled, so the four class bodies are compiled
-//   once each.
+//   PRE, RAW and OWN take the Lorentzian walk (lorentz_walk_kernel<PPT,
+//   LINE>): tile / kWalkPoints threads, warp w owning the tile's
+//   32 * kWalkPoints consecutive points from w * 32 * kWalkPoints (lane l
+//   the points 32j + l of them), compiled for kWalkBlocks blocks an SM (32
+//   registers, 64 warps: the terms' dependent chains need the warps, and
+//   one chunk a piece gives the blocks).  Chunk k + 1 is copied with 4-byte
+//   cp.async into a 2-slot ring while chunk k is walked (one slot when a
+//   piece is one chunk); the ring holds the chunk line major (walk_slot),
+//   so a line's fields reach a warp as two 16-byte broadcasts, not seven
+//   4-byte ones.  Per 32 lines of the chunk each lane tests one line's
+//   window against its warp's points, and two ballots give the warp the
+//   lines whose window reaches its points and those whose window holds them
+//   all; the warp walks the set bits in line order.  A line that misses the
+//   warp's points is never loaded (it would add +0.0 to every point, and a
+//   sum that starts at +0.0 never holds -0.0, so skipping it leaves the
+//   bits unchanged); a line whose window holds the warp's points takes the
+//   body without the window mask (every term is in window); only a line
+//   whose window edge falls inside the warp's points keeps the per-group
+//   test and the mask.  The term is pref_y * rcp(x^2 + y^2), an IEEE
+//   reciprocal and an IEEE multiply (lorentz_term): div.rn.f32's range
+//   check and slow-path branch around each divide cost more than the
+//   second rounding, which the plain version repeats.  Each point's sum is
+//   the same chain as before: per chunk a partial over its lines in line
+//   order from +0.0, added into the piece accumulator in walk order.  The
+//   splat's chunk padding (lines rounding each tile's walk up to whole
+//   chunks) has empty windows and costs one test per lane per 32 lines.
+//   RAW and OWN stage the raw rows (OWN also _PAD, in the slot's free
+//   eighth float); a block pass over each landed slot (one more barrier a
+//   chunk) rewrites each line's y and pref into the prepacked y^2 and
+//   pref*y/sqrt(pi), in the plain version's float32 order (raw_line).
+//   Forming them in registers at every line visit instead was 2-4%
+//   slower on the card (PERF.md).  The same pass leaves out, before the
+//   ballot, a line OWN's tile does not own where every term of it is
+//   provably +/-0.0 (own_drops: y^2 finite and normal, x never NaN) by
+//   emptying its window; a foreign line that could give NaN (y = 0 at
+//   x = 0, a non-finite y or x) stays in the walk at strength 0 and gives
+//   the plain version's NaN.
+//   CORR keeps the earlier walk (wings_kernel): 256 threads, thread x
+//   owning the points x + 256j, chunks staged SoA and walked line by line
+//   with seven broadcasts a line, a warp skipping a (line, point group)
+//   whose window misses its 32 points (the term would add +0.0).  It is
+//   bound by the Humlicek rationals; its point loop is not unrolled, so
+//   the four class bodies are compiled once each.
 //
 // pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
 //   _seg_kernel_batched).  Every 128-instance chunk carries ONE segment
@@ -155,6 +167,7 @@
 //
 // Each entry returns cudaGetLastError() after its launch.
 
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -545,13 +558,42 @@ __device__ __forceinline__ void piece_fold(const Pieces& pc, float* o,
     }
 }
 
-// The prepacked Lorentzian walk (PRE; see the note at the top).  Block:
-// tile / PPT threads; warp w owns the tile's points w*32*PPT ..
+// RAW's and OWN's line from its staged raw rows f1 = {srw, y, pref,
+// _PAD}: the prepacked y^2 and pref*y/sqrt(pi), in the plain version's
+// float32 order (_tile_partials_plain); OWN zeroes the strength of a line
+// whose _PAD is not the tile (tile_f).
+template <int LINE>
+__device__ __forceinline__ void raw_line(float4 f1, float tile_f, float& ysq,
+                                         float& pref_y)
+{
+    float strength = f1.z;
+    if (LINE == kLineOwn) strength = f1.w == tile_f ? f1.z : 0.0f;
+    pref_y = (strength * f1.y) * F(kRsqrpi);
+    ysq = f1.y * f1.y;
+}
+
+// Whether OWN may leave out the staged line {f0, f1} (walk_slot order) on
+// tile tile_f: a foreign line whose every term (0 * y / sqrt(pi)) *
+// rcp(x^2 + y^2) is +/-0.0, which leaves a sum that is never -0.0
+// unchanged.  That holds where y^2 is finite and normal (then x^2 + y^2 >=
+// y^2 and its reciprocal is finite, or 0 at x^2 = inf) and x is never NaN
+// (c_int, c_frac and srw finite, srw != 0: the offset from the center is
+// finite or +/-inf, and so is x).  Any other foreign line stays.
+__device__ __forceinline__ bool own_drops(float4 f0, float4 f1, float tile_f)
+{
+    const float ysq = f1.y * f1.y;
+    return f1.w != tile_f && ysq >= FLT_MIN && ysq <= FLT_MAX
+        && fabsf(f0.z) <= FLT_MAX && fabsf(f0.w) <= FLT_MAX
+        && fabsf(f1.x) <= FLT_MAX && f1.x != 0.0f;
+}
+
+// The Lorentzian walk of PRE, RAW and OWN (see the note at the top).
+// Block: tile / PPT threads; warp w owns the tile's points w*32*PPT ..
 // (w+1)*32*PPT - 1, lane l the points w*32*PPT + 32j + l.  The ring holds
 // two chunks (one for pieces of one chunk) line-major, 8 floats a line
 // (walk_slot), in dynamic shared memory of max(chunk, tail) * 32 bytes a
 // slot.
-template <int PPT>
+template <int PPT, int LINE>
 __global__ void __launch_bounds__(kWingsThreads, kWalkBlocks)
 lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
                     long long soa_r, const int* __restrict__ w_start,
@@ -562,12 +604,15 @@ lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
                     int stride, int chunk, int tail, Pieces pc)
 {
     constexpr int kSpan = 32 * PPT;
-    constexpr int kRows = 7;
+    // The rows before _PAD; OWN also stages _PAD (each line's tile).
+    constexpr int kRows = LINE == kLineOwn ? kPad + 1 : kPad;
+    constexpr bool kRaw = LINE != kLinePre;
     extern __shared__ float4 ring[];
     const int ring_lines = max(chunk, tail);
     const int b = blockIdx.y;
     const int t = pc.tile[blockIdx.x];
     const int piece = blockIdx.x - pc.first[t];
+    const float tile_f = (float)t;
     const float* lines = soa + b * soa_b;
     const long long csr = b * csr_b + t;
     // The tile's walk: its main chunks, then its tail chunks.
@@ -610,6 +655,21 @@ lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
         __syncthreads();
         const float4* staged = ring + 2LL * s * ring_lines;
         const int width = width_of(k);
+        if constexpr (kRaw) {
+            // The prepacked rows in place; a line OWN leaves out gets an
+            // empty window (window end -1 < every point), so it never meets.
+            float4* raw = ring + 2LL * s * ring_lines;
+            for (int l = threadIdx.x; l < width; l += blockDim.x) {
+                float4 f1 = raw[2 * l + 1];
+                if (LINE == kLineOwn && own_drops(raw[2 * l], f1, tile_f)) {
+                    reinterpret_cast<float*>(raw + 2 * l)[1] = -1.0f;
+                    continue;
+                }
+                raw_line<LINE>(f1, tile_f, f1.y, f1.z);
+                raw[2 * l + 1] = f1;
+            }
+            __syncthreads();
+        }
         float part[PPT];
 #pragma unroll
         for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
@@ -665,9 +725,9 @@ lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-// RAW, OWN and CORR (see the note at the top): 256 threads, thread x
-// owning the points x + 256j, chunks staged SoA.
-template <int PPT, int LINE>
+// CORR (see the note at the top): 256 threads, thread x owning the points
+// x + 256j, chunks staged SoA.
+template <int PPT>
 __global__ void __launch_bounds__(kWingsThreads)
 wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
              const int* __restrict__ w_start, const int* __restrict__ w_n,
@@ -675,13 +735,11 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
              long long csr_b, float* __restrict__ out, int num_tiles,
              int tile, int stride, int chunk, int tail, Pieces pc)
 {
-    // OWN also stages the _PAD row (each line's assigned tile).
-    constexpr int kStaged = LINE == kLineOwn ? 8 : 7;
+    constexpr int kStaged = 7;
     __shared__ float buf[2][kStaged][kMaxChunk];
     const int b = blockIdx.y;
     const int t = pc.tile[blockIdx.x];
     const int piece = blockIdx.x - pc.first[t];
-    const float tile_f = (float)t;
     const float* lines = soa + b * soa_b;
     const long long csr = b * csr_b + t;
     // The tile's walk: its main chunks, then its tail chunks.
@@ -732,32 +790,14 @@ wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
             const float pref = buf[s][kPref][l];
             const float ws = buf[s][kSIdx][l];
             const float we = buf[s][kEIdx][l];
-            if constexpr (LINE == kLineCorr) {
-                if (y >= F(70.55)) continue;   // pure Lorentz line
+            if (y >= F(70.55)) continue;   // pure Lorentz line
 #pragma unroll 1
-                for (int j = 0; j < PPT; ++j) {
-                    if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
-                    const float x = ((point[j] - c_int) - c_frac) * srw;
-                    const float val = correction_of_line(x, y);
-                    const bool in = (point[j] >= ws) && (point[j] <= we);
-                    part[j] = part[j] + (in ? pref * val : 0.0f);
-                }
-            } else {
-                // OWN is RAW with a foreign line's strength zeroed.
-                float strength = pref;
-                if constexpr (LINE == kLineOwn) {
-                    strength = buf[s][kPad][l] == tile_f ? pref : 0.0f;
-                }
-                const float pref_y = (strength * y) * F(kRsqrpi);
-                const float ysq = y * y;
-#pragma unroll
-                for (int j = 0; j < PPT; ++j) {
-                    if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
-                    const float x = ((point[j] - c_int) - c_frac) * srw;
-                    const float val = pref_y / (x * x + ysq);
-                    const bool in = (point[j] >= ws) && (point[j] <= we);
-                    part[j] = part[j] + (in ? val : 0.0f);
-                }
+            for (int j = 0; j < PPT; ++j) {
+                if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
+                const float x = ((point[j] - c_int) - c_frac) * srw;
+                const float val = correction_of_line(x, y);
+                const bool in = (point[j] >= ws) && (point[j] <= we);
+                part[j] = part[j] + (in ? pref * val : 0.0f);
             }
         }
 #pragma unroll
@@ -1322,6 +1362,7 @@ void launch_rows(dim3 grid, cudaStream_t s, const float* groups,
     }
 }
 
+template <int LINE>
 void launch_walk(dim3 grid, cudaStream_t s, const float* soa,
                  long long soa_b, long long soa_r, const int* w_start,
                  const int* w_n, const int* t_start, const int* t_n,
@@ -1331,32 +1372,31 @@ void launch_walk(dim3 grid, cudaStream_t s, const float* soa,
     // A piece of one chunk stages it once: one ring slot.
     const size_t ring = (pc.piece > 1 ? 2 : 1) * (size_t)max(chunk, tail)
         * kLineFloats * sizeof(float);
-    lorentz_walk_kernel<kWalkPoints>
+    lorentz_walk_kernel<kWalkPoints, LINE>
         <<<grid, tile / kWalkPoints, ring, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
             num_tiles, tile, stride, chunk, tail, pc);
 }
 
-template <int LINE>
-int launch_wings(dim3 grid, cudaStream_t s, int ppt, const float* soa,
-                 long long soa_b, long long soa_r, const int* w_start,
-                 const int* w_n, const int* t_start, const int* t_n,
-                 long long csr_b, float* out, int num_tiles, int tile,
-                 int stride, int chunk, int tail, const Pieces& pc)
+int launch_corr(dim3 grid, cudaStream_t s, int ppt, const float* soa,
+                long long soa_b, long long soa_r, const int* w_start,
+                const int* w_n, const int* t_start, const int* t_n,
+                long long csr_b, float* out, int num_tiles, int tile,
+                int stride, int chunk, int tail, const Pieces& pc)
 {
     switch (ppt) {
     case 1:
-        wings_kernel<1, LINE><<<grid, kWingsThreads, 0, s>>>(
+        wings_kernel<1><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
             num_tiles, tile, stride, chunk, tail, pc);
         break;
     case 2:
-        wings_kernel<2, LINE><<<grid, kWingsThreads, 0, s>>>(
+        wings_kernel<2><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
             num_tiles, tile, stride, chunk, tail, pc);
         break;
     case 4:
-        wings_kernel<4, LINE><<<grid, kWingsThreads, 0, s>>>(
+        wings_kernel<4><<<grid, kWingsThreads, 0, s>>>(
             soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
             num_tiles, tile, stride, chunk, tail, pc);
         break;
@@ -1391,31 +1431,27 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
             || tile > kMaxTile || tile % (32 * kWalkPoints))
         return (int)cudaErrorInvalidValue;
     if (num_pieces > 0 && num_layers > 0) {
-        const int ppt = tile / kWingsThreads;
         int err = 0;
         switch (line_fn) {
         case kLinePre:
-            launch_walk(grid, s, soa, soa_b, soa_r, w_start, w_n, t_start,
-                        t_n, csr_b, out, num_tiles, tile, stride, chunk,
-                        tail, pc);
+            launch_walk<kLinePre>(grid, s, soa, soa_b, soa_r, w_start, w_n,
+                                  t_start, t_n, csr_b, out, num_tiles, tile,
+                                  stride, chunk, tail, pc);
             break;
         case kLineRaw:
-            err = launch_wings<kLineRaw>(grid, s, ppt, soa, soa_b, soa_r,
-                                         w_start, w_n, t_start, t_n, csr_b,
-                                         out, num_tiles, tile, stride, chunk,
-                                         tail, pc);
-            break;
-        case kLineCorr:
-            err = launch_wings<kLineCorr>(grid, s, ppt, soa, soa_b, soa_r,
-                                          w_start, w_n, t_start, t_n, csr_b,
-                                          out, num_tiles, tile, stride,
-                                          chunk, tail, pc);
+            launch_walk<kLineRaw>(grid, s, soa, soa_b, soa_r, w_start, w_n,
+                                  t_start, t_n, csr_b, out, num_tiles, tile,
+                                  stride, chunk, tail, pc);
             break;
         case kLineOwn:
-            err = launch_wings<kLineOwn>(grid, s, ppt, soa, soa_b, soa_r,
-                                         w_start, w_n, t_start, t_n, csr_b,
-                                         out, num_tiles, tile, stride, chunk,
-                                         tail, pc);
+            launch_walk<kLineOwn>(grid, s, soa, soa_b, soa_r, w_start, w_n,
+                                  t_start, t_n, csr_b, out, num_tiles, tile,
+                                  stride, chunk, tail, pc);
+            break;
+        case kLineCorr:
+            err = launch_corr(grid, s, tile / kWingsThreads, soa, soa_b,
+                              soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+                              num_tiles, tile, stride, chunk, tail, pc);
             break;
         default:
             err = (int)cudaErrorInvalidValue;

@@ -55,14 +55,17 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   staged into a shared-memory ring with ``cp.async`` (two slots, one
   for a piece of one chunk).  The
   prepacked Lorentzian (every strided and splat wings pass of the main
-  path) takes the Lorentzian walk: tile/4 threads, a warp owning 128
-  consecutive points, the ring line-major, per 32 lines two ballots
-  listing the lines that reach the warp's points and those that cover
-  them, the listed lines walked in order (the covering ones without the
-  window mask), the term ``pref_y * rcp(x^2 + y^2)``.  The raw
-  Lorentzian, the ownership-checked raw Lorentzian and the correction
-  keep the earlier walk: 256 threads, a warp skipping the lines whose
-  window misses its 32 points, the IEEE divide.  Bound: about 7
+  path), the raw Lorentzian (the splat of raw rows) and the
+  ownership-checked raw Lorentzian take the Lorentzian walk: tile/4
+  threads, a warp owning 128 consecutive points, the ring line-major,
+  per 32 lines two ballots listing the lines that reach the warp's
+  points and those that cover them, the listed lines walked in order
+  (the covering ones without the window mask), the term ``pref_y *
+  rcp(x^2 + y^2)``.  The raw kinds form each line's ``y^2`` and
+  ``pref*y/sqrt(pi)`` from the raw rows first, and the checked kind
+  leaves out, before the ballot, the foreign lines whose terms are all
+  +/-0.0.  The correction keeps the earlier walk: 256 threads, a warp
+  skipping the lines whose window misses its 32 points.  Bound: about 7
   operations per in-window line-point, one a reciprocal (instruction
   issue, not memory); the Humlicek rationals for the correction.
 - Mixed-slot core (replaces ``_seg_kernel_mixed(_batched)`` :1113/:1148
@@ -1010,7 +1013,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # Tile-kernel line functions by pass kind (lineshape_pallas.py
 # _pass_line_fn): the kernel's line_fn id and the launch counter.  Line
 # function 3 (OWN) is the ownership-checked raw Lorentzian of
-# wings_strided_checked_pass.
+# wings_strided_checked_pass.  The kernel walks 0 (PRE), 1 (RAW) and 3
+# (OWN) as lorentz_walk_kernel and 2 (CORR) as wings_kernel.
 _TILE_LINES = {"wings_pre": (0, "wings_splat"), "wings": (1, "tile_lorentz"),
                "core": (2, "tile_correction")}
 _LINE_OWN = 3
@@ -1415,7 +1419,16 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
     the two-level summation), in slabs of pairs.  ``line``: "pre"
     (prepacked Lorentzian), "raw" (Lorentzian from raw rows), "own" (raw,
     with the strength zeroed unless the line's _PAD row equals the tile
-    index) or "corr" (per-line Humlicek correction)."""
+    index) or "corr" (per-line Humlicek correction).
+
+    The three Lorentzian kinds take the Lorentzian walk's term, the
+    reciprocal of ``x^2 + y^2`` and then the product; "raw" and "own" form
+    ``pref * y / sqrt(pi)`` and ``y^2`` from the raw rows first, in the
+    kernel's float32 order.  Every line of the chunk is summed here; the
+    kernel leaves out lines whose terms are all +0.0 at a point (a window
+    that misses it) and, for "own", the foreign lines whose terms are all
+    +/-0.0 (``own_drops`` in csrc/lineshape.cu), which changes no bit of a
+    sum that starts at +0.0."""
     batch = soa.shape[0]
     dtype = soa.dtype
     pairs = tiles.numel()
@@ -1437,9 +1450,9 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
             if line == "corr":
                 val = _line_corrections(x, y, pref)
             elif line in ("raw", "own"):
-                val = ((pref * y) * RSQRPI) / (x * x + y * y)
-            else:
                 # The walk's term: the reciprocal, then the product.
+                val = ((pref * y) * RSQRPI) * (1.0 / (x * x + y * y))
+            else:
                 val = pref * (1.0 / (x * x + y))
             mask = (point >= vals[:, S_IDX]) & (point <= vals[:, E_IDX])
             part = part + torch.where(mask, val, torch.zeros_like(val))
@@ -1593,7 +1606,7 @@ def wings_strided_plain(soa, w_start, w_n, num_points, tile, stride,
 
 
 def wings_strided_checked_pass(soa, start, nchunks, num_points, tile, stride,
-                               chunk=STRIDED_CHUNK):
+                               chunk=STRIDED_CHUNK, pieces=None):
     """Ownership-checked strided wings (``_pallas_pass_strided`` with
     ``prepacked=False``) -> [B, num_points] or [num_points].
 
@@ -1602,19 +1615,25 @@ def wings_strided_checked_pass(soa, start, nchunks, num_points, tile, stride,
     ``start``/``nchunks`` are the straddle CSR of
     :func:`strided_line_ranges` ([T], shared by every layer), so
     neighbouring tiles read shared chunks and each tile zeroes the
-    strength of the lines it does not own."""
+    strength of the lines it does not own.  The kernel is the Lorentzian
+    walk (OWN): it leaves out a foreign line before its ballot where every
+    term of it is +/-0.0 (``y^2`` finite and normal, ``x`` never NaN), and
+    keeps any other foreign line at strength 0, so that it gives the plain
+    version's NaN (``y = 0`` at ``x = 0``, a non-finite ``y``).
+    ``pieces`` as :func:`wings_strided_pass`."""
     counter = "wings_strided_checked" if soa.dim() == 3 \
         else "wings_strided_checked_single"
     return _tile(soa, start, nchunks, num_points, tile, stride, chunk, None,
-                 None, 128, "own", _LINE_OWN, counter)
+                 None, 128, "own", _LINE_OWN, counter, pieces)
 
 
 def wings_strided_checked_plain(soa, start, nchunks, num_points, tile,
-                                stride, chunk=STRIDED_CHUNK):
+                                stride, chunk=STRIDED_CHUNK,
+                                piece=WINGS_PIECE_CHUNKS):
     """:func:`wings_strided_checked_pass` through the plain version on any
-    device and float dtype."""
+    device and float dtype (``piece`` as :func:`wings_strided_plain`)."""
     return _tile_plain(soa, start, nchunks, num_points, tile, stride, chunk,
-                       None, None, 128, "own")
+                       None, None, 128, "own", piece)
 
 
 _PLAIN_LINES = {"wings_pre": "pre", "wings": "raw", "core": "corr"}
@@ -1628,8 +1647,12 @@ def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
 
     ``pass_kind``: "wings_pre" (prepacked Lorentzian, ``_lorentz_line_pre``),
     "wings" (Lorentzian from raw rows, ``_lorentz_line``) or "core" (the
-    per-line Humlicek correction, ``_correction_line``).  The CSR is [T] or
-    [B, T]; ``pieces`` as :func:`wings_strided_pass`."""
+    per-line Humlicek correction, ``_correction_line``).  The two
+    Lorentzians take the Lorentzian walk (PRE, RAW: the raw kind forms
+    each line's ``y^2`` and ``pref*y/sqrt(pi)`` first, and both take the
+    term ``pref_y * rcp(x^2 + y^2)``); the correction the earlier
+    256-thread walk.  The CSR is [T] or [B, T]; ``pieces`` as
+    :func:`wings_strided_pass`."""
     line_fn, counter = _TILE_LINES[pass_kind]
     return _tile(soa, start, nchunks, num_points, tile, tile, chunk, None,
                  None, 128, _PLAIN_LINES[pass_kind], line_fn, counter,

@@ -124,12 +124,14 @@ def device_ms(fn, reps):
 
 def kernel_device_ms(fn, reps, name):
     """Mean device milliseconds per call of ``fn()`` spent in the CUDA
-    kernels whose name holds ``name``, over ``reps`` warm calls, from a
+    kernels whose name holds ``name`` (a string, or a tuple of strings of
+    which one must be in it), over ``reps`` warm calls, from a
     ``torch.profiler`` trace of the card (the kernels alone: no host
     time, no idle gap between launches); None when the trace holds no
     such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -138,7 +140,7 @@ def kernel_device_ms(fn, reps, name):
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
+             and any(n in e.name for n in names)]
     return sum(spans) / reps / 1e3 if spans else None
 
 
@@ -205,14 +207,25 @@ def ptxas_usage(log):
     return usage
 
 
+# The Lorentzian walk's line kinds by their template argument
+# (csrc/lineshape.cu kLinePre, kLineRaw, kLineOwn).
+WALK_KINDS = {0: "pre", 1: "raw", 3: "own"}
+_WALK = re.compile(r"lorentz_walk_kernelILi(\d+)E(?:Li(\d+)E)?")
+
+
 def walk_usage(log):
-    """The ``ptxas_usage`` of the Lorentzian walk (the prepacked wings),
-    with its points per lane as ``points``; None when the log has none."""
+    """{line kind: ``ptxas_usage``} of every instantiation of the
+    Lorentzian walk, each with its points per lane as ``points``, by
+    :data:`WALK_KINDS` ("pre", "raw", "own"; a walk of one template
+    argument, as builds before the line kinds compiled it, is "pre");
+    None when the log has none."""
+    kinds = {}
     for name, use in ptxas_usage(log).items():
-        found = re.search(r"lorentz_walk_kernelILi(\d+)E", name)
+        found = _WALK.search(name)
         if found:
-            return dict(use, points=int(found.group(1)))
-    return None
+            kind = WALK_KINDS.get(int(found.group(2) or 0), found.group(2))
+            kinds[kind] = dict(use, points=int(found.group(1)))
+    return kinds or None
 
 
 def core_usage(log):

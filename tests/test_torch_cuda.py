@@ -631,18 +631,20 @@ WALK_POINTS = 128        # a warp's consecutive points (32 lanes x 4)
 CHUNK, TAIL = 100, 128   # a chunk that is not whole groups of 32 lines
 
 
-def synthetic_walk(tile, stride, num_tiles=6, layers=2, tail=True, seed=0):
+def synthetic_walk(tile, stride, num_tiles=6, layers=2, tail=True, seed=0,
+                   many=None):
     """A prepacked SoA [B, 8, N] and a per-layer [B, T] CSR (main chunks
     of CHUNK lines, with ``tail`` tail chunks of TAIL) over private
-    per-tile chunks: tile 0 walks nothing, tile 1 walks 3K + 1 main
-    chunks (many pieces), the rest 1-3; layer 1 walks one chunk fewer
-    where it can.  Windows: random around the tile's points, with edges
+    per-tile chunks: tile 0 walks nothing, tile 1 walks ``many`` (3K + 1)
+    main chunks (many pieces), the rest 1-3; layer 1 walks one chunk fewer
+    where it can (the rows read as raw y and pref just as well).  Windows:
+    random around the tile's points, with edges
     inside a warp's points and on its edges, some holding all of them;
     one line in five is padding (an empty window and zero strength).
     Returns (soa, csr list, num_points)."""
     rng = np.random.default_rng(seed)
-    k = lc.WINGS_PIECE_CHUNKS
-    main = np.r_[0, 3 * k + 1, rng.integers(1, 4, num_tiles - 2)]
+    many = 3 * lc.WINGS_PIECE_CHUNKS + 1 if many is None else many
+    main = np.r_[0, many, rng.integers(1, 4, num_tiles - 2)]
     tails = rng.integers(0, 3, num_tiles) if tail else np.zeros(num_tiles,
                                                                 int)
     tails[0] = 0
@@ -755,6 +757,115 @@ def test_walk_edge_cases_equal_plain(cuda_device, tile, form):
     assert lc.LAUNCHES[key] == 2
     for b in range(soa.shape[0]):
         assert torch.equal(run(soa_d[b], [a[b] for a in dev]), got[b])
+
+
+def synthetic_straddle(tile, stride, chunk=32, layers=2, seed=0,
+                       nan_lines=False):
+    """Raw rows [B, 8, N] with each line's tile in _PAD and the straddle
+    CSR ([T], every layer) of :func:`lc.strided_line_ranges` over the
+    pass's tiles: lines on 8 of them (20 lines each, tile 1 300: a walk of
+    many chunks), every chunk holding lines of two or more tiles, the
+    last tiles reading the last chunk; pad lines after them (_PAD -1,
+    empty windows).  ``nan_lines``: the last line of tiles 0, 2 and 4 has
+    y = 0 and its center, on a whole point, past its own tile's points
+    but on the next tile's, which reads it as a foreign line (0 * rcp(0)
+    is NaN there).  Returns (soa, [start, nchunks], num_points, the NaN
+    lines' centers)."""
+    rng = np.random.default_rng(seed)
+    counts = np.r_[20, 300, np.full(6, 20)]
+    assign = np.repeat(np.arange(counts.size), counts)
+    num = assign.size
+    total = -(-num // chunk) * chunk + chunk
+    soa = np.zeros((layers, 8, total), np.float32)
+    for b in range(layers):
+        center = assign * stride + rng.integers(-tile // 4, tile + tile // 4,
+                                                num)
+        soa[b, lc.C_INT, :num] = center
+        soa[b, lc.C_FRAC, :num] = rng.random(num)
+        soa[b, lc.SRW, :num] = rng.uniform(0.02, 0.6, num)
+        soa[b, lc.Y, :num] = rng.uniform(0.05, 3.0, num)
+        soa[b, lc.PREF, :num] = rng.uniform(0.1, 3.0, num)
+        soa[b, lc.S_IDX, :num] = center - rng.choice([3, 31, 200, tile], num)
+        soa[b, lc.E_IDX, :num] = center + rng.choice([3, 31, 200, tile], num)
+    soa[:, lc._PAD, :num] = assign
+    soa[:, lc._PAD, num:] = -1.0
+    soa[:, lc.S_IDX, num:], soa[:, lc.E_IDX, num:] = -1.0, -2.0
+    centers = []
+    if nan_lines:
+        ends = np.cumsum(counts) - 1
+        for t in (0, 2, 4):
+            line = ends[t]
+            center = t * stride + tile + 10
+            soa[:, lc.C_INT, line], soa[:, lc.C_FRAC, line] = center, 0.0
+            soa[:, lc.Y, line] = 0.0
+            soa[:, lc.S_IDX, line] = center - 5
+            soa[:, lc.E_IDX, line] = center + 5
+            centers.append(center)
+    n = stride * (counts.size - 1) + tile
+    csr = list(lc.strided_line_ranges(assign, (n - 1) // stride + 1, chunk))
+    return soa, csr, n, centers
+
+
+def same_bits(got, want):
+    """NaN where ``want`` is NaN, and the same bits everywhere else."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32),
+        torch.where(nan, 0.0, want).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece", [1, 2, 4])
+@pytest.mark.parametrize("form", ["raw_splat", "straddle", "kept_nan"])
+def test_raw_and_own_walk_equal_plain(cuda_device, form, piece):
+    """The Lorentzian walk's raw line kinds equal their plain versions bit
+    for bit at pieces of 1, 2 and 4 chunks, repeat bit for bit, and give
+    each layer's row alone: RAW on a synthetic splat walk (``tile_pass``
+    "wings", [B, T] CSRs), OWN on a synthetic straddle CSR whose every
+    chunk holds foreign lines, and OWN with foreign y = 0 lines centred
+    off their own tile, which it keeps at strength 0: the plain version's
+    NaN at those points."""
+    tile = 1024
+    if form == "raw_splat":
+        soa, csr, n = synthetic_walk(tile, tile, tail=False, seed=piece,
+                                     many=13)
+        stride, chunk, centers = tile, CHUNK, []
+    else:
+        stride, chunk = 256, 32
+        soa, csr, n, centers = synthetic_straddle(
+            tile, stride, chunk, seed=piece, nan_lines=form == "kept_nan")
+    soa_d = torch.as_tensor(soa, device=cuda_device)
+    dev = [torch.as_tensor(a, device=cuda_device) for a in csr]
+    pieces = lc.TilePieces.of_csr(csr[1], piece=piece)
+    assert pieces.per_tile.max() > 2
+
+    def run(data, rows, plain=False):
+        if form == "raw_splat":
+            if plain:
+                return lc.tile_plain(data, *rows, n, tile, chunk, "wings",
+                                     piece=piece)
+            return lc.tile_pass(data, *rows, n, tile, chunk, "wings",
+                                lc.TilePieces.of_csr(rows[1], piece=piece))
+        if plain:
+            return lc.wings_strided_checked_plain(data, *rows, n, tile,
+                                                  stride, chunk, piece=piece)
+        return lc.wings_strided_checked_pass(data, *rows, n, tile, stride,
+                                             chunk, pieces=pieces)
+
+    lc.reset_launches()
+    got = run(soa_d, dev)
+    again = run(soa_d, dev)
+    want = run(soa_d, dev, plain=True)
+    torch.cuda.synchronize()
+    assert float(want.nan_to_num(0).abs().max()) > 0
+    assert same_bits(got, want) and same_bits(again, got)
+    nan = torch.nonzero(torch.isnan(want).any(dim=0)).flatten().tolist()
+    assert nan == centers                      # only the kept foreign lines
+    key = "tile_lorentz" if form == "raw_splat" else "wings_strided_checked"
+    assert lc.LAUNCHES[key] == 2 and sum(lc.LAUNCHES.values()) == 2
+    for b in range(soa.shape[0]):
+        rows = [a[b] if a.dim() == 2 else a for a in dev]
+        assert same_bits(run(soa_d[b], rows), got[b])
 
 
 @pytest.mark.gpu

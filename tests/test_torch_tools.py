@@ -22,7 +22,8 @@ from pylbl_tpu_torch.tools import (NoCudaError, ab, batched_microbench,
                                    core_bytes, core_census,
                                    envelope_compare, headline_pack,
                                    kernel_microbench, layer_workload,
-                                   masked_evals, parity_ab)
+                                   masked_evals, parity_ab, walk_usage,
+                                   wings_ab)
 
 torch.set_num_threads(1)
 
@@ -251,3 +252,92 @@ def test_core_census_describes_a_cell_on_cpu():
     assert "census operations" in text and "core_ops" in text
     with pytest.raises(ValueError, match="unknown cell"):
         core_census.build_cells(["Z"], "cpu")
+
+
+def ptxas_entry(name, registers, stores=0, loads=0, smem=16):
+    """One kernel's lines of nvcc's ``-Xptxas -v`` report."""
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            "'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, {stores} bytes spill stores, {loads} "
+            "bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, {smem} bytes smem, "
+            "464 bytes cmem[0]\n")
+
+
+WALK_ARGS = "EEEvPKfxxPKiS4_S4_S4_xPfiiiiiNS_6PiecesE"
+NS = "_ZN45_GLOBAL__N__cf9d4631_12_lineshape_cu_aa8bbb12"
+
+
+def test_wings_ab_cells_and_walk_usage_by_line_kind(monkeypatch, capsys):
+    """wings_ab's cells: the prepacked ones and D, Cr, Bs (RAW), Co, E2
+    (OWN), each with its line kind; it exits 2 without a card and refuses
+    an unknown cell.  ``walk_usage`` reads every instantiation of the
+    Lorentzian walk by line kind from a ``-Xptxas -v`` log (the CORR
+    kernel and the core are not the walk), and an earlier build's walk of
+    one template argument as PRE."""
+    assert wings_ab.CELLS == ("D", "Cr", "Bs", "Co", "E2", "A16", "A", "B",
+                              "C", "Ct", "F", "G")
+    assert wings_ab.LINES == {"D": "raw", "Cr": "raw", "Bs": "raw",
+                              "Co": "own", "E2": "own"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert wings_ab.main(["--other", "build/ab_src/parent/lineshape.cu:1",
+                          "--cells", "D,Cr,Bs,Co,E2"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unknown cell"):
+        wings_ab.build_cells(["D", "Z"], "cpu")
+    log = "".join([
+        ptxas_entry(f"{NS}19lorentz_walk_kernelILi4ELi3E{WALK_ARGS}", 32,
+                    8, 12),
+        ptxas_entry(f"{NS}12wings_kernelILi4EEEvPKfxxPKiS4_S4_S4_xPfiiiii"
+                    "NS_6PiecesE", 64, 28, 40, 28688),
+        ptxas_entry(f"{NS}19lorentz_walk_kernelILi4ELi1E{WALK_ARGS}", 32),
+        ptxas_entry(f"{NS}18core_segmix_kernelEPKfxxPKiS3_PfiiNS_6PiecesE",
+                    72, smem=33792),
+        ptxas_entry(f"{NS}19lorentz_walk_kernelILi4ELi0E{WALK_ARGS}", 31)])
+    use = walk_usage(log)
+    assert use == {
+        "own": {"registers": 32, "spill_stores": 8, "spill_loads": 12,
+                "smem": 16, "points": 4},
+        "raw": {"registers": 32, "spill_stores": 0, "spill_loads": 0,
+                "smem": 16, "points": 4},
+        "pre": {"registers": 31, "spill_stores": 0, "spill_loads": 0,
+                "smem": 16, "points": 4}}
+    earlier = ptxas_entry(f"{NS}19lorentz_walk_kernelILi4E{WALK_ARGS}", 32)
+    assert walk_usage(earlier) == {"pre": {
+        "registers": 32, "spill_stores": 0, "spill_loads": 0, "smem": 16,
+        "points": 4}}
+    assert walk_usage("") is None
+
+
+def test_wings_ab_raw_and_own_cells_on_cpu():
+    """wings_ab's RAW and OWN cells, made at a small size on the CPU
+    (3000 headline lines): D's splat where no stride fits, Cr's
+    forced by ``wings_mode="tile"``, Co's straddle CSR at the strided
+    plan's stride; each cell's pass at piece sizes 1 and 4 equals its
+    plain version at that piece size, and counts its operations by its
+    line kind."""
+    from pylbl_tpu_torch.tools import CUT_OFF, OPS_LORENTZ, tile_ops
+
+    pack = headline_pack(3000, nu_max=260.0)
+    fine = layer_workload(pack, np.arange(1.0, 60.0, 0.01))
+    coarse = layer_workload(pack, np.arange(1.0, 220.0, 0.1))
+    plan = lc.make_device_plan(coarse["arrays"], coarse["kin"], coarse["n"],
+                               coarse["npv"], CUT_OFF, device="cpu")
+    cells = [(wings_ab.raw_cell("D", fine, "cpu"), fine["n"]),
+             (wings_ab.raw_cell("Cr", coarse, "cpu", wings_mode="tile"),
+              coarse["n"]),
+             (wings_ab.straddle_cell("Co", coarse["arrays"], coarse["n"],
+                                     plan.wings_stride, "cpu"), coarse["n"])]
+    lc.reset_launches()
+    for cell, n in cells:
+        assert cell.line == wings_ab.LINES[cell.name]
+        assert cell.evals * OPS_LORENTZ == cell.ops == tile_ops(cell.soa, n,
+                                                                cell.line)
+        for piece in (1, 4):
+            got = cell.run(piece)
+            assert float(got.abs().max()) > 0
+            assert torch.equal(got, cell.plain(piece))
+    assert sum(lc.LAUNCHES.values()) == 0
+    own = cells[2][0].soa
+    assert bool((own[lc._PAD] >= 0).any()) and bool((own[lc._PAD] == -1).any())
