@@ -162,7 +162,15 @@ points and those that need a correction, by Humlicek list).  Their bound
 is the census bound (``pylbl_tpu_torch/tools`` ``census_bound``): the
 larger of the operations of the needed points over 67 TFLOP/s and the
 bytes; ``ops41_bound_ms`` keeps the bound of 41 operations an in-window
-point (``core_ops``).
+point (``core_ops``).  The unit walk's records, CORR's
+``tile_correction`` and the rows core's ``core_rows``,
+``core_rows_single`` and ``core_rows_vmem``, carry the same: the
+registers and spills of their kernel at tile 1024, the census of their
+phase's inputs (``corr_census``, ``rows_census``: the in-window points,
+those that need a correction by list, the point groups classified), and
+the census bound as their bound beside the 41-operation one; phases 11
+and 12 check that they repeat bit for bit and that no needed point lies
+outside its item's need window.
 
 Every check that fails exits non-zero.  The line before the last is the
 kernel record (JSON), the last line is the device record (JSON).
@@ -184,9 +192,9 @@ import numpy as np
 try:
     from pylbl_tpu_torch.tools import (OPS_LORENTZ, PEAK_BYTES, PEAK_OPS,
                                        canonical_layers, census_bound,
-                                       census_ops, class_ops, core_bytes,
-                                       core_ops, core_usage,
-                                       ptxas_usage, rcp_floor_ms,
+                                       census_ops, core_bytes, core_ops,
+                                       core_usage, pair_bytes, pair_usage,
+                                       ptxas_usage, rcp_floor_ms, rows_ops,
                                        sm_clock_mhz, tile_ops, walk_usage)
 except ImportError:         # alone: main() reports the missing package
     pass
@@ -447,23 +455,6 @@ def seg_wings_ops(torch, lc, params, plan):
     return OPS_SEG_LORENTZ * float((e - s + 1).clamp_min(0).sum())
 
 
-def rows_ops(torch, lc, groups, g_n, tile):
-    """Operations of the rows core: each group's instance r over the
-    in-window points of row r of its tile, at the group's class."""
-    dev = groups.device
-    g = groups if groups.dim() == 3 else groups[None]
-    row_w = tile // 8
-    tiles = torch.repeat_interleave(
-        torch.arange(len(g_n), device=dev),
-        torch.as_tensor(g_n, device=dev).long() * 128)
-    lo = (tiles[None, :] * tile + row_w * torch.arange(8, device=dev)[:, None]
-          ).double()                                       # [8, G]
-    s = torch.maximum(g[:, 5 * 8:6 * 8].double(), lo)
-    e = torch.minimum(g[:, 6 * 8:7 * 8].double(), lo + row_w - 1)
-    points = (e - s + 1).clamp_min(0).sum(dim=1)           # [B, G]
-    return float((points * class_ops(g[:, lc.YMIN_ROW])).sum())
-
-
 def core_csr(plan, params):
     """A segment plan's chunk CSR (and per-stream chunk slots) on the
     parameters' device."""
@@ -595,6 +586,33 @@ def core_census_record(name, record, params, t_start, t_chunks, out):
         "needed_total", "instances", "instances_needing_nothing",
         "rounds")}, operations=census_ops(counts), bytes=nbytes,
         bound_ms=ms, bound_by=bound_by)
+
+
+def pair_census_record(name, record, counts, nbytes):
+    """The unit walk's census (tools/core_census.py ``corr_census`` or
+    ``rows_census``: its (item, point) pairs by list) and its census bound
+    over ``nbytes``, the bytes its kernel must move (tools ``pair_bytes``),
+    into ``record``, whose bound it becomes; the 41-operation bound over
+    the same bytes moves to ``ops41_*``.  No needed point may lie outside
+    its item's need window."""
+    ms, bound_by = census_bound(counts, nbytes)
+    t_ops, t_bytes = record["operations"] / PEAK_OPS, nbytes / PEAK_BYTES
+    print(f"{name} census: {counts['in_window']} in-window points, "
+          f"{counts['needed_total']} needed {counts['needed']}, "
+          f"{counts['visits']} point groups classified (lane-per-point: "
+          f"{counts['parent_lane_evals']} lanes); census bound {ms:.6f} ms "
+          f"({bound_by})")
+    check(counts["needed_outside"] == 0, f"{name}: every needed point "
+          "lies in its item's need window")
+    record.update(ops41_bound_ms=max(t_ops, t_bytes) * 1e3,
+                  ops41_bound_by="operations" if t_ops >= t_bytes
+                  else "bytes",
+                  ops41_operations=record["operations"])
+    record.update(census={key: counts[key] for key in (
+        "items", "items_by_class", "in_window", "needed", "needed_total",
+        "instances", "instances_needing_nothing", "visits", "rows",
+        "parent_lane_evals")}, operations=census_ops(counts),
+        bytes=nbytes, bound_ms=ms, bound_by=bound_by)
 
 
 def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
@@ -831,6 +849,7 @@ def phase_gas_batch(torch, lc, gas, gas64, grid, col):
 def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
     """Phase 11: the A/B formulations of one headline layer."""
     from pylbl_tpu_torch.ops.lineshape import core_halfwidth
+    from pylbl_tpu_torch.tools.core_census import corr_census
 
     def counted(fn):
         lc.reset_launches()
@@ -884,10 +903,15 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                                         np.minimum(center + core_w, e), n,
                                         1024, 512))
     soa = torch.as_tensor(soa, device="cuda")
+    # The walk's pieces, built once as a plan builds them (without them
+    # every call reads the CSR counts back to the host).
+    c_pieces = lc.TilePieces.of_csr(c_n)
 
     def scalar_core(plain=False):
-        fn = lc.tile_plain if plain else lc.tile_pass
-        return fn(soa, c_start, c_n, n, 1024, 512, "core")
+        if plain:
+            return lc.tile_plain(soa, c_start, c_n, n, 1024, 512, "core")
+        return lc.tile_pass(soa, c_start, c_n, n, 1024, 512, "core",
+                            c_pieces)
 
     core, counts = counted(scalar_core)
     print(f"phase 11 scalar core (pass_kind='core'): launches {counts}")
@@ -900,8 +924,13 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                    lambda: scalar_core(plain=True),
                    records["tile_correction"],
                    ops=tile_ops(soa, n, "corr"),
-                   inputs=[soa, c_start, c_n],
-                   pieces=lc.TilePieces.of_csr(c_n))
+                   inputs=[soa, c_start, c_n], pieces=c_pieces)
+    check(torch.equal(scalar_core(), core), "tile_correction repeat is "
+          "bit-identical")
+    pair_census_record("tile_correction", records["tile_correction"],
+                       corr_census(soa, c_start, c_n, 1024, 512),
+                       pair_bytes("corr", soa, [c_start, c_n],
+                                  core.shape[-1]))
     records["tile_correction"]["launches"] = counts["tile_correction"]
 
     # The single-layer strided wings on a two-class (tail) layout.
@@ -950,6 +979,7 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     from pylbl_tpu_torch.ops.lineshape import prepare_kernel_arrays
     from pylbl_tpu_torch.parallel.lines import make_batched_fn
     from pylbl_tpu_torch.tools import kernel_microbench, parity_ab
+    from pylbl_tpu_torch.tools.core_census import rows_census
     from pylbl_tpu_torch.tools.wings_ab import straddle_inputs
 
     def exact(name, run, run_plain, **work):
@@ -978,9 +1008,15 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
         if not rows_plans:
             exact("core_rows_single", alt.core_pass,
                   lambda: alt.core_pass(plain=True),
-                  ops=rows_ops(torch, lc, alt.groups, alt.core.g_n, 1024),
+                  ops=rows_ops(alt.groups, alt.core.g_n, 1024),
                   inputs=[alt.groups, *alt.core.walk.tensors("cuda")],
                   pieces=alt.core.walk)
+            walk = alt.core.walk.tensors("cuda")
+            pair_census_record("core_rows_single",
+                               records["core_rows_single"],
+                               rows_census(alt.groups, *walk, 1024),
+                               pair_bytes("rows", alt.groups, walk,
+                                          out.shape[-1]))
             records["core_rows_single"]["launches"] = \
                 counts["core_rows_single"]
         rows_plans[label] = alt
@@ -998,11 +1034,16 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
         return lc.rows_vmem_pass(groups, ymin, alt.core.walk, n, 1024)
 
     got = exact("core_rows_vmem", vmem, lambda: vmem(True),
-                ops=rows_ops(torch, lc, groups, alt.core.g_n, 1024),
+                ops=rows_ops(groups, alt.core.g_n, 1024),
                 inputs=[groups, ymin, g_start, g_n],
                 pieces=alt.core.walk)
-    check(torch.equal(got, alt.core_pass()), "core_rows_vmem equals the "
-          "rows kernel bit for bit")
+    check(torch.equal(got, alt.core_pass()) and torch.equal(got, vmem()),
+          "core_rows_vmem equals the rows kernel bit for bit and repeats "
+          "bit for bit")
+    pair_census_record("core_rows_vmem", records["core_rows_vmem"],
+                       rows_census(groups, g_start, g_n, 1024, ymin[None]),
+                       pair_bytes("rows_vmem", groups, [g_start, g_n],
+                                  got.shape[-1]))
     rows_deviation(torch, "core_rows_single", got,
                    lambda: lc.rows_plain(groups, g_start, g_n, n, 1024,
                                          piece=1 << 30), records)
@@ -1052,9 +1093,15 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
     _, core = fn.stage.assemble(tt, pp, xx)
     got = exact("core_rows", lambda: fn.core_pass(core),
                 lambda: fn.core_pass(core, plain=True),
-                ops=rows_ops(torch, lc, core, fn.core_plan.g_n, 1024),
+                ops=rows_ops(core, fn.core_plan.g_n, 1024),
                 inputs=[core, *fn.core_plan.walk.tensors("cuda")],
                 pieces=fn.core_plan.walk)
+    check(torch.equal(fn.core_pass(core), got), "core_rows at 16 layers "
+          "repeats bit for bit")
+    walk = fn.core_plan.walk.tensors("cuda")
+    pair_census_record("core_rows", records["core_rows"],
+                       rows_census(core, *walk, 1024),
+                       pair_bytes("rows", core, walk, got.shape[-1]))
     records["core_rows"]["launches"] = counts["core_rows"]
     rows_deviation(torch, "core_rows", got,
                    lambda: lc.rows_plain(
@@ -2080,6 +2127,9 @@ def main():
           f"for every line kind: {walk}")
     core_use = core_usage(log)
     check(core_use is not None, f"the mixed-slot core compiled: {core_use}")
+    pair_use = pair_usage(log)
+    check(all(pair_use.values()), "the unit walk compiled for CORR and the "
+          f"rows core: {pair_use}")
 
     records = {name: {"name": name, "route": "cuda",
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
@@ -2094,6 +2144,11 @@ def main():
     for name in ("core_segmix", "core_segmix_single"):
         records[name].update({key: core_use[key] for key in (
             "registers", "spill_stores", "spill_loads", "smem")})
+    for name, kind in (("tile_correction", "corr"), ("core_rows", "rows"),
+                       ("core_rows_single", "rows"),
+                       ("core_rows_vmem", "rows_vmem")):
+        records[name].update({key: pair_use[kind][key] for key in (
+            "registers", "spill_stores", "spill_loads")})
     WORK.mkdir(parents=True, exist_ok=True)
     db_path = WORK / "smoke.db"
     if db_path.exists():

@@ -73,12 +73,15 @@
 //   emptying its window; a foreign line that could give NaN (y = 0 at
 //   x = 0, a non-finite y or x) stays in the walk at strength 0 and gives
 //   the plain version's NaN.
-//   CORR keeps the earlier walk (wings_kernel): 256 threads, thread x
-//   owning the points x + 256j, chunks staged SoA and walked line by line
-//   with seven broadcasts a line, a warp skipping a (line, point group)
-//   whose window misses its 32 points (the term would add +0.0).  It is
-//   bound by the Humlicek rationals; its point loop is not unrolled, so
-//   the four class bodies are compiled once each.
+//   CORR (corr_walk_kernel<G>) takes the unit walk (below) with the
+//   Lorentzian walk's ring: tile / (32 G) warps, the chunk's lines the
+//   items.  Its windows are the lines' wing windows (the CSR lists the
+//   tiles that a line's core window meets), of which 1.5% of the points
+//   need a correction on the headline layer (tools/core_census.py): the
+//   need window skips the rest.  A chunk's 512 lines lie within about a
+//   hundred points there, so the block, not the warp that owns those
+//   points, works them, and warp w sums the tile's point groups w,
+//   w + warps, ...
 //
 // pylbl_seg: the per-stream segment-32 pass (replaces _seg_kernel and
 //   _seg_kernel_batched).  Every 128-instance chunk carries ONE segment
@@ -144,26 +147,46 @@
 //   piece order, ((0 + P0) + P1) + ..., into the output.  The order is
 //   fixed, so repeated runs are bit-identical.
 //
+// The unit walk (unit_walk; CORR and the rows core): every point that a
+//   Humlicek item (a line, an instance) may need a correction at takes one of
+//   five region bodies by its own |x|, CPF12 about ten times the work of
+//   region 1, and most in-window points need none, so lane = point over every
+//   in-window point would idle and diverge.  Instead a block pass (CORR: over
+//   each landed ring slot; the rows core: a thread an instance) turns each
+//   item into {need window, c_int, c_frac}, {srw, y, pref, class code}
+//   (pair_item): the class from y (CORR: the line's own; the rows core: the
+//   group's min y), and the window narrowed to the points that can need a
+//   correction (|x| < xlim0 widened for x's roundings; a non-finite prefactor
+//   keeps its window, where pref * 0.0 is NaN).  A unit is an item with one
+//   point group of 32 points its need window meets; a block scan numbers the
+//   units in item order, and per pass of up to 256 units thread u classifies
+//   unit u's points, lane = unit (the window, then x^2 < k1_limit in class 1,
+//   or |x| < xlim0 and region_at's tests, as core_needs does), the block
+//   lists the pairs by list (K1, regions 1, 2, 3, CPF12, or every in-window
+//   point of a non-finite prefactor), the warps evaluate 32 pairs of one list
+//   a round into a [unit][point] value block (list_value, the one copy of
+//   each region body), and the warp that owns a point group adds the group's
+//   units in unit order, item order, into its sums.  The block, not the warp
+//   that owns the points, walks the units: a chunk's lines crowd onto few
+//   points, where one warp's serial walk would be the time.  A skipped term
+//   is +/-0.0 and a sum that starts at +0.0 never holds -0.0, so the bits are
+//   those of every term added in order; no float atomics (integer ones place
+//   a pair in its list, which changes no value).
+//
 // pylbl_rows: the rows core (replaces _rows_kernel, _rows_kernel_batched
 //   and, with a separate [B, 1, G] min-y block, _rows_kernel_vmem).  A
 //   group is 8 instances, one per row of the tile (row r holds points
 //   r*tile/8 .. (r+1)*tile/8 - 1); its parameters are 64 rows, field f of
-//   instance r in row f*8+r, the group's min y in row 56.  Bound by the
-//   Humlicek math of the in-window points, but one block per (tile,
-//   layer) walked up to 43 x 128 groups in series on the headline layer.
-//   The design: the tile's group walk is cut into pieces of K groups
-//   (pieces of the tile kernel's kind, K a multiple of 32), one block of
-//   8 warps per (piece, layer); warp r owns row r, lane l its points
-//   l, l+32, ...  Stages of 32 groups x 57 rows are copied into a 2-slot
-//   shared-memory ring with 16-byte cp.async while the previous stage is
-//   worked; per group the class is picked once from the min y
-//   (block-uniform branch; skip at >= 70.55), instance r's fields reach
-//   warp r as shared-memory broadcasts, and warp r skips point group j
-//   when instance r's window misses its 32 points (dead slots have an
-//   empty window; the term is +0.0).  Each point keeps one running sum
-//   per piece in group order, and the pieces fold in piece order
-//   (piece_fold).  The JAX kernels carry ONE sum per point through the
-//   whole walk, so this order is a recorded deviation of the port.
+//   instance r in row f*8+r, the group's min y in row 56.  The instances'
+//   windows are the lines' wing windows over the rows their core windows
+//   meet.  One block of 8 warps per (piece of 32 groups, layer): the piece
+//   is staged once with 16-byte cp.async copies (57 rows x 32 groups),
+//   thread (r, g) makes instance r of group g item r * 32 + g, the block
+//   walks the 256 items (the unit walk), and warp r sums row r's units into
+//   one running sum per point and piece in group order; the pieces fold in
+//   piece order (piece_fold).  The JAX kernels carry ONE sum per point
+//   through the whole walk, so this order is a recorded deviation of the
+//   port.
 //
 // Each entry returns cudaGetLastError() after its launch.
 
@@ -406,15 +429,21 @@ __device__ __forceinline__ float corr_k1(float x, float y)
 // The Humlicek regions of corr_regions, in reference order.
 constexpr int kRegion1 = 0, kRegion2 = 1, kRegion3 = 2, kRegionCpf = 3;
 
-// The region corr_regions<CLASS> takes at |x| = abx for a point that needs
+// The region corr_regions<cls> takes at |x| = abx for a point that needs
 // a correction (abx < xlim0, y < 70.55).
+__device__ __forceinline__ int region_of(int cls, float abx, float xlim1,
+                                         float xlim2, float xlim3)
+{
+    if (abx >= xlim1) return kRegion1;
+    if (cls == 2 || abx >= xlim2) return kRegion2;
+    if (cls == 3 || abx < xlim3) return kRegion3;
+    return kRegionCpf;
+}
+
 template <int CLASS>
 __device__ __forceinline__ int region_at(float abx, const Limits& l)
 {
-    if (abx >= l.xlim1) return kRegion1;
-    if (CLASS == 2 || abx >= l.xlim2) return kRegion2;
-    if (CLASS == 3 || abx < l.xlim3) return kRegion3;
-    return kRegionCpf;
+    return region_of(CLASS, abx, l.xlim1, l.xlim2, l.xlim3);
 }
 
 // K_region - K_lorentz at x: the value corr_regions gives a point of
@@ -460,15 +489,6 @@ __device__ __forceinline__ float correction(float x, float y)
 {
     if (CLASS == 1) return corr_k1(x, y);
     return corr_regions<CLASS>(x, y);
-}
-
-// _correction_line at one point: the class comes from the line's own y.
-__device__ __forceinline__ float correction_of_line(float x, float y)
-{
-    if (y >= F(8.425)) return correction<1>(x, y);
-    if (y >= F(6.8)) return correction<2>(x, y);
-    if (y >= F(2.0)) return correction<3>(x, y);
-    return correction<4>(x, y);
 }
 
 // ---- Piece split and ordered fold (shared by the tile and core kernels) --
@@ -725,92 +745,6 @@ lorentz_walk_kernel(const float* __restrict__ soa, long long soa_b,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-// CORR (see the note at the top): 256 threads, thread x owning the points
-// x + 256j, chunks staged SoA.
-template <int PPT>
-__global__ void __launch_bounds__(kWingsThreads)
-wings_kernel(const float* __restrict__ soa, long long soa_b, long long soa_r,
-             const int* __restrict__ w_start, const int* __restrict__ w_n,
-             const int* __restrict__ t_start, const int* __restrict__ t_n,
-             long long csr_b, float* __restrict__ out, int num_tiles,
-             int tile, int stride, int chunk, int tail, Pieces pc)
-{
-    constexpr int kStaged = 7;
-    __shared__ float buf[2][kStaged][kMaxChunk];
-    const int b = blockIdx.y;
-    const int t = pc.tile[blockIdx.x];
-    const int piece = blockIdx.x - pc.first[t];
-    const float* lines = soa + b * soa_b;
-    const long long csr = b * csr_b + t;
-    // The tile's walk: its main chunks, then its tail chunks.
-    const int n_main = w_n[csr];
-    const int n_walk = n_main + (t_start == nullptr ? 0 : t_n[csr]);
-    const int k0 = piece * pc.piece;
-    const int k1 = min(k0 + pc.piece, n_walk);
-
-    float point[PPT], lo[PPT], hi[PPT], acc[PPT];
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-        point[j] = (float)(t * stride + threadIdx.x + j * kWingsThreads);
-        // The 32 consecutive points warp (threadIdx.x / 32) holds for j.
-        lo[j] = (float)(t * stride + (int)(threadIdx.x & ~31u)
-                        + j * kWingsThreads);
-        hi[j] = lo[j] + 31.0f;
-        acc[j] = 0.0f;
-    }
-    auto width_of = [&](int k) { return k < n_main ? chunk : tail; };
-    auto stage = [&](int k, int s) {
-        const int width = width_of(k);
-        const long long line0 = k < n_main
-            ? (long long)w_start[csr] + (long long)k * chunk
-            : (long long)t_start[csr] + (long long)(k - n_main) * tail;
-        for (int i = threadIdx.x; i < kStaged * width; i += kWingsThreads) {
-            const int r = i / width;
-            const int l = i - r * width;
-            cp_async4(&buf[s][r][l], lines + r * soa_r + line0 + l);
-        }
-    };
-    if (k0 < k1) stage(k0, 0);
-    cp_async_commit();
-    for (int k = k0; k < k1; ++k) {
-        const int s = (k - k0) & 1;
-        if (k + 1 < k1) stage(k + 1, s ^ 1);
-        cp_async_commit();
-        cp_async_wait_prev();
-        __syncthreads();
-        const int width = width_of(k);
-        float part[PPT];
-#pragma unroll
-        for (int j = 0; j < PPT; ++j) part[j] = 0.0f;
-        for (int l = 0; l < width; ++l) {
-            const float c_int = buf[s][kCInt][l];
-            const float c_frac = buf[s][kCFrac][l];
-            const float srw = buf[s][kSrw][l];
-            const float y = buf[s][kY][l];
-            const float pref = buf[s][kPref][l];
-            const float ws = buf[s][kSIdx][l];
-            const float we = buf[s][kEIdx][l];
-            if (y >= F(70.55)) continue;   // pure Lorentz line
-#pragma unroll 1
-            for (int j = 0; j < PPT; ++j) {
-                if (we < lo[j] || ws > hi[j]) continue;  // warp-uniform
-                const float x = ((point[j] - c_int) - c_frac) * srw;
-                const float val = correction_of_line(x, y);
-                const bool in = (point[j] >= ws) && (point[j] <= we);
-                part[j] = part[j] + (in ? pref * val : 0.0f);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < PPT; ++j) acc[j] = acc[j] + part[j];
-        __syncthreads();   // the ring slot is restaged next iteration
-    }
-    float* o = out + ((long long)b * num_tiles + t) * tile;
-    float* dst = piece_dst(pc, o, b, t, piece, tile);
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) dst[threadIdx.x + j * kWingsThreads] = acc[j];
-    piece_fold(pc, o, b, t, num_tiles, tile);
-}
-
 // ---- The mixed-slot core (pylbl_core_segmix; see the note at the top) ----
 
 // Offset o's x of core instance i: seg0-relative, as _seg_chunk_accumulate
@@ -898,10 +832,25 @@ __device__ __noinline__ float any_correction(int cls, float x, float y)
     }
 }
 
+// The correction of a pair of list ``lst`` (warp-uniform) in class
+// ``cls`` at x: the value correction<cls>(x, y) gives the pair, by the
+// same code, one copy of each region body.
+__device__ __forceinline__ float list_value(int lst, int cls, float x,
+                                            float y)
+{
+    switch (lst) {
+    case kListK1: return k1_value(x, y);
+    case kListR1 + kRegion1: return region_correction<kRegion1>(x, y);
+    case kListR1 + kRegion2: return region_correction<kRegion2>(x, y);
+    case kListR1 + kRegion3: return region_correction<kRegion3>(x, y);
+    case kListR1 + kRegionCpf: return region_correction<kRegionCpf>(x, y);
+    default: return any_correction(cls, x, y);
+    }
+}
+
 // Evaluates entry e < end of list ``lst`` (warp-uniform) of a chunk of
 // class ``cls``: val[i][o] = pref_i * correction, instance i = list[e] >>
-// 5, offset o = list[e] & 31, swizzled by the instance (core_val).  The
-// value is the one correction<cls>(x, y) gives the pair, by the same code.
+// 5, offset o = list[e] & 31, swizzled by the instance (core_val).
 __device__ __forceinline__ void core_eval(const float (*prm)[kCoreThreads],
                                           const unsigned short* list,
                                           float* val, int lst, int cls,
@@ -911,17 +860,8 @@ __device__ __forceinline__ void core_eval(const float (*prm)[kCoreThreads],
     const int i = list[e] >> 5;
     const int o = list[e] & 31;
     const float x = core_x(prm, i, (float)o);
-    const float y = prm[kCoreY][i];
-    float v;
-    switch (lst) {
-    case kListK1: v = k1_value(x, y); break;
-    case kListR1 + kRegion1: v = region_correction<kRegion1>(x, y); break;
-    case kListR1 + kRegion2: v = region_correction<kRegion2>(x, y); break;
-    case kListR1 + kRegion3: v = region_correction<kRegion3>(x, y); break;
-    case kListR1 + kRegionCpf: v = region_correction<kRegionCpf>(x, y); break;
-    default: v = any_correction(cls, x, y);
-    }
-    val[core_val(i, o)] = prm[kCorePref][i] * v;
+    val[core_val(i, o)] = prm[kCorePref][i]
+        * list_value(lst, cls, x, prm[kCoreY][i]);
 }
 
 struct CoreShared {
@@ -1124,6 +1064,392 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
+// ---- The unit walk (CORR and the rows core; see the notes at the top) --
+
+// A walked item (a line of CORR's chunk, an instance of the rows core's
+// piece) is two float4s in shared memory: {lo, hi, c_int, c_frac} and
+// {srw, y, pref, code}; code is the class (1..4), plus kPairAny for a
+// non-finite prefactor; [lo, hi] is the need window (pair_item).  A unit
+// is an item with one point group of 32 points its need window meets; a
+// pass takes up to kUnitCap units, one a thread.
+constexpr int kPairAny = 8;
+constexpr int kUnitCap = 256;
+constexpr int kUnitListCap = kUnitCap * 32 + kCoreLists * 32;
+// Blocks an SM holds by the walks' dynamic shared memory (CORR's 67 KB
+// with its ring of one slot, the rows core's 66 KB).
+constexpr int kPairBlocks = 3;
+
+struct UnitShared {
+    float val[kUnitCap * 32];              // pref * correction, core_val
+    float u_lo[kUnitCap];                  // the pass's units: first point
+    int count[kCoreLists];                 // the pass's pairs by list
+    int cursor[kCoreLists];
+    int scan[kUnitCap / 32];               // the block scan's warp sums
+    unsigned short u_item[kUnitCap];       // and item
+    unsigned short first[kMaxChunk + 1];   // item i's units first[i] ..
+    unsigned short list[kUnitListCap];     // (unit << 5 | point) by list
+};
+
+// The class of an item from y (CORR: the line's own y; the rows core: the
+// group's min y): 0 (skipped: y >= 70.55 or NaN, every term +0.0 in the
+// plain version), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4.
+__device__ __forceinline__ int pair_class(float y)
+{
+    return !(y < F(70.55)) ? 0 : y >= F(8.425) ? 1 : y >= F(6.8) ? 2
+        : y >= F(2.0) ? 3 : 4;
+}
+
+// The walked item of window w = {ws, we, c_int, c_frac} and f = {srw, y,
+// pref, -} in class ``cls``: a = w with the need window in place of [ws,
+// we], b = {srw, y, pref, code}.  A point outside [ws, we] adds +0.0;
+// inside it a point needs a correction only where y < 70.55 and |x| <
+// xlim0 (x^2 < k1_limit in class 1), else its term is pref * 0.0, +/-0.0
+// for a finite prefactor, which leaves a sum that is never -0.0 unchanged.
+// Such a point p lies within c -/+ H, c = c_int + c_frac, H = xlim0 / |srw|
+// widened by 2^-10 for x's three roundings, when |c_int|, |c_frac| and H
+// are at most 2^21: then p - c_int is exact for |p| <= 2^23, a point
+// beyond is more than 2^21 from c, and c and c -/+ H round by at most 0.25
+// and 0.5, so [floor(c - H) - 1, ceil(c + H) + 1] within [ws, we] holds
+// every such point; otherwise the window stays [ws, we].  A non-finite
+// prefactor keeps [ws, we] (pref * 0.0 is NaN there); an item of class 0,
+// or of y >= 70.55 (the rows core's class is the group's), gets the empty
+// window [0, -1].
+__device__ __forceinline__ void pair_item(float4 w, float4 f, int cls,
+                                          float4& a, float4& b)
+{
+    const float y = f.y;
+    a = w;
+    b = make_float4(f.x, y, f.z, (float)cls);
+    if (cls != 0 && !isfinite(f.z)) {
+        b.w = (float)(cls + kPairAny);
+        return;
+    }
+    if (cls == 0 || !(y < F(70.55))) {
+        a.x = 0.0f;
+        a.y = -1.0f;
+        return;
+    }
+    const float xlim0 = cls == 1 ? sqrtf(k1_limit(y)) : region_limits(y).xlim0;
+    constexpr float kFar = 2097152.0f;   // 2^21
+    const float h = (xlim0 / fabsf(f.x)) * F(1.0009765625);
+    if (h <= kFar && fabsf(w.z) <= kFar && fabsf(w.w) <= kFar) {
+        const float c = w.z + w.w;
+        const float lo = floorf(c - h) - 1.0f;
+        const float hi = ceilf(c + h) + 1.0f;
+        a.x = lo > w.x ? lo : w.x;   // a NaN window stays NaN
+        a.y = hi < w.y ? hi : w.y;
+    }
+}
+
+// The point groups of item a's need window within its span of ``sg``
+// groups from slo: the count, and the first in g0.
+__device__ __forceinline__ int unit_groups(float4 a, float slo, int sg,
+                                           int& g0)
+{
+    const float shi = slo + (float)(32 * sg - 1);
+    if (!(a.y >= slo && a.x <= shi)) return 0;
+    g0 = (int)floorf((fmaxf(a.x, slo) - slo) * F(0.03125));
+    return (int)floorf((fminf(a.y, shi) - slo) * F(0.03125)) - g0 + 1;
+}
+
+// The points of one unit (item {a, b}, its group's first point lo) that
+// need a correction, as bit masks by list, in the kernels' float32
+// arithmetic: the point in the need window, then x^2 < k1_limit (class 1:
+// kListK1) or |x| < xlim0 and region_at's tests (kListR1 + region), the
+// limits of y formed here; a non-finite prefactor lists every point in its
+// window (kListAny).
+__device__ __forceinline__ void unit_needs(float4 a, float4 b, float lo,
+                                           unsigned (&need)[kCoreLists])
+{
+#pragma unroll
+    for (int r = 0; r < kCoreLists; ++r) need[r] = 0u;
+    // o0 .. o1 bound the window's points; each is tested as it is.
+    const float f0 = fmaxf(ceilf(a.x - lo) - 1.0f, 0.0f);
+    const float f1 = fminf(floorf(a.y - lo) + 1.0f, 31.0f);
+    if (!(f0 <= f1)) return;
+    const int code = (int)b.w;
+    const int cls = code & 7;
+    Limits lim;
+    if (code & kPairAny) {
+        lim.xlim0 = 0.0f;
+    } else if (cls == 1) {
+        lim.xlim0 = k1_limit(b.y);
+    } else {
+        lim = region_limits(b.y);
+    }
+    for (int o = (int)f0; o <= (int)f1; ++o) {
+        const float p = lo + (float)o;
+        if (!(p >= a.x && p <= a.y)) continue;
+        const unsigned bit = 1u << o;
+        if (code & kPairAny) {
+            need[kListAny] |= bit;
+            continue;
+        }
+        const float x = ((p - a.z) - a.w) * b.x;
+        if (cls == 1) {
+            need[kListK1] |= x * x < lim.xlim0 ? bit : 0u;
+            continue;
+        }
+        const float abx = fabsf(x);
+        if (abx < lim.xlim0) {
+            const int reg = region_of(cls, abx, lim.xlim1, lim.xlim2,
+                                      lim.xlim3);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                need[kListR1 + q] |= reg == q ? bit : 0u;
+        }
+    }
+}
+
+// The unit walk of n items in order (item i: ab[2i], ab[2i + 1])
+// by the whole block, into part: warp w's G point groups of 32 points.
+// An item's span is ``sg`` point groups from base; ROWS: from base + (i /
+// 32) * 32 sg, the row of instance i = r * 32 + g, and warp r owns row r
+// (part[j]: its group j); else warp w owns the block's groups w, w +
+// warps, ... (part[j]: group j * warps + w), so that a few busy groups
+// spread over the warps.  A block scan numbers each item's units in item
+// order (first); then per pass of up to kUnitCap units, thread u finds
+// unit u's item, classifies its points (unit_needs), the block lists the
+// pairs by list (counts, then each thread's pairs at a cursor; an entry's
+// place within its list changes no value), the warps evaluate 32 pairs of
+// one list a round into the value block (list_value, the one copy of each
+// region body), and warp w adds the pass's units of its points in unit
+// order, item order within a point group, zeroing the values it reads.
+// A unit's points that need nothing are +0.0 in the value block, and a sum
+// that starts at +0.0 never holds -0.0, so the bits are those of every
+// term added in order.
+template <int G, bool ROWS>
+__device__ __forceinline__ void unit_walk(UnitShared& u, const float4* ab,
+                                          int n, float base, int sg,
+                                          float (&part)[G])
+{
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int threads = blockDim.x;
+    const int warps = threads >> 5;
+    auto span_lo = [&](int i) {
+        return ROWS ? base + (float)((i >> 5) * 32 * sg) : base;
+    };
+    // Each thread's run of items, their units, and a block scan.
+    const int per = (n + threads - 1) / threads;
+    const int i0 = min(tid * per, n);
+    const int i1 = min(i0 + per, n);
+    int mine = 0;
+    for (int i = i0; i < i1; ++i) {
+        int g0;
+        mine += unit_groups(ab[2 * i], span_lo(i), sg, g0);
+    }
+    int inc = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += up;
+    }
+    if (lane == 31) u.scan[warp] = inc;
+    __syncthreads();
+    int total = 0, next = inc - mine;
+    for (int w = 0; w < threads / 32; ++w) {
+        const int c = u.scan[w];
+        total += c;
+        next += w < warp ? c : 0;
+    }
+    for (int i = i0; i < i1; ++i) {
+        u.first[i] = (unsigned short)next;
+        int g0;
+        next += unit_groups(ab[2 * i], span_lo(i), sg, g0);
+    }
+    __syncthreads();
+    const int cap = min(threads, kUnitCap);
+    // Warp w's points: its row (ROWS), else its groups of the block's.
+    const float w_lo = base + (float)(ROWS ? warp * 32 * sg : 0);
+    for (int p0 = 0; p0 < total; p0 += cap) {     // block-uniform passes
+        const int nu = min(cap, total - p0);
+        unsigned need[kCoreLists];
+#pragma unroll
+        for (int r = 0; r < kCoreLists; ++r) need[r] = 0u;
+        if (tid < nu) {
+            // Unit p0 + tid: the last item whose units start at or before.
+            const int un = p0 + tid;
+            int lo_i = 0, hi_i = n - 1;
+            while (lo_i < hi_i) {
+                const int mid = (lo_i + hi_i + 1) >> 1;
+                if ((int)u.first[mid] <= un) lo_i = mid;
+                else hi_i = mid - 1;
+            }
+            const float4 a = ab[2 * lo_i];
+            int g0;
+            unit_groups(a, span_lo(lo_i), sg, g0);
+            const float lo = span_lo(lo_i)
+                + (float)(32 * (g0 + un - (int)u.first[lo_i]));
+            u.u_item[tid] = (unsigned short)lo_i;
+            u.u_lo[tid] = lo;
+            unit_needs(a, ab[2 * lo_i + 1], lo, need);
+        }
+#pragma unroll
+        for (int r = 0; r < kCoreLists; ++r) {
+            const unsigned c = __reduce_add_sync(0xffffffffu,
+                                                 (unsigned)__popc(need[r]));
+            if (lane == 0 && c != 0u) atomicAdd(&u.count[r], (int)c);
+        }
+        __syncthreads();
+        int start[kCoreLists + 1];
+        start[0] = 0;
+#pragma unroll
+        for (int r = 0; r < kCoreLists; ++r)
+            start[r + 1] = start[r] + ((u.count[r] + 31) & ~31);
+#pragma unroll
+        for (int r = 0; r < kCoreLists; ++r) {
+            if (need[r] == 0u) continue;
+            int k = start[r] + atomicAdd(&u.cursor[r], __popc(need[r]));
+            for (unsigned m = need[r]; m != 0u; m &= m - 1u)
+                u.list[k++] = (unsigned short)((tid << 5) | (__ffs(m) - 1));
+        }
+        __syncthreads();
+        // Rounds of 32 entries of one list, round-robin over the warps.
+        const int entries = start[kCoreLists];
+        for (int q = warp * 32; q < entries; q += threads) {
+            int lst = 0;                      // the list of round q: uniform
+#pragma unroll
+            for (int r = 1; r < kCoreLists; ++r) lst = q >= start[r] ? r : lst;
+            const int e = q + lane;
+            if (e < start[lst] + u.count[lst]) {
+                const int entry = u.list[e];
+                const int uu = entry >> 5;
+                const int o = entry & 31;
+                const int i = u.u_item[uu];
+                const float4 a = ab[2 * i];
+                const float4 b = ab[2 * i + 1];
+                const float x = (((u.u_lo[uu] + (float)o) - a.z) - a.w) * b.x;
+                u.val[core_val(uu, o)] = b.z
+                    * list_value(lst, (int)b.w & 7, x, b.y);
+            }
+        }
+        __syncthreads();
+        // Warp w's units, in unit order.
+        for (int u0 = 0; u0 < nu; u0 += 32) {
+            int j = -1;
+            if (u0 + lane < nu) {
+                const int g = (int)((u.u_lo[u0 + lane] - w_lo) * F(0.03125));
+                if (ROWS) j = g >= 0 && g < G ? g : -1;
+                else j = g % warps == warp ? g / warps : -1;
+            }
+            for (unsigned m = __ballot_sync(0xffffffffu, j >= 0); m != 0u;
+                 m &= m - 1u) {
+                const int k = __ffs(m) - 1;
+                const int uu = u0 + k;
+                const int jk = __shfl_sync(0xffffffffu, j, k);
+                const int c = core_val(uu, lane);
+                const float v = u.val[c];
+                u.val[c] = 0.0f;
+#pragma unroll
+                for (int q = 0; q < G; ++q) {
+                    if (q == jk) part[q] = part[q] + v;
+                }
+            }
+        }
+        if (tid < kCoreLists) u.count[tid] = u.cursor[tid] = 0;
+        __syncthreads();
+    }
+}
+
+// Zeroes the walk's value block and list counts (a barrier follows before
+// the first walk).
+__device__ __forceinline__ void unit_start(UnitShared& u)
+{
+    for (int c = threadIdx.x; c < kUnitCap * 32; c += blockDim.x)
+        u.val[c] = 0.0f;
+    if (threadIdx.x < kCoreLists) u.count[threadIdx.x] =
+        u.cursor[threadIdx.x] = 0;
+}
+
+// CORR (see the note at the top): tile / (32 G) warps, warp w owning the
+// tile's point groups w, w + warps, ... for the sums; dynamic shared
+// memory: the ring of one or two slots of max(chunk, tail) lines x 8
+// floats (walk_slot order; a block pass rewrites each landed line into
+// its item, pair_item), then the walk's UnitShared.
+template <int G>
+__global__ void __launch_bounds__(kWingsThreads, kPairBlocks)
+corr_walk_kernel(const float* __restrict__ soa, long long soa_b,
+                 long long soa_r, const int* __restrict__ w_start,
+                 const int* __restrict__ w_n,
+                 const int* __restrict__ t_start,
+                 const int* __restrict__ t_n, long long csr_b,
+                 float* __restrict__ out, int num_tiles, int tile,
+                 int stride, int chunk, int tail, Pieces pc)
+{
+    extern __shared__ float4 corr_smem[];
+    const int ring_lines = max(chunk, tail);
+    float4* ring = corr_smem;
+    UnitShared& u = *reinterpret_cast<UnitShared*>(
+        ring + (pc.piece > 1 ? 4 : 2) * ring_lines);
+    const int b = blockIdx.y;
+    const int t = pc.tile[blockIdx.x];
+    const int piece = blockIdx.x - pc.first[t];
+    const float* lines = soa + b * soa_b;
+    const long long csr = b * csr_b + t;
+    // The tile's walk: its main chunks, then its tail chunks.
+    const int n_main = w_n[csr];
+    const int n_walk = n_main + (t_start == nullptr ? 0 : t_n[csr]);
+    const int k0 = piece * pc.piece;
+    const int k1 = min(k0 + pc.piece, n_walk);
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    const float base = (float)(t * stride);
+    unit_start(u);
+
+    float acc[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[j] = 0.0f;
+    auto width_of = [&](int k) { return k < n_main ? chunk : tail; };
+    auto stage = [&](int k, int s) {
+        const int width = width_of(k);
+        const long long line0 = k < n_main
+            ? (long long)w_start[csr] + (long long)k * chunk
+            : (long long)t_start[csr] + (long long)(k - n_main) * tail;
+        float* dst = reinterpret_cast<float*>(ring + 2LL * s * ring_lines);
+        for (int i = threadIdx.x; i < kPad * width; i += blockDim.x) {
+            const int r = i / width;
+            const int l = i - r * width;
+            cp_async4(dst + l * kLineFloats + walk_slot(r),
+                      lines + r * soa_r + line0 + l);
+        }
+    };
+    if (k0 < k1) stage(k0, 0);
+    cp_async_commit();
+    for (int k = k0; k < k1; ++k) {
+        const int s = (k - k0) & 1;
+        if (k + 1 < k1) stage(k + 1, s ^ 1);
+        cp_async_commit();
+        cp_async_wait_prev();
+        __syncthreads();
+        float4* items = ring + 2LL * s * ring_lines;
+        const int width = width_of(k);
+        // Each line's item in place, its class from its own y.
+        for (int l = threadIdx.x; l < width; l += blockDim.x) {
+            const float4 f = items[2 * l + 1];
+            float4 a, bb;
+            pair_item(items[2 * l], f, pair_class(f.y), a, bb);
+            items[2 * l] = a;
+            items[2 * l + 1] = bb;
+        }
+        __syncthreads();
+        float part[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) part[j] = 0.0f;
+        unit_walk<G, false>(u, items, width, base, tile / 32, part);
+#pragma unroll
+        for (int j = 0; j < G; ++j) acc[j] = acc[j] + part[j];
+        __syncthreads();   // the ring slot is restaged next iteration
+    }
+    float* o = out + ((long long)b * num_tiles + t) * tile;
+    float* dst = piece_dst(pc, o, b, t, piece, tile)
+        + (threadIdx.x >> 5) * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < G; ++j) dst[32 * warps * j] = acc[j];
+    piece_fold(pc, o, b, t, num_tiles, tile);
+}
+
 // _seg_chunk_accumulate over one core chunk at offset o = lane of its
 // segment: warp partial w adds instances 32w..32w+31 in order, the chunk
 // sum is ((w0 + w1) + w2) + w3.  An instance whose window [s_rel, e_rel]
@@ -1252,114 +1578,119 @@ seg_fold_kernel(const float* __restrict__ sums, const int* __restrict__ ptr,
     out[(long long)b * num_points + p] = acc;
 }
 
-// _rows_body: instance r of group g applied to row r's points (warp r),
-// point group j skipped when the instance's window misses lo[j]..hi[j].
-template <int CLASS, int PPL>
-__device__ __forceinline__ void rows_group(const float (*grp)[kRowsPiece],
-                                           int g, int r, const float* point,
-                                           const float* lo, const float* hi,
-                                           float* acc)
-{
-    const float c_int = grp[0 * 8 + r][g];
-    const float c_frac = grp[1 * 8 + r][g];
-    const float srw = grp[2 * 8 + r][g];
-    const float y = grp[3 * 8 + r][g];
-    const float pref = grp[4 * 8 + r][g];
-    const float s = grp[5 * 8 + r][g];
-    const float e = grp[6 * 8 + r][g];
-#pragma unroll
-    for (int j = 0; j < PPL; ++j) {
-        if (e < lo[j] || s > hi[j]) continue;   // warp-uniform
-        const float x = ((point[j] - c_int) - c_frac) * srw;
-        const float val = correction<CLASS>(x, y);
-        const bool in = (point[j] >= s) && (point[j] <= e);
-        acc[j] = acc[j] + (in ? pref * val : 0.0f);
-    }
-}
+// The rows core's block: the piece's 32 groups of the 56 parameter rows
+// and the min-y row, its 256 items (instance r of group g: item r * 32 +
+// g), then the walk's UnitShared.
+struct RowsShared {
+    float grp[kYminRow + 1][kRowsPiece];
+    float4 item[2 * 8 * kRowsPiece];
+    UnitShared u;
+};
 
-// PPL = points per lane = tile / 256 (the row is 32 * PPL points wide).
+// G = point groups of a row = tile / 256 (the row is 32 * G points wide).
 // SEP_YMIN: the class comes from the separate min-y block, not row 56.
 // Piece j of tile t walks groups 32j .. 32j + 31 of the tile's walk of
 // 128 * g_n[t] groups (whole chunks, so every piece of a walk is full; an
 // empty tile's one piece adds nothing).  The caller guarantees 16-byte
 // aligned rows and g_start[t] a multiple of 4 groups, so the piece is
-// staged in whole 16-byte copies.
-template <int PPL, bool SEP_YMIN>
-__global__ void __launch_bounds__(kRowsThreads)
+// staged in whole 16-byte copies.  Dynamic shared memory: RowsShared.
+template <int G, bool SEP_YMIN>
+__global__ void __launch_bounds__(kRowsThreads, kPairBlocks)
 rows_kernel(const float* __restrict__ groups, long long g_b, long long g_r,
             const float* __restrict__ ymin, long long y_b,
             const int* __restrict__ g_start, const int* __restrict__ g_n,
             float* __restrict__ out, int num_tiles, int tile, Pieces pc)
 {
-    __shared__ __align__(16) float grp[kYminRow + 1][kRowsPiece];
+    extern __shared__ float4 rows_smem[];
+    RowsShared& sh = *reinterpret_cast<RowsShared*>(rows_smem);
     const int b = blockIdx.y;
     const int t = pc.tile[blockIdx.x];
     const int piece = blockIdx.x - pc.first[t];
     const int tid = threadIdx.x;
     const int r = tid >> 5;
     const int lane = tid & 31;
-    const int row_w = 32 * PPL;
+    const int row_w = 32 * G;
     const float* gp = groups + b * g_b;
     const float* yrow = SEP_YMIN ? ymin + b * y_b : gp + kYminRow * g_r;
     const int g0 = piece * kRowsPiece;
+    unit_start(sh.u);
 
-    float point[PPL], lo[PPL], hi[PPL], acc[PPL];
+    float acc[G];
 #pragma unroll
-    for (int j = 0; j < PPL; ++j) {
-        lo[j] = (float)(t * tile + r * row_w + 32 * j);
-        hi[j] = lo[j] + 31.0f;
-        point[j] = lo[j] + (float)lane;
-        acc[j] = 0.0f;
-    }
+    for (int j = 0; j < G; ++j) acc[j] = 0.0f;
     if (g0 < g_n[t] * kRowsChunk) {   // block-uniform
-        // The piece's 32 groups of the 56 parameter rows and the min-y row.
         const long long col = (long long)g_start[t] + g0;
         for (int i = tid; i < (kYminRow + 1) * (kRowsPiece / 4);
              i += kRowsThreads) {
             const int row = i / (kRowsPiece / 4);
             const int q = 4 * (i - row * (kRowsPiece / 4));
             const float* src = row < kYminRow ? gp + row * g_r : yrow;
-            cp_async16(&grp[row][q], src + col + q);
+            cp_async16(&sh.grp[row][q], src + col + q);
         }
         cp_async_commit();
         cp_async_wait_all();
         __syncthreads();
-        for (int g = 0; g < kRowsPiece; ++g) {
-            const float ym = grp[kYminRow][g];
-            if (ym >= F(70.55)) continue;   // all-dead / pure-Lorentz group
-            if (ym >= F(8.425)) {
-                rows_group<1, PPL>(grp, g, r, point, lo, hi, acc);
-            } else if (ym >= F(6.8)) {
-                rows_group<2, PPL>(grp, g, r, point, lo, hi, acc);
-            } else if (ym >= F(2.0)) {
-                rows_group<3, PPL>(grp, g, r, point, lo, hi, acc);
-            } else {
-                rows_group<4, PPL>(grp, g, r, point, lo, hi, acc);
-            }
-        }
+        // Thread (r, g): instance r of group g, its class from the group's
+        // min y.
+        const float4 win = make_float4(sh.grp[5 * 8 + r][lane],
+                                       sh.grp[6 * 8 + r][lane],
+                                       sh.grp[0 * 8 + r][lane],
+                                       sh.grp[1 * 8 + r][lane]);
+        const float4 f = make_float4(sh.grp[2 * 8 + r][lane],
+                                     sh.grp[3 * 8 + r][lane],
+                                     sh.grp[4 * 8 + r][lane], 0.0f);
+        float4 a, bb;
+        pair_item(win, f, pair_class(sh.grp[kYminRow][lane]), a, bb);
+        sh.item[2 * tid] = a;
+        sh.item[2 * tid + 1] = bb;
+        __syncthreads();
+        const float base = (float)(t * tile);
+        unit_walk<G, true>(sh.u, sh.item, 8 * kRowsPiece, base, G, acc);
     }
     float* o = out + ((long long)b * num_tiles + t) * tile;
     float* dst = piece_dst(pc, o, b, t, piece, tile) + r * row_w + lane;
 #pragma unroll
-    for (int j = 0; j < PPL; ++j) dst[32 * j] = acc[j];
+    for (int j = 0; j < G; ++j) dst[32 * j] = acc[j];
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-template <int PPL>
-void launch_rows(dim3 grid, cudaStream_t s, const float* groups,
-                 long long g_b, long long g_r, const float* ymin,
-                 long long y_b, const int* g_start, const int* g_n,
-                 float* out, int num_tiles, int tile, const Pieces& pc)
+// Lets the kernel's next launch on the current device take ``bytes`` of
+// dynamic shared memory (above the 48 KB default).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes)
+{
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int G, bool SEP_YMIN>
+int launch_rows_kernel(dim3 grid, cudaStream_t s, const float* groups,
+                       long long g_b, long long g_r, const float* ymin,
+                       long long y_b, const int* g_start, const int* g_n,
+                       float* out, int num_tiles, int tile, const Pieces& pc)
+{
+    const cudaError_t err = allow_smem(rows_kernel<G, SEP_YMIN>,
+                                       sizeof(RowsShared));
+    if (err != cudaSuccess) return (int)err;
+    rows_kernel<G, SEP_YMIN><<<grid, kRowsThreads, sizeof(RowsShared), s>>>(
+        groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile, pc);
+    return 0;
+}
+
+template <int G>
+int launch_rows(dim3 grid, cudaStream_t s, const float* groups,
+                long long g_b, long long g_r, const float* ymin,
+                long long y_b, const int* g_start, const int* g_n,
+                float* out, int num_tiles, int tile, const Pieces& pc)
 {
     if (ymin != nullptr) {
-        rows_kernel<PPL, true><<<grid, kRowsThreads, 0, s>>>(
-            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile,
-            pc);
-    } else {
-        rows_kernel<PPL, false><<<grid, kRowsThreads, 0, s>>>(
-            groups, g_b, g_r, ymin, y_b, g_start, g_n, out, num_tiles, tile,
-            pc);
+        return launch_rows_kernel<G, true>(grid, s, groups, g_b, g_r, ymin,
+                                           y_b, g_start, g_n, out,
+                                           num_tiles, tile, pc);
     }
+    return launch_rows_kernel<G, false>(grid, s, groups, g_b, g_r, ymin,
+                                        y_b, g_start, g_n, out, num_tiles,
+                                        tile, pc);
 }
 
 template <int LINE>
@@ -1378,31 +1709,21 @@ void launch_walk(dim3 grid, cudaStream_t s, const float* soa,
             num_tiles, tile, stride, chunk, tail, pc);
 }
 
-int launch_corr(dim3 grid, cudaStream_t s, int ppt, const float* soa,
+int launch_corr(dim3 grid, cudaStream_t s, const float* soa,
                 long long soa_b, long long soa_r, const int* w_start,
                 const int* w_n, const int* t_start, const int* t_n,
                 long long csr_b, float* out, int num_tiles, int tile,
                 int stride, int chunk, int tail, const Pieces& pc)
 {
-    switch (ppt) {
-    case 1:
-        wings_kernel<1><<<grid, kWingsThreads, 0, s>>>(
-            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail, pc);
-        break;
-    case 2:
-        wings_kernel<2><<<grid, kWingsThreads, 0, s>>>(
-            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail, pc);
-        break;
-    case 4:
-        wings_kernel<4><<<grid, kWingsThreads, 0, s>>>(
-            soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-            num_tiles, tile, stride, chunk, tail, pc);
-        break;
-    default:
-        return (int)cudaErrorInvalidValue;
-    }
+    // A piece of one chunk stages it once: one ring slot.
+    const size_t lines = (size_t)max(chunk, tail);
+    const size_t smem = (pc.piece > 1 ? 2 : 1) * lines * kLineFloats
+        * sizeof(float) + sizeof(UnitShared);
+    const cudaError_t err = allow_smem(corr_walk_kernel<kWalkPoints>, smem);
+    if (err != cudaSuccess) return (int)err;
+    corr_walk_kernel<kWalkPoints><<<grid, tile / kWalkPoints, smem, s>>>(
+        soa, soa_b, soa_r, w_start, w_n, t_start, t_n, csr_b, out,
+        num_tiles, tile, stride, chunk, tail, pc);
     return 0;
 }
 
@@ -1449,9 +1770,9 @@ int pylbl_wings(const float* soa, long long soa_b, long long soa_r,
                                   stride, chunk, tail, pc);
             break;
         case kLineCorr:
-            err = launch_corr(grid, s, tile / kWingsThreads, soa, soa_b,
-                              soa_r, w_start, w_n, t_start, t_n, csr_b, out,
-                              num_tiles, tile, stride, chunk, tail, pc);
+            err = launch_corr(grid, s, soa, soa_b, soa_r, w_start, w_n,
+                              t_start, t_n, csr_b, out, num_tiles, tile,
+                              stride, chunk, tail, pc);
             break;
         default:
             err = (int)cudaErrorInvalidValue;
@@ -1542,22 +1863,24 @@ int pylbl_rows(const float* groups, long long g_b, long long g_r,
     if (num_pieces > 0 && num_layers > 0) {
         const dim3 grid(num_pieces, num_layers);
         cudaStream_t s = static_cast<cudaStream_t>(stream);
+        int err;
         switch (tile) {
         case 256:
-            launch_rows<1>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile, pc);
+            err = launch_rows<1>(grid, s, groups, g_b, g_r, ymin, y_b,
+                                 g_start, g_n, out, num_tiles, tile, pc);
             break;
         case 512:
-            launch_rows<2>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile, pc);
+            err = launch_rows<2>(grid, s, groups, g_b, g_r, ymin, y_b,
+                                 g_start, g_n, out, num_tiles, tile, pc);
             break;
         case 1024:
-            launch_rows<4>(grid, s, groups, g_b, g_r, ymin, y_b, g_start,
-                           g_n, out, num_tiles, tile, pc);
+            err = launch_rows<4>(grid, s, groups, g_b, g_r, ymin, y_b,
+                                 g_start, g_n, out, num_tiles, tile, pc);
             break;
         default:
             return (int)cudaErrorInvalidValue;
         }
+        if (err != 0) return err;
     }
     return (int)cudaGetLastError();
 }

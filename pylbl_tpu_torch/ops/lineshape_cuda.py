@@ -64,22 +64,33 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   rcp(x^2 + y^2)``.  The raw kinds form each line's ``y^2`` and
   ``pref*y/sqrt(pi)`` from the raw rows first, and the checked kind
   leaves out, before the ballot, the foreign lines whose terms are all
-  +/-0.0.  The correction keeps the earlier walk: 256 threads, a warp
-  skipping the lines whose window misses its 32 points.  Bound: about 7
-  operations per in-window line-point, one a reciprocal (instruction
-  issue, not memory); the Humlicek rationals for the correction.
+  +/-0.0.  Bound: about 7 operations per in-window line-point, one a
+  reciprocal (instruction issue, not memory).  The correction takes the
+  unit walk (below) on the same ring.
 - Mixed-slot core (replaces ``_seg_kernel_mixed(_batched)`` :1113/:1148
   with ``_seg_chunk_accumulate_mixed`` :1070).  One block of 4 warps per
   (piece, layer); per 128-instance chunk (the next one staged with
-  ``cp.async``) the class is picked from the chunk's min y (block-uniform
-  branch), lane = point offset within the 32-point segment, each warp
-  walks its 32 instances in order into a private [slot, offset] partial
-  tile in shared memory, and the four partials are summed in warp order
-  into the piece accumulator.  Bound: the Humlicek rationals (CPF12: 12
-  divides and an exp per point).  No tensor cores and no float atomics:
-  the slot scatter is a direct indexed add and a split tile's pieces are
-  folded in piece order by the last of them (an integer counter), so
-  runs are bit-identical.
+  ``cp.async``; class from the chunk's min y, block-uniform): lane =
+  instance lists its window offsets that need a correction by Humlicek
+  region (the y-only limits once an instance), a block scan packs the
+  pairs by region, the warps evaluate 32 pairs of one region a round into
+  a value block in shared memory, and warp w sums slots w, w+4, ... in
+  the one-block order into its piece accumulator.  Bound: the Humlicek
+  rationals of the points that need a correction (CPF12: 25 divides and
+  an exp).  No tensor cores and no float atomics: the slot scatter is a
+  direct indexed add and a split tile's pieces are folded in piece order
+  by the last of them (an integer counter), so runs are bit-identical.
+- The unit walk (CORR and the rows core).  Each line of a chunk (an
+  instance of a piece) becomes an item: its class (CORR: the line's own
+  y; the rows core: the group's min y) and its need window,
+  the window narrowed to the points that can need a correction (a
+  non-finite prefactor keeps its window).  A unit is an item with one
+  point group of 32 points its need window meets; per pass of up to 256
+  units, lane = unit classifies the unit's points by Humlicek region, the
+  block lists the pairs by region, the warps evaluate 32 pairs of one
+  region a round into a [unit][point] value block, and the warp that owns
+  a point group adds its units in item order.  Bound: the Humlicek
+  rationals of the points that need a correction.
 - Per-stream segment pass (replaces ``_seg_kernel(_batched)`` :842/:880
   with ``_seg_chunk_accumulate`` :762 or ``_seg_chunk_accumulate_lorentz``
   :806).  A chunk carries one slot, so it adds to one (tile, slot) stream.
@@ -91,14 +102,13 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
   (wings) or the Humlicek rationals (core).
 - Rows core (replaces ``_rows_kernel(_batched)`` :456/:505 and
   ``_rows_kernel_vmem`` :363).  One block of 8 warps per (piece, layer);
-  warp r owns row r of the tile (tile/8 points), the piece's 32 groups
-  of 57 parameter rows are staged with 16-byte ``cp.async`` copies, each
-  group's class is picked from its min-y row (block-uniform branch),
-  instance r's fields are a shared-memory broadcast to warp r, and a
-  warp skips the point groups outside instance r's window.  One running
-  sum per point and piece, the pieces folded in order: a deviation from
-  the JAX kernels' single running sum (``rows_tiles_plain``).  Bound: the
-  Humlicek rationals of the in-window points.
+  warp r owns row r of the tile (tile/8 points), the piece's 32 groups of
+  57 parameter rows are staged with 16-byte ``cp.async`` copies, the block
+  walks the piece's 256 instances (the unit walk, the class from the
+  group's min-y row or block), and warp r sums row r.  One running sum per
+  point and piece, the pieces folded in order: a deviation from the JAX
+  kernels' single running sum (``rows_tiles_plain``).  Bound: the
+  Humlicek rationals of the points that need a correction.
 - ``-fmad=false`` keeps ``a*b + c`` as two rounded operations, so the
   kernels compute the same values, in the same order, as the plain
   versions and the JAX reference's separate multiply and add.
@@ -1014,7 +1024,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # _pass_line_fn): the kernel's line_fn id and the launch counter.  Line
 # function 3 (OWN) is the ownership-checked raw Lorentzian of
 # wings_strided_checked_pass.  The kernel walks 0 (PRE), 1 (RAW) and 3
-# (OWN) as lorentz_walk_kernel and 2 (CORR) as wings_kernel.
+# (OWN) as lorentz_walk_kernel and 2 (CORR) as corr_walk_kernel.
 _TILE_LINES = {"wings_pre": (0, "wings_splat"), "wings": (1, "tile_lorentz"),
                "core": (2, "tile_correction")}
 _LINE_OWN = 3
@@ -1426,9 +1436,11 @@ def _tile_partials_plain(soa, tiles, line0, width, tile, stride, line,
     ``pref * y / sqrt(pi)`` and ``y^2`` from the raw rows first, in the
     kernel's float32 order.  Every line of the chunk is summed here; the
     kernel leaves out lines whose terms are all +0.0 at a point (a window
-    that misses it) and, for "own", the foreign lines whose terms are all
-    +/-0.0 (``own_drops`` in csrc/lineshape.cu), which changes no bit of a
-    sum that starts at +0.0."""
+    that misses it), for "own" the foreign lines whose terms are all
+    +/-0.0 (``own_drops`` in csrc/lineshape.cu), and for "corr" every
+    point that needs no correction (``pair_item``'s need window, +/-0.0
+    for a finite prefactor), which changes no bit of a sum that starts at
+    +0.0."""
     batch = soa.shape[0]
     dtype = soa.dtype
     pairs = tiles.numel()
@@ -1650,9 +1662,10 @@ def tile_pass(soa, start, nchunks, num_points, tile, chunk=DEFAULT_CHUNK,
     per-line Humlicek correction, ``_correction_line``).  The two
     Lorentzians take the Lorentzian walk (PRE, RAW: the raw kind forms
     each line's ``y^2`` and ``pref*y/sqrt(pi)`` first, and both take the
-    term ``pref_y * rcp(x^2 + y^2)``); the correction the earlier
-    256-thread walk.  The CSR is [T] or [B, T]; ``pieces`` as
-    :func:`wings_strided_pass`."""
+    term ``pref_y * rcp(x^2 + y^2)``); the correction the unit walk,
+    which evaluates only the points that need a correction, by Humlicek
+    region, and sums in the plain version's order.  The CSR is [T] or
+    [B, T]; ``pieces`` as :func:`wings_strided_pass`."""
     line_fn, counter = _TILE_LINES[pass_kind]
     return _tile(soa, start, nchunks, num_points, tile, tile, chunk, None,
                  None, 128, _PLAIN_LINES[pass_kind], line_fn, counter,

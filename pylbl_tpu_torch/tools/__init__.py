@@ -14,11 +14,12 @@
 - ``wings_ab``: the wings kernel of this checkout against libraries built
   from other versions of ``csrc/lineshape.cu``, in turns on the smoke's
   inputs (the turns: ``ab``);
-- ``core_census``: the mixed-slot core's work on the smoke's inputs, by
-  chunk class and Humlicek region, in the kernel's float32 arithmetic
-  (runs on the CPU too);
-- ``core_ab``: the mixed-slot core kernel of this checkout against
-  libraries built from other versions of ``csrc/lineshape.cu``, in turns.
+- ``core_census``: the Humlicek cores' work on the smoke's inputs (the
+  mixed-slot core, CORR and the rows core), by class and Humlicek region,
+  in the kernels' float32 arithmetic (runs on the CPU too);
+- ``core_ab``: the Humlicek core kernels of this checkout (the mixed-slot
+  core, CORR, the rows core) against libraries built from other versions
+  of ``csrc/lineshape.cu``, in turns.
 
 The benchmark entry point, ``python -m pylbl_tpu_torch bench``
 (``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
@@ -55,7 +56,8 @@ PEAK_BYTES = 3.35e12
 OPS_LORENTZ = 7
 OPS_K1 = 28
 OPS_REGIONS = 41
-# The mixed-slot core's work as its census counts it (tools/core_census.py):
+# A Humlicek core's work as its census counts it (tools/core_census.py; the
+# mixed-slot core's and the unit walk's):
 # operations per point that needs a correction, by list, counted from
 # csrc/lineshape.cu as above: x (3), the list's body with the xq and yq it
 # computes (K1: k1_value 18; region 1: 2 + region1 11; region 2: 2 +
@@ -228,13 +230,35 @@ def walk_usage(log):
     return kinds or None
 
 
-def core_usage(log):
-    """The ``ptxas_usage`` of the mixed-slot core kernel; None when the
-    log has none."""
+def core_usage(log, kernel="core_segmix_kernel"):
+    """The ``ptxas_usage`` of the mixed-slot core kernel (or of the first
+    kernel whose mangled name holds ``kernel``); None when the log has
+    none."""
     for name, use in ptxas_usage(log).items():
-        if "core_segmix_kernel" in name:
+        if kernel in name:
             return use
     return None
+
+
+# The unit walk's kernels by the name their records take: CORR and the
+# rows core at tile 1024 (G = 4 point groups a row), with and without the
+# separate min-y block.  CORR's second name, the tile kernel's correction
+# line function, only reads an ``--other`` build from before the unit walk
+# and goes with the last such build.
+PAIR_KERNELS = {"corr": ("corr_walk_kernelILi4E", "wings_kernelILi4E"),
+                "rows": ("rows_kernelILi4ELb0E",),
+                "rows_vmem": ("rows_kernelILi4ELb1E",)}
+
+
+def pair_usage(log):
+    """{"corr", "rows", "rows_vmem": ``ptxas_usage``} of the unit walk's
+    kernels at tile 1024 in the compiler's log (the earlier CORR's where
+    the log has no unit walk; None where it has neither)."""
+    out = {}
+    for key, names in PAIR_KERNELS.items():
+        found = [core_usage(log, name) for name in names]
+        out[key] = next((use for use in found if use is not None), None)
+    return out
 
 
 def run_main(tool, run, *args):
@@ -310,6 +334,27 @@ def tile_ops(soa, num_points, line):
     return OPS_LORENTZ * float(points.sum())
 
 
+def rows_ops(groups, g_n, tile):
+    """Operations of the rows core's group block [..., 64, G] walked
+    through ``g_n`` chunks of 128 groups a tile: each group's instance r
+    over the in-window points of row r of its tile, at the group's class
+    (from its min y, row 56)."""
+    g = groups.reshape(-1, lc.GROUP_ROWS, groups.shape[-1])
+    dev = groups.device
+    row_w = tile // 8
+    tiles = torch.repeat_interleave(
+        torch.arange(len(g_n), device=dev),
+        torch.as_tensor(g_n, device=dev).long() * lc.ROWS_CHUNK)
+    lo = (tiles[None, :] * tile + row_w * torch.arange(8, device=dev)[:, None]
+          ).double()                                       # [8, G]
+    s = torch.maximum(g[:, 5 * 8:6 * 8, :tiles.numel()].double(), lo)
+    e = torch.minimum(g[:, 6 * 8:7 * 8, :tiles.numel()].double(),
+                      lo + row_w - 1)
+    points = (e - s + 1).clamp_min(0).sum(dim=1)           # [B, G]
+    return float((points * class_ops(g[:, lc.YMIN_ROW, :tiles.numel()]))
+                 .sum())
+
+
 def core_ops(params):
     """Operations of a segment core's parameter block [..., 8, I]: each
     instance's in-window offsets of its 32-point segment, at its chunk's
@@ -322,10 +367,10 @@ def core_ops(params):
 
 
 def census_ops(census):
-    """Operations of the mixed-slot core's work from its census
-    (:func:`pylbl_tpu_torch.tools.core_census.census`): each needed point
-    at its list's :data:`CENSUS_OPS`, each instance with one at its
-    limits' cost."""
+    """Operations of a Humlicek core's work from its census
+    (:func:`pylbl_tpu_torch.tools.core_census.census`, ``corr_census``,
+    ``rows_census``): each needed point at its list's :data:`CENSUS_OPS`,
+    each instance (or line visit) with one at its limits' cost."""
     points = census["needed"]
     ops = sum(CENSUS_OPS[k] * points[k] for k in ("k1", "r1", "r2", "r3"))
     ops += CENSUS_OPS["cpf12"] * (points["cpf12_i"] + points["cpf12_ii"])
@@ -342,10 +387,26 @@ def core_bytes(params, num_tiles, num_points):
     return 4 * (params.numel() + 2 * num_tiles + layers * num_points)
 
 
+def pair_bytes(kind, data, index, num_points):
+    """Bytes the unit walk's pass must move: the parameter rows its kernel
+    reads, the int32 tensors ``index`` (CORR's tile CSR, the rows core's
+    walk) read once, and its float32 output of ``num_points`` a layer
+    written once.  CORR (``kind`` "corr", ``data`` a raw SoA [B, 8, N] or
+    [8, N]) reads the seven fields, not the _PAD row; the rows core
+    ("rows", "rows_vmem": a group block [B, 64, G] or [64, G]) reads the 56
+    parameter rows and one min-y row (row 56, or the [B, 1, G] block of
+    "rows_vmem"), not the seven zero rows."""
+    layers = data.numel() // (data.shape[-2] * data.shape[-1])
+    rows = lc.N_FIELDS if kind == "corr" else lc.YMIN_ROW + 1
+    return (4 * (rows * layers * data.shape[-1] + layers * num_points)
+            + sum(t.numel() * t.element_size() for t in index))
+
+
 def census_bound(census, nbytes):
     """The mixed-slot core's bound from its census: (ms, "operations" or
     "bytes"), the larger of :func:`census_ops` over the FP32 peak and
-    ``nbytes`` (:func:`core_bytes`) over the memory rate."""
+    ``nbytes`` (:func:`core_bytes`, :func:`pair_bytes`) over the memory
+    rate."""
     t_ops, t_bytes = census_ops(census) / PEAK_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")

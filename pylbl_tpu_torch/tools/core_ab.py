@@ -1,18 +1,22 @@
-"""The mixed-slot core kernel against other builds of ``csrc/lineshape.cu``.
+"""The Humlicek core kernels against other builds of ``csrc/lineshape.cu``.
 
-Times the mixed-slot core pass (``pylbl_core_segmix``) through this
-checkout's library and through libraries built from other versions of the
-kernel source, in one process on one card, on the inputs of
-``chip_smoke.py``::
+Times the mixed-slot core pass (``pylbl_core_segmix``) and the unit
+walk's two kernels, CORR (``pylbl_wings`` with the correction line
+function) and the rows core (``pylbl_rows``), through this checkout's
+library and through libraries built from other versions of the kernel
+source, in one process on one card, on the inputs of ``chip_smoke.py``::
 
     python -m pylbl_tpu_torch.tools.core_ab --other PATH.cu[:K] [...]
-        [--cells A16,A,B,C,D,F,G] [--reps N] [--json OUT]
+        [--cells A16,A,B,C,D,F,G,Cc,Rc,Rv,R16] [--reps N] [--json OUT]
 
 Each ``--other`` names a source file or ``this``, and the chunks per
-piece its walk takes (default: the plan's, :func:`core_piece_chunks`),
-as ``tools/ab.py`` says; another library must have this checkout's C
-entry ``pylbl_core_segmix``.  The cells are ``core_census``'s (A x 16,
-A, B, C, D, F's block of 4, G's shard).
+piece its walk takes (default: the plan's, :func:`core_piece_chunks`,
+for the mixed-slot core, :data:`WINGS_PIECE_CHUNKS` for CORR; the rows
+core's pieces are fixed), as ``tools/ab.py`` says; another library must
+have this checkout's C entries.  The cells are ``core_census``'s: the
+mixed-slot core's A x 16, A, B, C, D, F's block of 4 and G's shard; CORR
+on C's core CSR ``Cc``; the rows core on C ``Rc``, the same with the
+separate min-y block ``Rv``, and on E x 16 ``R16``.
 
 Per cell the builds run in turns, timed with CUDA events and the kernel
 alone from a profiler trace (the call's host work, a scratch allocation
@@ -20,19 +24,22 @@ and a memset among it, bounds the first on the small cells), and are
 compared with the plain version at their piece size (``tools/ab.py``).
 Each cell prints its census, the plan's piece size, its census bound
 (:func:`pylbl_tpu_torch.tools.census_bound`) and its 41-operation bound
-(``core_ops``: 41 operations an in-window point), both the larger of the
-operations at 67 TFLOP/s and the bytes, and each build's times; each
-build prints the core kernel's registers and spills from ``-Xptxas -v``.
+(``core_ops``, ``tile_ops`` or ``rows_ops``: 41 operations an in-window
+point, 28 in class 1), both the larger of the operations at 67 TFLOP/s
+and the bytes, and each build's times; each build prints the kernels'
+registers and spills from ``-Xptxas -v`` (the unit walk's at tile 1024).
 Without CUDA it exits with code 2.
 """
 import torch
 
 from . import (PEAK_BYTES, PEAK_OPS, ab, card, census_bound, census_ops,
-               core_ops, core_usage, require_cuda)
-from .core_census import CELLS, build_cells, describe
+               core_usage, pair_usage, require_cuda)
+from .core_census import (CORE_CELLS, PairCell, build_cells,
+                          describe_cell)
 from ..ops import lineshape_cuda as lc
 
 KERNEL = "core_segmix_kernel"
+CELLS = CORE_CELLS + ("Cc", "Rc", "Rv", "R16")
 
 
 class Runner:
@@ -73,33 +80,45 @@ def usage_line(use):
             f"{use['spill_loads']} bytes spill loads")
 
 
+def build_usages(log):
+    """The mixed-slot core's and the unit walk's ``ptxas_usage``."""
+    return {"segmix": core_usage(log), **pair_usage(log)}
+
+
 def run(others, cells=CELLS, reps=10, out=None):
     require_cuda("core_ab")
     builds = ab.load_builds(others, None)
     print(f"core_ab on {card()}")
-    report = {"card": card(), "builds": ab.build_usage(builds, core_usage),
+    report = {"card": card(), "builds": ab.build_usage(builds, build_usages),
               "cells": {}}
-    for label, use in report["builds"].items():
-        print(f"  {label}: {KERNEL} {usage_line(use)}")
+    for label, uses in report["builds"].items():
+        for kernel, use in uses.items():
+            print(f"  {label}: {kernel} {usage_line(use)}")
     for cell in build_cells(list(cells), torch.device("cuda")):
-        runner = Runner(cell)
+        pair = isinstance(cell, PairCell)
+        runner = cell if pair else Runner(cell)
         counts = cell.census()
-        print(describe(cell.name, counts, cell.params, cell.nbytes))
-        turns = ab.in_turns(builds, runner.run, runner.plain, reps, KERNEL)
-        ops41 = core_ops(cell.params)
+        print(describe_cell(cell, counts))
+        turns = ab.in_turns(builds, runner.run, runner.plain, reps,
+                            cell.kernel if pair else KERNEL)
+        ops41 = cell.ops41
         bound, bound_by = census_bound(counts, cell.nbytes)
         record = {"census": counts, "census_ops": census_ops(counts),
-                  "plan_piece": runner.pieces(None).piece,
                   "bound_ms": bound, "bound_by": bound_by,
                   "bytes": cell.nbytes, "ops41": ops41,
                   "ops41_bound_ms": max(ops41 / PEAK_OPS,
                                         cell.nbytes / PEAK_BYTES) * 1e3,
                   "builds": turns}
+        if pair:
+            record["kind"] = cell.kind
+        else:
+            record["plan_piece"] = runner.pieces(None).piece
         report["cells"][cell.name] = record
-        print(f"  the plan's pieces: {record['plan_piece']} chunks; bounds "
-              f"(the larger of operations and {cell.nbytes} bytes): census "
-              f"{bound:.6f} ms ({bound_by}), 41-operation "
-              f"{record['ops41_bound_ms']:.6f} ms")
+        print(f"  {cell.name}: bounds (the larger of operations and "
+              f"{cell.nbytes} bytes): census {bound:.6f} ms ({bound_by}), "
+              f"41-operation {record['ops41_bound_ms']:.6f} ms"
+              + ("" if pair else
+                 f"; the plan's pieces: {record['plan_piece']} chunks"))
         ab.print_turns(turns)
     return ab.write_report(report, out)
 

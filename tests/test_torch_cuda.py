@@ -179,6 +179,8 @@ def test_tile_line_functions_match_plain(cuda_device, tile, batched):
         torch.cuda.synchronize()
         assert got.shape == ((2, n) if batched else (n,)) and got.is_cuda
         assert rel_err(got, want) < 5e-6
+        if kind == "core":                  # CORR's unit walk: bit for bit
+            assert torch.equal(got, want)
         assert lc.LAUNCHES[counter] == 1
     assert sum(lc.LAUNCHES.values()) == 2
 
@@ -535,6 +537,120 @@ def test_core_keeps_a_non_finite_prefactor_to_its_points(cuda_device):
     bad[0, 512 + 32 * slot + 3:512 + 32 * slot + 10] = True
     assert torch.equal(~torch.isfinite(got), bad)
     assert torch.equal(got[~bad], want[~bad])
+
+
+# --- The unit walk (CORR and the rows core) on synthetic walks: every
+# class and region, dead lines and slots, need windows across point
+# groups, non-finite prefactors, split and unsplit walks. ---
+
+def nan_equal(got, want):
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) \
+        and torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece", [1, 2])
+@pytest.mark.parametrize("tile,csr", [(256, "core"), (256, "wings"),
+                                      (1024, "core")])
+def test_corr_walk_equals_plain(cuda_device, tile, csr, piece):
+    """CORR's unit walk equals its plain version bit for bit at pieces of
+    1 and 2 chunks, one layer and two, and repeats bit for bit; with an
+    infinite and a NaN prefactor, a NaN y and an infinite prefactor at y
+    >= 70.55 it gives the plain version's NaN where the plain version
+    does, and its values elsewhere."""
+    from pylbl_tpu_torch.tools.core_census import synthetic_corr
+
+    soa_np, start_np, n_np, n = synthetic_corr(
+        tile // 64, layers=2, tile=tile, csr=csr,
+        num_tiles=max(2, 1280 // tile))
+    soa = torch.as_tensor(soa_np, device=cuda_device)
+    start, nchunks = (torch.as_tensor(a, device=cuda_device)
+                      for a in (start_np, n_np))
+    pieces = lc.TilePieces.of_csr(n_np, piece=piece)
+    if piece > 1:
+        assert int(n_np.max()) > piece
+    lc.reset_launches()
+    got = lc.tile_pass(soa, start, nchunks, n, tile, 64, "core", pieces)
+    again = lc.tile_pass(soa, start, nchunks, n, tile, 64, "core", pieces)
+    want = lc.tile_plain(soa, start, nchunks, n, tile, 64, "core",
+                         piece=piece)
+    one = lc.tile_pass(soa[1], start, nchunks, n, tile, 64, "core", pieces)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(one, want[1])
+    assert lc.LAUNCHES["tile_correction"] == 3
+    y = soa[0, lc.Y]
+    line0 = int(start_np[1])
+    pick = torch.nonzero((y[line0:line0 + 64] < 8.0)
+                         & (y[line0:line0 + 64] > 0.5)).flatten()
+    bad = soa.clone()
+    for k, (row, value) in enumerate(((lc.PREF, float("inf")),
+                                      (lc.PREF, float("nan")),
+                                      (lc.Y, float("nan")))):
+        bad[0, row, line0 + int(pick[k])] = value
+    bad[0, lc.PREF, line0 + int(pick[2])] = float("inf")
+    got = lc.tile_pass(bad, start, nchunks, n, tile, 64, "core", pieces)
+    want = lc.tile_plain(bad, start, nchunks, n, tile, 64, "core",
+                         piece=piece)
+    torch.cuda.synchronize()
+    assert bool((~torch.isfinite(want)).any())
+    assert nan_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 512, 1024])
+@pytest.mark.parametrize("vmem", [False, True])
+def test_rows_walk_equals_plain(cuda_device, tile, vmem):
+    """The rows core's unit walk equals its plain version bit for bit, one
+    layer and two, with the class from row 56 or from a separate min-y
+    block that moves groups to other classes, and repeats bit for bit; an
+    infinite prefactor (also at an own y >= 70.55 in a walked group) and a
+    NaN min y give the plain version's NaN and +0.0."""
+    from pylbl_tpu_torch.tools.core_census import synthetic_rows
+
+    groups_np, plan, n = synthetic_rows(tile // 128, layers=2, tile=tile,
+                                        num_tiles=max(2, 1024 // tile))
+    groups = torch.as_tensor(groups_np, device=cuda_device)
+    walk = plan.walk
+    g_start, g_n = walk.tensors(cuda_device)
+    ymin = None
+    if vmem:
+        ymin = lc.group_min_y(groups).clone()
+        ymin[..., 1::5] = torch.where(ymin[..., 1::5] < 70.55, 9.0,
+                                      ymin[..., 1::5])
+        ymin[..., 3::7] = 1.5
+
+    def run(g, single=False):
+        if single:
+            g = g[1]
+        if ymin is None:
+            return lc.rows_pass(g, walk, n, tile)
+        return lc.rows_vmem_pass(g, ymin[1] if single else ymin, walk, n,
+                                 tile)
+
+    lc.reset_launches()
+    got, again, one = run(groups), run(groups), run(groups, True)
+    want = lc.rows_plain(groups, g_start, g_n, n, tile, ymin=ymin)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(one, want[1])
+    assert walk.pieces.per_tile.max() > 1
+    ym = groups[0, lc.YMIN_ROW]
+    col = int(torch.nonzero((ym < 8.0) & (ym > 0.5)).flatten()[0])
+    far = int(torch.nonzero(ym < 70.55).flatten()[-1])
+    bad = groups.clone()
+    bad[0, 4 * 8 + 0, col] = float("inf")
+    bad[0, 4 * 8 + 1, far] = float("inf")
+    bad[0, 3 * 8 + 1, far] = 80.0
+    bad[0, lc.YMIN_ROW, int(torch.nonzero(ym < 2.0).flatten()[1])] = \
+        float("nan")
+    got = run(bad)
+    want = lc.rows_plain(bad, g_start, g_n, n, tile, ymin=ymin)
+    torch.cuda.synchronize()
+    assert nan_equal(got, want)
 
 
 # --- The segment pass per chunk and the rows core per piece on the dense

@@ -230,8 +230,10 @@ def test_core_ab_refuses_without_cuda_and_parses_its_builds(monkeypatch,
     assert ab.parse_other("a/b.cu:1", None) == (Path("a/b.cu"), 1)
     assert ab.parse_other("a/b.cu", lc.WINGS_PIECE_CHUNKS) == (
         Path("a/b.cu"), lc.WINGS_PIECE_CHUNKS)
-    assert core_ab.CELLS == core_census.CELLS == ("A16", "A", "B", "C", "D",
-                                                  "F", "G")
+    assert core_census.CORE_CELLS == ("A16", "A", "B", "C", "D", "F", "G")
+    assert core_census.CELLS == core_census.CORE_CELLS + ("Cc", "Rc", "R16")
+    assert core_ab.CELLS == core_census.CORE_CELLS + ("Cc", "Rc", "Rv",
+                                                      "R16")
     with pytest.raises(SystemExit):
         core_ab.main(["--reps", "x"])
 
@@ -252,6 +254,49 @@ def test_core_census_describes_a_cell_on_cpu():
     assert "census operations" in text and "core_ops" in text
     with pytest.raises(ValueError, match="unknown cell"):
         core_census.build_cells(["Z"], "cpu")
+
+
+def test_core_ab_unit_walk_cells_on_cpu(monkeypatch, capsys):
+    """core_ab's unit-walk cells, made at a small size on the CPU (3000
+    headline lines; R16 over the canonical 16 layers): CORR on the core
+    CSR, the rows core with and without the separate min-y block and on
+    the column; each launch (the plain version here) equals its plain
+    version, the census sees needed points and none outside the need
+    window, the 41-operation count is the cell's, and the description
+    carries both bounds.  Asked for these cells, the tool exits 2 without
+    a card."""
+    from pylbl_tpu_torch.tools import rows_ops, tile_ops
+
+    work = layer_workload(headline_pack(3000, nu_max=260.0),
+                          np.arange(1.0, 220.0, 0.1))
+    cells = core_census.build_cells(["Cc", "Rc", "Rv", "R16"], "cpu", work)
+    assert [c.name for c in cells] == ["Cc", "Rc", "Rv", "R16"]
+    assert [c.kind for c in cells] == ["corr", "rows", "rows_vmem", "rows"]
+    assert cells[0].kernel == ("corr_walk_kernel", "wings_kernel")
+    assert cells[3].data.shape[0] == 16
+    lc.reset_launches()
+    for cell in cells:
+        got = cell.run(None)
+        assert got.shape[-1] == work["n"] and float(got.abs().max()) > 0
+        assert torch.equal(got, cell.plain(None))
+        counts = cell.census()
+        assert counts["needed_total"] > 0 and counts["needed_outside"] == 0
+        assert counts["visits"] < counts["parent_lane_evals"] // 32
+        if cell.kind == "corr":
+            assert cell.ops41 == tile_ops(cell.data, work["n"], "corr")
+        else:
+            assert cell.ops41 == rows_ops(cell.data, cell.walk.g_n,
+                                          cell.tile)
+        text = core_census.describe_cell(cell, counts)
+        bound, bound_by = census_bound(counts, cell.nbytes)
+        assert f"bound {bound:.6f} ms ({bound_by}, {cell.nbytes} bytes)" \
+            in text and "41-operation count" in text
+    assert torch.equal(cells[1].run(None), cells[2].run(None))
+    assert sum(lc.LAUNCHES.values()) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert core_ab.main(["--other", "build/ab_src/parent/lineshape.cu",
+                         "--cells", "Cc,Rc,Rv,R16"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().out
 
 
 def ptxas_entry(name, registers, stores=0, loads=0, smem=16):
@@ -308,6 +353,32 @@ def test_wings_ab_cells_and_walk_usage_by_line_kind(monkeypatch, capsys):
         "registers": 32, "spill_stores": 0, "spill_loads": 0, "smem": 16,
         "points": 4}}
     assert walk_usage("") is None
+
+
+def test_pair_usage_reads_the_unit_walks_and_the_earlier_corr():
+    """``pair_usage`` reads CORR and the rows core (with and without the
+    separate min-y block) at tile 1024 from a ``-Xptxas -v`` log, and an
+    earlier build's CORR (``wings_kernel<4>``) where the log has no unit
+    walk."""
+    from pylbl_tpu_torch.tools import pair_usage
+
+    rows_args = "EEEvPKfxxS2_xPKiS4_PfiiNS_6PiecesE"
+    log = "".join([
+        ptxas_entry(f"{NS}16corr_walk_kernelILi4E{WALK_ARGS}", 64),
+        ptxas_entry(f"{NS}11rows_kernelILi1ELb0E{rows_args}", 50),
+        ptxas_entry(f"{NS}11rows_kernelILi4ELb0E{rows_args}", 56),
+        ptxas_entry(f"{NS}11rows_kernelILi4ELb1E{rows_args}", 55, 4, 4)])
+    use = pair_usage(log)
+    assert use["corr"]["registers"] == 64
+    assert use["rows"]["registers"] == 56
+    assert use["rows_vmem"] == {"registers": 55, "spill_stores": 4,
+                                "spill_loads": 4, "smem": 16}
+    earlier = ptxas_entry(f"{NS}12wings_kernelILi4EEEvPKfxxPKiS4_S4_S4_xPf"
+                          "iiiiiNS_6PiecesE", 64, 28, 40, 28688)
+    assert pair_usage(earlier)["corr"] == {
+        "registers": 64, "spill_stores": 28, "spill_loads": 40,
+        "smem": 28688}
+    assert pair_usage("") == {"corr": None, "rows": None, "rows_vmem": None}
 
 
 def test_wings_ab_raw_and_own_cells_on_cpu():
