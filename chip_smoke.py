@@ -37,10 +37,11 @@ kernels and the native pedestal scan from this checkout into ``build/``
     with the pedestal removed: wall time, peak memory, float64 parity on 2
     layers, bit-identical repeat;
 11. the A/B formulations of one headline layer: per-stream segment core,
-    segment wings (with their chunk and stream counts), raw-Lorentz splat
-    wings and the scalar per-line core, plus the strided wings on a
-    tail-chunk layout; each kernel against its plain version and each
-    spectrum against phase 8's float64 result;
+    segment wings (with their chunk and stream counts and the chunk
+    kernels' grids), raw-Lorentz splat wings and the scalar per-line core,
+    plus the strided wings on a tail-chunk layout; each kernel against its
+    plain version (the segment core and wings also repeated bit for bit)
+    and each spectrum against phase 8's float64 result;
 12. the rows core and the ownership-checked strided wings: the headline
     layer's ``make_device_plan(core_mode="rows")`` with the strided and
     the tile wings (float64 parity), the rows core with its separate
@@ -138,8 +139,9 @@ its bound: the larger of the operations its inputs need over 67 TFLOP/s
 (FP32 outside the tensor cores) and its input and output bytes over 3.35
 TB/s (H100 SXM).  Operations are counted per in-window evaluation from
 ``pylbl_tpu_torch/csrc/lineshape.cu`` (each add, multiply, divide, sqrt
-and exp one): the Lorentzian 7 (10 in the segment pass, which forms the
-strength per point), a Humlicek k1 correction 28 and a k12/k123/full
+and exp one): the Lorentzian 7 (the segment wings too, which form y^2 and
+pref*y/sqrt(pi) once an instance), a Humlicek k1 correction 28 and a
+k12/k123/full
 correction 41 (region 1's path, the one beyond xlim1, about nine tenths
 of a core window; the points nearer the center cost more, so the bound
 stays below the work).  No single PyTorch call computes a windowed line
@@ -162,7 +164,14 @@ points and those that need a correction, by Humlicek list).  Their bound
 is the census bound (``pylbl_tpu_torch/tools`` ``census_bound``): the
 larger of the operations of the needed points over 67 TFLOP/s and the
 bytes; ``ops41_bound_ms`` keeps the bound of 41 operations an in-window
-point (``core_ops``).  The unit walk's records, CORR's
+point (``core_ops``).  The segment core's record (``seg_core``, phase 11
+on the headline layer, its ``*_16_layers`` keys phase 12's column)
+carries the same census (its instances all lie in slot 0) and census
+bound, its bytes the 7 parameter rows its chunk kernel reads, the stream
+walk and the output (``seg_bytes``); the segment wings' (``seg_wings``)
+its bound over the same 7 rows with 7 operations a term, and its
+reciprocal floor; both the registers and spills of their chunk
+kernel.  The unit walk's records, CORR's
 ``tile_correction`` and the rows core's ``core_rows``,
 ``core_rows_single`` and ``core_rows_vmem``, carry the same: the
 registers and spills of their kernel at tile 1024, the census of their
@@ -195,6 +204,7 @@ try:
                                        census_ops, core_bytes, core_ops,
                                        core_usage, pair_bytes, pair_usage,
                                        ptxas_usage, rcp_floor_ms, rows_ops,
+                                       seg_bytes, seg_wings_evals,
                                        sm_clock_mhz, tile_ops, walk_usage)
 except ImportError:         # alone: main() reports the missing package
     pass
@@ -253,10 +263,6 @@ STREAM_BLOCK = 4
 # Phase 15: the (batch, spec) mesh of ranks sharing the card, the modes.
 SHARD_MESH = (2, 2)
 SHARD_MODES = ("balanced", "halo", "ring")
-# Operations per in-window evaluation of the segment pass's Lorentzian
-# (csrc/lineshape.cu; the other counts and the card's peaks are
-# pylbl_tpu_torch/tools' PEAK_OPS, PEAK_BYTES and OPS_*).
-OPS_SEG_LORENTZ = 10
 CUT_OFF = 25
 # The JAX package's headline layer (bench.py TEMPERATURE/PRESSURE/VMR).
 SURFACE = (288.99, 98388.0, 6.637074e-03)
@@ -440,21 +446,6 @@ def rel_diff(got, want, floor):
     return float((diff / den).max()), float(diff.max())
 
 
-def seg_wings_ops(torch, lc, params, plan):
-    """Operations of the segment wings: each instance's window points in
-    its chunk's 32-point segment."""
-    dev = params.device
-    chunk_tile = torch.repeat_interleave(
-        torch.arange(plan.t_chunks.size, device=dev),
-        torch.as_tensor(plan.t_chunks, device=dev).long())
-    slot = torch.as_tensor(plan.c_slot[:chunk_tile.numel()], device=dev)
-    lo = (chunk_tile * plan.tile + 32 * slot).double()[:, None]
-    blocks = params.reshape(lc.SEGP_ROWS, -1, 128)[:, :chunk_tile.numel()]
-    s = torch.maximum(blocks[lc.S_IDX].double(), lo)
-    e = torch.minimum(blocks[lc.E_IDX].double(), lo + 31)
-    return OPS_SEG_LORENTZ * float((e - s + 1).clamp_min(0).sum())
-
-
 def core_csr(plan, params):
     """A segment plan's chunk CSR (and per-stream chunk slots) on the
     parameters' device."""
@@ -462,11 +453,14 @@ def core_csr(plan, params):
     return consts["t_start"], consts["t_chunks"], consts["c_slot"]
 
 
-def set_bound(record, ops, inputs, out):
+def set_bound(record, ops, inputs, out, nbytes=None):
     """The record's bound: the larger of its operations over the FP32 peak
-    and its input and output bytes over the memory rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs
-                 if t is not None) + out.numel() * out.element_size()
+    and its input and output bytes over the memory rate (``nbytes``: the
+    bytes it must move where these are not its whole input tensors, as
+    the segment pass's 7 rows of 8, ``seg_bytes``)."""
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size() for t in inputs
+                     if t is not None) + out.numel() * out.element_size()
     t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
     record.update(bound_ms=max(t_ops, t_bytes) * 1e3,
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -561,16 +555,19 @@ def phase_kernels(torch, lc, fn, dataset, kernels, records, layers=2):
                            pieces=stage.wings_pieces, rcp=True)
 
 
-def core_census_record(name, record, params, t_start, t_chunks, out):
+def core_census_record(name, record, params, t_start, t_chunks, out,
+                       nbytes=None):
     """The mixed-slot core's census of ``params`` walked through the chunk
     CSR (tools/core_census.py: its walked chunks' pairs by list) and its
-    census bound over ``params``, the CSR and the output ``out``, into
-    ``record`` (None: printed only), whose bound it becomes; the
-    41-operation bound ``compare_kernel`` set moves to ``ops41_*``."""
+    census bound over ``params``, the CSR and the output ``out`` (or
+    ``nbytes``: the segment core's, ``seg_bytes``), into ``record`` (None:
+    printed only), whose bound it becomes; the 41-operation bound
+    ``compare_kernel`` set moves to ``ops41_*``."""
     from pylbl_tpu_torch.tools.core_census import census
 
     counts = census(params, t_start, t_chunks)
-    nbytes = core_bytes(params, len(t_chunks), out.shape[-1])
+    if nbytes is None:
+        nbytes = core_bytes(params, len(t_chunks), out.shape[-1])
     ms, bound_by = census_bound(counts, nbytes)
     print(f"{name} census: {counts['in_window']} in-window points, "
           f"{counts['needed_total']} needed {counts['needed']}, "
@@ -616,12 +613,13 @@ def pair_census_record(name, record, counts, nbytes):
 
 
 def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
-                   inputs=(), pieces=None, rcp=False):
+                   inputs=(), pieces=None, rcp=False, nbytes=None):
     """One kernel against its plain version on the same inputs: bit for
     bit, kernel ms (``reps`` after a warm-up) and plain ms (one rep after
     the call that gives the reference); with ``ops`` the record's bound
-    over ``inputs`` and the output, with ``pieces`` (a TilePieces,
-    GroupWalk or SegStreams) its piece or stream counts; with ``rcp`` (a
+    over ``inputs`` and the output (or ``nbytes``), with ``pieces`` (a
+    TilePieces or GroupWalk, or the dict of SegStreams.stats) its piece
+    or stream counts; with ``rcp`` (a
     Lorentzian walk, ``ops`` its operations) its reciprocal floor at the
     SM clock nvidia-smi reads while it runs."""
     got = run()
@@ -634,10 +632,10 @@ def compare_kernel(torch, name, run, run_plain, record, reps=10, ops=None,
     record.update(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
                   library_ms=None)
     if ops is not None:
-        set_bound(record, ops, inputs, got)
+        set_bound(record, ops, inputs, got, nbytes)
     split = ""
     if pieces is not None:
-        stats = pieces.stats()
+        stats = pieces if isinstance(pieces, dict) else pieces.stats()
         record.update(stats)
         split = ", " + ", ".join(f"{key} {value}"
                                  for key, value in stats.items())
@@ -872,24 +870,34 @@ def phase_formulations(torch, lc, kin, arrays, npv, n, plan, k64, records):
                         out.cpu().numpy().astype(np.float64), k64)
         run = alt.core_pass if stage == "core" else alt.wings_pass
         own = name != "tile_lorentz"    # tile_lorentz's record is phase 9's
+        nbytes = None
         if stage == "core":
             ops = core_ops(alt.groups)
-            inputs = [alt.groups, *core_csr(alt.core, alt.groups)]
-            pieces = alt.core.streams
+            inputs = [alt.groups]
+            nbytes = seg_bytes("core", alt.groups, alt.core.streams, n)
+            pieces = alt.core.streams.stats("core")
         elif own:
-            ops = seg_wings_ops(torch, lc, alt.soa, alt.wings)
-            inputs = [alt.soa, *core_csr(alt.wings, alt.soa)]
-            pieces = alt.wings.streams
+            ops = OPS_LORENTZ * seg_wings_evals(alt.soa, alt.wings.streams)
+            inputs = [alt.soa]
+            nbytes = seg_bytes("wings", alt.soa, alt.wings.streams, n)
+            pieces = alt.wings.streams.stats("wings")
         else:
             ops = tile_ops(alt.soa, n, "raw")
             inputs = [alt.soa, alt.w_start, alt.w_n]
             pieces = alt.wings_pieces
-        compare_kernel(torch, name if own else f"{name} at 0.1 cm-1", run,
-                       lambda: run(plain=True),
-                       records[name] if own else None, ops=ops,
-                       inputs=inputs, pieces=pieces, rcp=not own)
+        got = compare_kernel(torch, name if own else f"{name} at 0.1 cm-1",
+                             run, lambda: run(plain=True),
+                             records[name] if own else None, ops=ops,
+                             inputs=inputs, pieces=pieces,
+                             rcp=stage == "wings", nbytes=nbytes)
         if own:
+            check(torch.equal(run(), got), f"{name} repeat is "
+                  "bit-identical")
             records[name]["launches"] = counts[name]
+        if stage == "core":
+            core_census_record(name, records[name], alt.groups,
+                               alt.core.t_start, alt.core.t_chunks, got,
+                               nbytes)
 
     # The scalar per-line core pass over the core-window CSR (the reference
     # the JAX tests hold the segment cores against), with the strided wings.
@@ -1125,16 +1133,26 @@ def phase_rows(torch, lc, gas, gas64, grid, kin, arrays, npv, n, plan, k64,
                     kb_seg[two].cpu().numpy().astype(np.float64), ref64)
     _, core_seg = fn_seg.stage.assemble(tt, pp, xx)
     sixteen = {}
-    compare_kernel(torch, "seg_core at 16 layers",
-                   lambda: fn_seg.core_pass(core_seg),
-                   lambda: fn_seg.core_pass(core_seg, plain=True), sixteen,
-                   ops=core_ops(core_seg),
-                   inputs=[core_seg, *core_csr(fn_seg.core_plan, core_seg)],
-                   pieces=fn_seg.core_plan.streams)
-    records["seg_core"].update(launches_16_layers=counts["seg_core"],
-                               ms_16_layers=sixteen["ms"],
-                               plain_ms_16_layers=sixteen["plain_ms"],
-                               bound_ms_16_layers=sixteen["bound_ms"])
+    seg_plan = fn_seg.core_plan
+    nbytes = seg_bytes("core", core_seg, seg_plan.streams, n)
+    got = compare_kernel(torch, "seg_core at 16 layers",
+                         lambda: fn_seg.core_pass(core_seg),
+                         lambda: fn_seg.core_pass(core_seg, plain=True),
+                         sixteen, ops=core_ops(core_seg), inputs=[core_seg],
+                         nbytes=nbytes)
+    check(torch.equal(fn_seg.core_pass(core_seg), got),
+          "seg_core at 16 layers repeats bit for bit")
+    core_census_record("seg_core at 16 layers", sixteen, core_seg,
+                       seg_plan.t_start, seg_plan.t_chunks, got, nbytes)
+    sixteen.update(seg_plan.streams.stats("core", t.size))
+    print(f"seg_core at 16 layers: {sixteen['chunks']} chunks a layer, the "
+          f"grid {sixteen['core_blocks']} blocks a layer of "
+          f"{sixteen['core_piece']} entries")
+    records["seg_core"].update(launches_16_layers=counts["seg_core"], **{
+        f"{key}_16_layers": sixteen[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bytes", "operations",
+            "census", "ops41_bound_ms", "ops41_operations", "core_piece",
+            "core_blocks")})
 
     # The checked wings on two of the column's layers with one CSR, at the
     # batched pipeline's stride (its windows, widened by a wavenumber of
@@ -2130,6 +2148,10 @@ def main():
     pair_use = pair_usage(log)
     check(all(pair_use.values()), "the unit walk compiled for CORR and the "
           f"rows core: {pair_use}")
+    seg_use = {name: core_usage(log, kernel) for name, kernel in (
+        ("seg_core", "seg_core_kernel"), ("seg_wings", "seg_wings_kernel"))}
+    check(all(seg_use.values()), "the segment core and wings compiled: "
+          f"{seg_use}")
 
     records = {name: {"name": name, "route": "cuda",
                       "source": "pylbl_tpu_torch/csrc/lineshape.cu",
@@ -2143,6 +2165,9 @@ def main():
                              points_per_lane=use["points"])
     for name in ("core_segmix", "core_segmix_single"):
         records[name].update({key: core_use[key] for key in (
+            "registers", "spill_stores", "spill_loads", "smem")})
+    for name, use in seg_use.items():
+        records[name].update({key: use[key] for key in (
             "registers", "spill_stores", "spill_loads", "smem")})
     for name, kind in (("tile_correction", "corr"), ("core_rows", "rows"),
                        ("core_rows_single", "rows"),

@@ -87,23 +87,40 @@
 //   _seg_kernel_batched).  Every 128-instance chunk carries ONE segment
 //   slot, so it adds to one (tile, slot) stream of 32 points, and a
 //   stream's chunks are folded in walk order.  One block per (tile, layer)
-//   walked a tile's chunks in series (up to 4,359 chunks on the headline
-//   layer's wings, 49 blocks on 132 SMs), so the time was the busiest
-//   tile's walk, not the 165 MB of parameters that bound the wings.  The
-//   design, two launches: seg_chunk_kernel gives every (chunk, layer) one
-//   warp, 4 per block; the warp loads its chunk's 8 x 128 parameters with
-//   coalesced float4 loads into shared memory and computes the chunk sum
-//   in the one order there is, lane = offset o, warp partial w over
-//   instances 32w..32w+31 in order, then ((w0 + w1) + w2) + w3, skipping
-//   an instance whose window misses the segment (its term is +0.0).  CORE
-//   (_seg_chunk_accumulate): seg0-relative x, window mask o in [s_rel,
-//   e_rel], class from the chunk's min y (warp-uniform branch; a chunk at
-//   >= 70.55 sums to +0.0).  WINGS (_seg_chunk_accumulate_lorentz): raw
-//   SoA rows at absolute points 32*stream + o.  The sums go to a scratch
-//   [B, E, 32] in stream order; seg_fold_kernel then gives each output
-//   point one thread that adds its stream's chunk sums in walk order from
-//   +0.0 (a stream of no chunks writes +0.0).  No float atomics, and the
-//   values and their order are the one-block walk's: bit-identical.
+//   would walk a tile's chunks in series (up to 4,359 chunks on the
+//   headline layer's wings), so the pass is two launches over the
+//   stream-ordered chunk list: a chunk kernel writes each (entry, layer)'s
+//   32-point chunk sum to a scratch [B, E, 32], in the one order there is
+//   (warp partial w over instances 32w..32w+31 in order from +0.0, then
+//   ((w0 + w1) + w2) + w3), and seg_fold_kernel gives each output point
+//   one thread that adds its stream's chunk sums in walk order from +0.0
+//   (a stream of no chunks writes +0.0).  A skipped term is +/-0.0, and a
+//   sum that starts at +0.0 never holds -0.0, so skipping leaves the bits
+//   of every term added.  No float atomics: runs are bit-identical.
+//   CORE (seg_core_kernel; _seg_chunk_accumulate): the chunk sum is what
+//   the mixed-slot core computes for one slot (the segment block's slot
+//   row is all zeros, and core_sum adds each warp group's live instances
+//   of a slot in order from +0.0, then ((g0 + g1) + g2) + g3), and most
+//   in-window points need no correction while those that do diverge
+//   across the Humlicek regions: so a block of 4 warps walks K entries
+//   (the next staged by TMA bulk copies while one is worked) and runs the
+//   mixed-slot core's phases on each (core_chunk, the one copy of them;
+//   the class from the chunk's min y), then sums slot 0's four warp
+//   groups in parallel.  Bound: the
+//   Humlicek rationals of the points that need a correction.  WINGS
+//   (seg_wings_kernel; _seg_chunk_accumulate_lorentz): lane = offset of
+//   the absolute points 32 * stream + o, the term the IEEE quotient
+//   ((pref*y)/sqrt(pi)) / (x^2 + y^2) of the plain version (a reciprocal
+//   times the numerator would round twice).  Each warp walks its entry on
+//   its own: the 7 rows staged with 16-byte cp.async, then per group of
+//   32 instances each lane rewrites its instance line-major (walk_slot: a
+//   term reads an instance as two 16-byte broadcasts) with y^2,
+//   pref*y/sqrt(pi) and the lanes its window holds (a bit mask: the
+//   window test of a term is an AND and a select), and a ballot lists the
+//   instances that reach the segment, so that a missing instance is never
+//   loaded; a group that all reach takes its 32 terms unrolled.  Bound:
+//   about 20 warp instructions a term, ten of them the IEEE divide, beside
+//   the bytes of the 7 rows read (PERF.md has what holds it above both).
 //
 // pylbl_core_segmix: mixed-slot segment-32 Humlicek core correction
 //   (replaces _seg_kernel_mixed(_batched) with _seg_chunk_accumulate_mixed;
@@ -116,8 +133,11 @@
 //   across the regions, so the kernel was bound by instruction issue on
 //   work it threw away.  The design, one block of 4 warps per (piece of
 //   at most K chunks, layer), the chunks' 8 parameter rows staged with
-//   cp.async into a 2-slot ring; per chunk (class from its min y,
-//   block-uniform; skip at >= 70.55): (1) classify, lane = instance, the
+//   cp.async into a 2-slot ring; per chunk (class from its min y, NaN
+//   where a y is, as the plain version's amin; block-uniform; skip at >=
+//   70.55; a NaN min y takes class 4, as it fails every test of the JAX
+//   conds; phases 1-3 are core_chunk, which the segment core runs
+//   too): (1) classify, lane = instance, the
 //   one phase compiled per class: the y-only limits once, then each window
 //   offset's x and its list (K1, or region 1, 2, 3, CPF12), the offsets
 //   that need nothing left out (core_needs); (2) list the needed pairs by
@@ -253,10 +273,13 @@ __host__ __device__ constexpr int core_val(int i, int o)
 {
     return i * 32 + (o ^ (i & 31));
 }
-// Segment-pass kinds (pylbl_seg's kind argument), chunks (warps) per block
-// of the chunk-sum kernel and threads per block of the fold.
+// Segment-pass kinds (pylbl_seg's kind argument; the segment core's
+// entries a block are its core_piece argument, ops/lineshape_cuda.py
+// seg_core_piece); the segment wings' warps (entries) a block and blocks
+// an SM; threads per block of the fold.
 constexpr int kSegCore = 0, kSegWings = 1;
-constexpr int kSegWarps = kCoreThreads / 32;
+constexpr int kSegWingsWarps = 4;
+constexpr int kSegWingsBlocks = 12;
 constexpr int kFoldThreads = 256;
 
 // ---- Humlicek classes (pylbl_tpu_torch/ops/voigt.py, same op order) ----
@@ -398,6 +421,16 @@ __device__ __forceinline__ Limits region_limits(float y)
         l.xlim2 = l.xlim0;
     }
     return l;
+}
+
+// The class of an item from y (CORR: the line's own y; the rows core: the
+// group's min y; a core chunk: its instances' min y, where chunk_class
+// sends NaN to 4): 0 (skipped: y >= 70.55 or NaN, every term +0.0 in the
+// plain version), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4.
+__device__ __forceinline__ int pair_class(float y)
+{
+    return !(y < F(70.55)) ? 0 : y >= F(8.425) ? 1 : y >= F(6.8) ? 2
+        : y >= F(2.0) ? 3 : 4;
 }
 
 // voigt_correction_k1: y >= 8.425, one combined rational; a point needs
@@ -977,6 +1010,71 @@ __device__ __forceinline__ void core_sum(CoreShared& sh,
     }
 }
 
+// min.NaN: the smaller of a and b, NaN if either is (fminf drops a NaN).
+__device__ __forceinline__ float fmin_nan(float a, float b)
+{
+    float d;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return d;
+}
+
+// The class of a core chunk from the min of its 128 y (its staged row),
+// every warp for itself: no barrier.  A NaN y makes the min NaN, as the
+// plain version's amin and jnp.min, and a NaN min fails every test of
+// the JAX conds (_seg_chunk_accumulate), so the chunk takes class 4, the
+// whole correction; its NaN-y instances list nothing there (core_needs:
+// not y < 70.55), as correction(x, NaN) is 0.
+__device__ __forceinline__ int chunk_class(const float* yrow, int lane)
+{
+    float m = fmin_nan(fmin_nan(yrow[lane], yrow[lane + 32]),
+                       fmin_nan(yrow[lane + 64], yrow[lane + 96]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        m = fmin_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+    return m != m ? 4 : pair_class(m);
+}
+
+// Phases 1-3 of the core chunk in ring slot s, the one copy the mixed-slot
+// core and the segment core run: the class from the chunk's min y, then
+// classify (lane = instance, core_needs), list the needed pairs by a block
+// scan (core_lists: each warp's live instances by slot in slot_of) and
+// evaluate them 32 pairs of one list a round into the zeroed value block
+// (core_eval).  Returns whether the value block holds any pair
+// (block-uniform; false: the chunk adds +0.0 to every point).
+__device__ __forceinline__ bool core_chunk(CoreShared& sh, int s, int slots)
+{
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int cls = chunk_class(sh.prm[s][kCoreY], lane);
+    if (cls == 0) return false;    // pure Lorentz chunk: no-op
+    unsigned need[kCoreLists];
+    switch (cls) {                 // block-uniform
+    case 1: core_needs<1>(sh.prm[s], tid, slots, need); break;
+    case 2: core_needs<2>(sh.prm[s], tid, slots, need); break;
+    case 3: core_needs<3>(sh.prm[s], tid, slots, need); break;
+    default: core_needs<4>(sh.prm[s], tid, slots, need);
+    }
+    int base[kCoreLists], end[kCoreLists];
+    const int entries = core_lists(sh, s, need, base, end);
+    if (entries == 0) return false;    // block-uniform: nothing needed
+    __syncthreads();
+    // Rounds of 32 entries of one list, round-robin over the warps.
+    for (int q = warp * 32; q < entries; q += kCoreThreads) {
+        int lst = 0;               // the list of round q: uniform
+#pragma unroll
+        for (int r = 1; r < kCoreLists; ++r) lst = q >= base[r] ? r : lst;
+        int stop = end[0];
+#pragma unroll
+        for (int r = 1; r < kCoreLists; ++r) {
+            stop = lst == r ? end[r] : stop;
+        }
+        core_eval(sh.prm[s], sh.list, sh.val, lst, cls, q + lane, stop);
+    }
+    __syncthreads();
+    return true;
+}
+
 __global__ void __launch_bounds__(kCoreThreads, kCoreBlocks)
 core_segmix_kernel(const float* __restrict__ params, long long p_b,
                    long long p_r, const int* __restrict__ tile_start,
@@ -1019,41 +1117,7 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
         __syncthreads();
         if (k + 1 < k1) stage(k + 1, s ^ 1);
         cp_async_commit();
-        // The chunk's min y, every warp for itself: no barrier.
-        const float* yrow = sh.prm[s][kCoreY];
-        float m = fminf(fminf(yrow[lane], yrow[lane + 32]),
-                        fminf(yrow[lane + 64], yrow[lane + 96]));
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (m >= F(70.55)) continue;   // pure Lorentz chunk: no-op
-        const int cls = m >= F(8.425) ? 1 : m >= F(6.8) ? 2
-            : m >= F(2.0) ? 3 : 4;
-        unsigned need[kCoreLists];
-        switch (cls) {                 // block-uniform
-        case 1: core_needs<1>(sh.prm[s], tid, slots, need); break;
-        case 2: core_needs<2>(sh.prm[s], tid, slots, need); break;
-        case 3: core_needs<3>(sh.prm[s], tid, slots, need); break;
-        default: core_needs<4>(sh.prm[s], tid, slots, need);
-        }
-        int base[kCoreLists], end[kCoreLists];
-        const int entries = core_lists(sh, s, need, base, end);
-        if (entries == 0) continue;    // block-uniform: nothing needed
-        __syncthreads();
-        // Rounds of 32 entries of one list, round-robin over the warps.
-        for (int q = warp * 32; q < entries; q += kCoreThreads) {
-            int lst = 0;               // the list of round q: uniform
-#pragma unroll
-            for (int r = 1; r < kCoreLists; ++r) lst = q >= base[r] ? r : lst;
-            int stop = end[0];
-#pragma unroll
-            for (int r = 1; r < kCoreLists; ++r) {
-                stop = lst == r ? end[r] : stop;
-            }
-            core_eval(sh.prm[s], sh.list, sh.val, lst, cls, q + lane, stop);
-        }
-        __syncthreads();
-        core_sum(sh, acc);
+        if (core_chunk(sh, s, slots)) core_sum(sh, acc);
     }
     float* o = out + ((long long)b * num_tiles + t) * tile;
     float* dst = piece_dst(pc, o, b, t, piece, tile);
@@ -1089,15 +1153,6 @@ struct UnitShared {
     unsigned short first[kMaxChunk + 1];   // item i's units first[i] ..
     unsigned short list[kUnitListCap];     // (unit << 5 | point) by list
 };
-
-// The class of an item from y (CORR: the line's own y; the rows core: the
-// group's min y): 0 (skipped: y >= 70.55 or NaN, every term +0.0 in the
-// plain version), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4.
-__device__ __forceinline__ int pair_class(float y)
-{
-    return !(y < F(70.55)) ? 0 : y >= F(8.425) ? 1 : y >= F(6.8) ? 2
-        : y >= F(2.0) ? 3 : 4;
-}
 
 // The walked item of window w = {ws, we, c_int, c_frac} and f = {srw, y,
 // pref, -} in class ``cls``: a = w with the need window in place of [ws,
@@ -1450,114 +1505,243 @@ corr_walk_kernel(const float* __restrict__ soa, long long soa_b,
     piece_fold(pc, o, b, t, num_tiles, tile);
 }
 
-// _seg_chunk_accumulate over one core chunk at offset o = lane of its
-// segment: warp partial w adds instances 32w..32w+31 in order, the chunk
-// sum is ((w0 + w1) + w2) + w3.  An instance whose window [s_rel, e_rel]
-// misses offsets 0..31 (dead lanes among them) is skipped: every lane's
-// term would be +0.0.
-template <int CLASS>
-__device__ __forceinline__ float seg_core_chunk(
-    const float (*prm)[kCoreThreads], int lane)
+// ---- The segment pass (pylbl_seg; see the note at the top) ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p)
 {
-    const float o = (float)lane;
-    float total = 0.0f;
-#pragma unroll 1
-    for (int w = 0; w < kSegWarps; ++w) {
-        float part = 0.0f;
-        for (int j = 0; j < 32; ++j) {
-            const int i = w * 32 + j;
-            const float s_rel = prm[kSRel][i];
-            const float e_rel = prm[kERel][i];
-            if (e_rel < 0.0f || s_rel > 31.0f) continue;   // warp-uniform
-            const float x = ((prm[kSeg0Rel][i] + o) - prm[kCoreCFrac][i])
-                            * prm[kCoreSrw][i];
-            const float val = correction<CLASS>(x, prm[kCoreY][i]);
-            const bool in = (o >= s_rel) && (o <= e_rel);
-            part = part + (in ? prm[kCorePref][i] * val : 0.0f);
-        }
-        total = w == 0 ? part : total + part;
-    }
-    return total;
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// _seg_chunk_accumulate_lorentz over one wings chunk: the same over raw
-// SoA rows at the absolute point lo + lane; an instance whose window
-// misses lo .. lo + 31 is skipped.
-__device__ __forceinline__ float seg_wings_chunk(
-    const float (*prm)[kCoreThreads], float lo, int lane)
+__device__ __forceinline__ void mbar_init(unsigned long long* bar)
 {
-    const float point = lo + (float)lane;
-    const float hi = lo + 31.0f;
-    float total = 0.0f;
-#pragma unroll 1
-    for (int w = 0; w < kSegWarps; ++w) {
-        float part = 0.0f;
-        for (int j = 0; j < 32; ++j) {
-            const int i = w * 32 + j;
-            const float ws = prm[kSIdx][i];
-            const float we = prm[kEIdx][i];
-            if (we < lo || ws > hi) continue;   // warp-uniform
-            const float y = prm[kY][i];
-            const float pref_y = (prm[kPref][i] * y) * F(kRsqrpi);
-            const float ysq = y * y;
-            const float x = ((point - prm[kCInt][i]) - prm[kCFrac][i])
-                            * prm[kSrw][i];
-            const float val = pref_y / (x * x + ysq);
-            const bool in = (point >= ws) && (point <= we);
-            part = part + (in ? val : 0.0f);
-        }
-        total = w == 0 ? part : total + part;
-    }
-    return total;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(bar)) : "memory");
 }
 
-// Entry e of the stream-ordered chunk list (chunk ent_chunk[e] of stream
-// ent_stream[e]) is warp e % 4 of block e / 4; its 32-point sum goes to
-// sums[b, e, :].  The caller guarantees 16-byte aligned rows.
-template <int KIND>
-__global__ void __launch_bounds__(kCoreThreads)
-seg_chunk_kernel(const float* __restrict__ params, long long p_b,
+// One thread: the ``bytes`` of src to shared dst with the TMA's bulk copy,
+// counted on ``bar``, whose phase that thread's arrival (with the count)
+// completes once they have landed.
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar,
+                                            unsigned bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
+                    "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until ``bar`` has completed the phase of parity ``parity``.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity)
+{
+    unsigned done = 0;
+    while (!done) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+                     "\n selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
+                     : "memory");
+    }
+}
+
+// The segment core: block x walks entries x K .. x K + K - 1 (K =
+// ``piece``) of the stream-ordered list, layer blockIdx.y, and writes
+// each entry's chunk sum to sums[b, e, :] on its own (no accumulator, so
+// no value depends on K).  Per entry, the mixed-slot core's phases on one
+// slot (core_chunk: every instance of a segment chunk is in slot 0), then
+// core_sum's order for slot 0, its warp groups summed in parallel: warp g
+// adds group g's live instances in order from +0.0, zeroing the values it
+// reads, and warp 0 takes ((g0 + g1) + g2) + g3.  Rows 0-6 of the next
+// entry are staged while this one is worked, one TMA bulk copy (512
+// contiguous, 16-byte-aligned bytes) a row onto the ring slot's mbarrier
+// (2.5% faster than 16-byte cp.async on E x 16, PERF.md); the slot row is
+// never read from memory: it is 0 in both ring slots.
+__global__ void __launch_bounds__(kCoreThreads, kCoreBlocks)
+seg_core_kernel(const float* __restrict__ params, long long p_b,
+                long long p_r, const int* __restrict__ ent_chunk,
+                int num_entries, int piece, float* __restrict__ sums)
+{
+    __shared__ __align__(16) CoreShared sh;
+    __shared__ float group_sum[kCoreWarps][32];
+    __shared__ __align__(8) unsigned long long bar[2];
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float* p = params + b * p_b;
+    const int e0 = blockIdx.x * piece;
+    const int e1 = min(e0 + piece, num_entries);
+
+    for (int c = tid; c < kCoreThreads * 32; c += kCoreThreads)
+        sh.val[c] = 0.0f;
+    if (tid < kCoreWarps) sh.slot_of[0][tid] = 0u;
+    sh.prm[0][kSlot][tid] = 0.0f;
+    sh.prm[1][kSlot][tid] = 0.0f;
+    if (tid == 0) {
+        mbar_init(&bar[0]);
+        mbar_init(&bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    constexpr int kRowBytes = kCoreThreads * sizeof(float);
+    // One thread stages entry k into ring slot s (the proxy fence orders
+    // the block's reads of the slot's last entry before the copy).
+    auto stage = [&](int k, int s) {
+        if (tid != 0) return;
+        const float* src = p + (long long)ent_chunk[k] * kCoreThreads;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bulk_expect(&bar[s], kSlot * kRowBytes);
+        for (int r = 0; r < kSlot; ++r)
+            bulk_copy(sh.prm[s][r], src + r * p_r, kRowBytes, &bar[s]);
+    };
+    if (e0 < e1) stage(e0, 0);
+    for (int k = e0; k < e1; ++k) {
+        const int s = (k - e0) & 1;
+        // Entry k has landed (use (k - e0) / 2 of its slot's barrier), and
+        // every thread is done with entry k - 1, whose ring slot s ^ 1
+        // takes entry k + 1 while entry k is worked.
+        mbar_wait(&bar[s], ((k - e0) >> 1) & 1);
+        __syncthreads();
+        if (k + 1 < e1) stage(k + 1, s ^ 1);
+        const bool any = core_chunk(sh, s, 1);
+        if (any) {                     // block-uniform
+            float part = 0.0f;
+            for (unsigned m = sh.slot_of[0][warp]; m != 0u; m &= m - 1u) {
+                const int c = core_val(32 * warp + __ffs(m) - 1, lane);
+                part = part + sh.val[c];
+                sh.val[c] = 0.0f;
+            }
+            __syncwarp();
+            if (lane == 0) sh.slot_of[0][warp] = 0u;
+            group_sum[warp][lane] = part;
+            __syncthreads();
+        }
+        if (warp == 0) {
+            float total = 0.0f;
+            if (any) {
+                total = group_sum[0][lane];
+#pragma unroll
+                for (int g = 1; g < kCoreWarps; ++g)
+                    total = total + group_sum[g][lane];
+            }
+            sums[((long long)b * num_entries + k) * 32 + lane] = total;
+        }
+    }
+}
+
+// The lanes l whose point lo + l lies in the window [ws, we], as bits:
+// l >= ws - lo and l <= we - lo, exact where it decides (ws - lo and
+// we - lo near 0..31 are exact float differences, Sterbenz; beyond, their
+// rounding cannot cross 0 or 31); a NaN edge gives none, as the plain
+// version's comparisons.
+__device__ __forceinline__ unsigned seg_lane_mask(float2 w, float lo)
+{
+    const float a = ceilf(w.x - lo);
+    const float b = floorf(w.y - lo);
+    if (!(a <= b && b >= 0.0f && a <= 31.0f)) return 0u;
+    const int ia = (int)fmaxf(a, 0.0f);
+    const int ib = (int)fminf(b, 31.0f);
+    return (0xffffffffu >> (31 - ib)) & (0xffffffffu << ia);
+}
+
+// The segment wings' term of staged instance i = {f0, f1} (walk_slot
+// order, f1 prepacked: {srw, y^2, pref*y/sqrt(pi), lane mask}) at
+// ``point``, lane bit ``lane_bit``: the IEEE quotient of the plain
+// version where the point lies in the window, else +0.0.
+__device__ __forceinline__ float seg_wings_term(const float4* g, int i,
+                                                float point,
+                                                unsigned lane_bit)
+{
+    const float4 f0 = g[2 * i];
+    const float4 f1 = g[2 * i + 1];
+    const float x = ((point - f0.z) - f0.w) * f1.x;
+    const float val = f1.z / (x * x + f1.y);
+    return __float_as_uint(f1.w) & lane_bit ? val : 0.0f;
+}
+
+// The segment wings: warp w of block x walks entry e = x W + w (W =
+// kSegWingsWarps) of the stream-ordered list, layer blockIdx.y, with no
+// block barrier: the warp stages the entry's 7 rows with 16-byte cp.async
+// and takes its four groups of 32 instances in turn (warp partial w of
+// the chunk sum is group w).  Per group, lane l rewrites instance l
+// line-major into the warp's 1 KB line block (walk_slot: a term reads an
+// instance as two 16-byte broadcasts): y^2 and pref*y/sqrt(pi) in the
+// plain version's float32 order, and in the eighth float the lanes its
+// window holds (seg_lane_mask); a ballot lists the instances whose window
+// reaches the segment lo .. lo + 31.  An instance that misses it adds
+// +0.0 to every point, which leaves a sum that starts at +0.0 unchanged:
+// it is skipped, never loaded.  A group whose instances all reach the
+// segment (most groups: a chunk holds one stream's lines) takes its 32
+// terms unrolled, with no bit walk; else the warp walks the set bits in
+// order.  Lane = offset, each term masked by its lane bit (an AND and a
+// select; a window that holds the segment keeps every term).  The other
+// warps of the SM hide the wait for the rows.
+__global__ void __launch_bounds__(kSegWingsWarps * 32, kSegWingsBlocks)
+seg_wings_kernel(const float* __restrict__ params, long long p_b,
                  long long p_r, const int* __restrict__ ent_chunk,
                  const int* __restrict__ ent_stream, int num_entries,
                  float* __restrict__ sums)
 {
-    __shared__ __align__(16) float prm[kSegWarps][8][kCoreThreads];
+    __shared__ float4 rows_sh[kSegWingsWarps][kPad * 32];
+    __shared__ float4 line_sh[kSegWingsWarps][2 * 32];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int e = blockIdx.x * kSegWarps + warp;
-    if (e >= num_entries) return;
     const int b = blockIdx.y;
-    const float* p = params + b * p_b + (long long)ent_chunk[e] * kCoreThreads;
-    float (*mine)[kCoreThreads] = prm[warp];
+    const int e = blockIdx.x * kSegWingsWarps + warp;
+    if (e >= num_entries) return;
+    const float* src = params + b * p_b + (long long)ent_chunk[e]
+        * kCoreThreads + 4 * lane;
+    float4* dst = rows_sh[warp];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-        reinterpret_cast<float4*>(mine[r])[lane] =
-            __ldg(reinterpret_cast<const float4*>(p + r * p_r) + lane);
-    }
+    for (int r = 0; r < kPad; ++r)
+        cp_async16(reinterpret_cast<float*>(dst + r * 32 + lane),
+                   src + r * p_r);
+    cp_async_commit();
+    float4* g = line_sh[warp];
+    const unsigned lane_bit = 1u << lane;
+    const float lo = (float)(32 * ent_stream[e]);
+    const float hi = lo + 31.0f;
+    const float point = lo + (float)lane;
+    cp_async_wait_all();
     __syncwarp();
-    float sum;
-    if constexpr (KIND == kSegCore) {
-        float m = fminf(fminf(mine[kCoreY][lane], mine[kCoreY][lane + 32]),
-                        fminf(mine[kCoreY][lane + 64],
-                              mine[kCoreY][lane + 96]));
+    const float* rows = reinterpret_cast<const float*>(dst);
+    float total = 0.0f;
+    for (int w = 0; w < 4; ++w) {
+        const int i = 32 * w + lane;
+        const float ws = rows[kSIdx * kCoreThreads + i];
+        const float we = rows[kEIdx * kCoreThreads + i];
+        const float y = rows[kY * kCoreThreads + i];
+        g[2 * lane] = make_float4(ws, we, rows[kCInt * kCoreThreads + i],
+                                  rows[kCFrac * kCoreThreads + i]);
+        g[2 * lane + 1] = make_float4(
+            rows[kSrw * kCoreThreads + i], y * y,
+            (rows[kPref * kCoreThreads + i] * y) * F(kRsqrpi),
+            __uint_as_float(seg_lane_mask(make_float2(ws, we), lo)));
+        unsigned meet = __ballot_sync(0xffffffffu, !(we < lo || ws > hi));
+        __syncwarp();
+        float part = 0.0f;
+        if (meet == 0xffffffffu) {     // warp-uniform
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (m >= F(70.55)) {
-            sum = 0.0f;   // pure Lorentz chunk: adds +0.0
-        } else if (m >= F(8.425)) {
-            sum = seg_core_chunk<1>(mine, lane);
-        } else if (m >= F(6.8)) {
-            sum = seg_core_chunk<2>(mine, lane);
-        } else if (m >= F(2.0)) {
-            sum = seg_core_chunk<3>(mine, lane);
-        } else {
-            sum = seg_core_chunk<4>(mine, lane);
+            for (int j = 0; j < 32; ++j)
+                part = part + seg_wings_term(g, j, point, lane_bit);
         }
-    } else {
-        sum = seg_wings_chunk(mine, (float)(32 * ent_stream[e]), lane);
+        while (meet != 0xffffffffu && meet != 0u) {    // in order
+            const int j = __ffs(meet) - 1;
+            meet &= meet - 1u;
+            part = part + seg_wings_term(g, j, point, lane_bit);
+        }
+        total = w == 0 ? part : total + part;
+        __syncwarp();                  // the group's lines are rewritten
     }
-    sums[((long long)b * num_entries + e) * 32 + lane] = sum;
+    sums[((long long)b * num_entries + e) * 32 + lane] = total;
 }
 
 // Point p of layer b's [T * tile] output lies in stream p / 32 (tile
@@ -1807,27 +1991,31 @@ int pylbl_core_segmix(const float* params, long long p_b, long long p_r,
 // The stream-ordered chunk list (ops/lineshape_cuda.py SegStreams):
 // entry e is chunk ent_chunk[e] of stream ent_stream[e] (= tile * tile/32
 // + slot), stream s owns entries stream_ptr[s] .. stream_ptr[s + 1] - 1;
-// sums is a [B, max(E, 1), 32] scratch.  Rows 16-byte aligned.
+// sums is a [B, max(E, 1), 32] scratch.  Rows 16-byte aligned.  A
+// segment core block walks core_piece entries (the wings ignore it).
 int pylbl_seg(const float* params, long long p_b, long long p_r,
               const int* ent_chunk, const int* ent_stream, int num_entries,
               const int* stream_ptr, float* sums, float* out, int num_layers,
               int num_tiles, int tile, int chunk, int seg, int kind,
-              void* stream)
+              void* stream, int core_piece)
 {
     if (chunk != kCoreThreads || seg != 32 || tile > kMaxTile || tile % 32
             || (kind != kSegCore && kind != kSegWings)
+            || (kind == kSegCore && core_piece < 1)
             || reinterpret_cast<uintptr_t>(params) % 16 || p_b % 4
             || p_r % 4)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (num_entries > 0 && num_layers > 0) {
-        const dim3 grid((num_entries + kSegWarps - 1) / kSegWarps,
-                        num_layers);
         if (kind == kSegCore) {
-            seg_chunk_kernel<kSegCore><<<grid, kCoreThreads, 0, s>>>(
-                params, p_b, p_r, ent_chunk, ent_stream, num_entries, sums);
+            const dim3 grid((num_entries + core_piece - 1) / core_piece,
+                            num_layers);
+            seg_core_kernel<<<grid, kCoreThreads, 0, s>>>(
+                params, p_b, p_r, ent_chunk, num_entries, core_piece, sums);
         } else {
-            seg_chunk_kernel<kSegWings><<<grid, kCoreThreads, 0, s>>>(
+            const dim3 grid((num_entries + kSegWingsWarps - 1)
+                            / kSegWingsWarps, num_layers);
+            seg_wings_kernel<<<grid, kSegWingsWarps * 32, 0, s>>>(
                 params, p_b, p_r, ent_chunk, ent_stream, num_entries, sums);
         }
         const int err = (int)cudaGetLastError();

@@ -94,12 +94,22 @@ arch=compute_90a,code=sm_90a -fmad=false``; no ``--use_fast_math``):
 - Per-stream segment pass (replaces ``_seg_kernel(_batched)`` :842/:880
   with ``_seg_chunk_accumulate`` :762 or ``_seg_chunk_accumulate_lorentz``
   :806).  A chunk carries one slot, so it adds to one (tile, slot) stream.
-  One warp per (chunk, layer) loads the chunk with float4 loads and sums
-  it as the one-block walk did (lane = offset, warp partials over 32
-  instances in order, added in warp order), skipping instances whose
-  window misses the segment; a second launch adds each stream's chunk
-  sums in walk order, one thread per point.  Bound: the parameter bytes
-  (wings) or the Humlicek rationals (core).
+  A chunk kernel writes each walked chunk's sum in the one-block walk's
+  order (warp partials over 32 instances in order, added in warp order)
+  to a scratch row, and a second launch adds each stream's rows in walk
+  order, one thread per point.  The core (``seg_core_kernel``): the
+  chunk sum is the mixed-slot core's for one slot (the block's slot row
+  is zero), so a block of 4 warps walks :func:`seg_core_piece` entries
+  (each staged by TMA bulk copies while the last is worked) and runs the
+  mixed-slot core's classify, list and evaluate phases on each.  The
+  wings (``seg_wings_kernel``): each warp walks one entry on its own,
+  staged with 16-byte ``cp.async``, its
+  32-instance groups rewritten line-major with y^2, pref*y/sqrt(pi) and
+  the window's lanes (a bit mask), a ballot listing the instances that
+  reach the segment (a group that all reach takes its 32 terms
+  unrolled), the term the IEEE quotient of the plain version.
+  Bound: the Humlicek rationals of the points that need a correction
+  (core), instruction issue beside the bytes of the 7 rows read (wings).
 - Rows core (replaces ``_rows_kernel(_batched)`` :456/:505 and
   ``_rows_kernel_vmem`` :363).  One block of 8 warps per (piece, layer);
   warp r owns row r of the tile (tile/8 points), the piece's 32 groups of
@@ -156,6 +166,15 @@ WINGS_PIECE_CHUNKS = 1
 # The mixed-slot core's blocks one wave of the H100 holds: 132 SMs, 6
 # blocks of 128 threads an SM by the kernel's shared memory (kCoreBlocks).
 CORE_WAVE_BLOCKS = 132 * 6
+# The segment core's grid, which the launch passes to the kernel (pylbl_seg
+# core_piece): a block walks SEG_CORE_PIECE entries of the stream-ordered
+# chunk list where the layers hold at least SEG_CORE_MANY entries in all
+# (four waves of the H100's 132 SMs x 6 blocks at that piece), else 1
+# (:func:`seg_core_piece`).  Measured on Sc (2,909 entries: 1 the faster)
+# and S16 (63,472: 4 the faster), not between them (PERF.md).  No value
+# depends on it (each entry's sum stands alone).
+SEG_CORE_PIECE = 4
+SEG_CORE_MANY = 16 * CORE_WAVE_BLOCKS
 # Groups per piece of the rows core's split group walk (the kernel's
 # kRowsPiece): a quarter of a 128-group chunk, staged in one go (PERF.md
 # says why this width).
@@ -1084,7 +1103,8 @@ def bind_library(lib):
             p, p, i32, p,           # entry chunk, entry stream, E, ptr
             p, p,                   # sums [B, E, 32], out [B, T, tile]
             i32, i32, i32, i32, i32, i32,  # B, T, tile, chunk, seg, kind
-            p]                      # stream
+            p,                      # stream
+            i32]                    # core_piece
         lib.pylbl_rows.restype = ctypes.c_int
         lib.pylbl_rows.argtypes = [
             p, i64, i64,            # groups, batch stride, row stride
@@ -1186,6 +1206,14 @@ class TilePieces:
         return args, keep
 
 
+def seg_core_piece(entries, layers=1):
+    """Entries a segment core block walks for ``entries`` walked chunks a
+    layer over ``layers`` layers: :data:`SEG_CORE_PIECE` from
+    :data:`SEG_CORE_MANY` entries in all, else 1 (the launch passes it to
+    the kernel)."""
+    return SEG_CORE_PIECE if entries * layers >= SEG_CORE_MANY else 1
+
+
 def core_piece_chunks(counts):
     """Chunks per piece of the mixed-slot core's walk of ``counts`` chunks
     per tile ([T] or [B, T], numpy or a tensor): 1 when the walk of one
@@ -1274,11 +1302,18 @@ class SegStreams:
     def num_entries(self):
         return int(self.chunk.size)
 
-    def stats(self):
-        """Chunks, warps' blocks, streams and the longest stream fold (the
+    def stats(self, kind="core", layers=1):
+        """Chunks, streams, the longest stream fold and the grid of the
+        ``kind`` chunk kernel a layer over ``layers`` layers: the segment
+        core's blocks of :func:`seg_core_piece` entries (the piece its
+        launch passes), or the segment wings' warps, an entry a warp (the
         records of chip_smoke.py)."""
-        return {"chunks": self.num_entries,
-                "blocks": -(-self.num_entries // 4),   # a warp per chunk
+        grid = {"wings_warps": self.num_entries}
+        if kind == "core":
+            per_core = seg_core_piece(self.num_entries, layers)
+            grid = {"core_piece": per_core,
+                    "core_blocks": -(-self.num_entries // per_core)}
+        return {"chunks": self.num_entries, **grid,
                 "streams": self.num_streams,
                 "most_chunks_stream": int(np.diff(self.ptr).max(initial=0))}
 
@@ -1726,11 +1761,14 @@ def _core_values(row, offs, corr_fn):
 
 def _class_chunks(blocks):
     """(mask over [B, C] chunks, correction) per Humlicek class, picked by
-    the chunk's min y; chunks at y >= 70.55 are in none."""
+    the chunk's min y as the JAX conds pick it: chunks at y >= 70.55 are
+    in none, and a NaN min y (a NaN y: amin keeps it) fails every test and
+    takes the last class, the whole correction."""
     ymin = blocks[:, :, SR_Y].amin(dim=-1)
     taken = ymin >= _CORE_SKIP_Y
-    for threshold, corr_fn in _CORE_CLASSES:
-        cls = (~taken) & (ymin >= threshold)
+    last = len(_CORE_CLASSES) - 1
+    for k, (threshold, corr_fn) in enumerate(_CORE_CLASSES):
+        cls = ~taken if k == last else (~taken) & (ymin >= threshold)
         taken = taken | cls
         yield cls, corr_fn
 
@@ -1862,7 +1900,8 @@ def _launch_seg(params, streams, num_tiles, tile, chunk, seg, kind):
         _ptr(params), params.stride(0), params.stride(1), _ptr(ent_chunk),
         _ptr(ent_stream), streams.num_entries, _ptr(ptr), _ptr(sums),
         _ptr(out), batch, num_tiles, tile, chunk, seg, _SEG_KINDS[kind],
-        _stream_ptr(params.device))
+        _stream_ptr(params.device),
+        seg_core_piece(streams.num_entries, batch))
     _check_launch("seg", err)
     return out
 

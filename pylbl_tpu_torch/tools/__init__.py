@@ -11,15 +11,17 @@
   kernel envelope against the atmosphere-derived one;
 - ``bench_scaling``: the line-sharded step at spec 1, 2 and 4 on gloo
   ranks that share the card (work-model efficiency, float64 error);
-- ``wings_ab``: the wings kernel of this checkout against libraries built
-  from other versions of ``csrc/lineshape.cu``, in turns on the smoke's
-  inputs (the turns: ``ab``);
+- ``wings_ab``: the wings kernels of this checkout (the Lorentzian walk,
+  the segment wings) against libraries built from other versions of
+  ``csrc/lineshape.cu``, in turns on the smoke's inputs (the turns:
+  ``ab``);
 - ``core_census``: the Humlicek cores' work on the smoke's inputs (the
-  mixed-slot core, CORR and the rows core), by class and Humlicek region,
-  in the kernels' float32 arithmetic (runs on the CPU too);
+  mixed-slot core, the segment core, CORR and the rows core), by class
+  and Humlicek region, in the kernels' float32 arithmetic (runs on the
+  CPU too);
 - ``core_ab``: the Humlicek core kernels of this checkout (the mixed-slot
-  core, CORR, the rows core) against libraries built from other versions
-  of ``csrc/lineshape.cu``, in turns.
+  core, the segment core, CORR, the rows core) against libraries built
+  from other versions of ``csrc/lineshape.cu``, in turns.
 
 The benchmark entry point, ``python -m pylbl_tpu_torch bench``
 (``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
@@ -402,11 +404,43 @@ def pair_bytes(kind, data, index, num_points):
             + sum(t.numel() * t.element_size() for t in index))
 
 
+def seg_bytes(kind, params, streams, num_points):
+    """Bytes the segment pass must move (``kind`` "core" or "wings",
+    ``params`` [B, 8, I] or [8, I], ``streams`` its plan's
+    :class:`SegStreams`): the 7 parameter rows its chunk kernel reads of
+    each walked chunk (not the eighth: the core's zero slot row, the
+    wings' unread row), the int32 stream walk read once (the entries'
+    chunks, the wings' also their streams, the fold's stream pointers),
+    and its float32 output of ``num_points`` a layer written once."""
+    layers = params.numel() // (params.shape[-2] * params.shape[-1])
+    walk = streams.num_entries * (2 if kind == "wings" else 1) \
+        + streams.ptr.size
+    return 4 * (lc.N_FIELDS * lc.ROWS_CHUNK * streams.num_entries * layers
+                + walk + layers * num_points)
+
+
+def seg_wings_evals(params, streams):
+    """The segment wings' terms: each walked instance's window points
+    within its chunk's 32-point segment (absolute points 32 * stream ..
+    32 * stream + 31), over the layers of ``params`` [B, 8, I] or [8,
+    I]."""
+    dev = params.device
+    p = params.reshape(-1, lc.SEGP_ROWS, params.shape[-1] // lc.ROWS_CHUNK,
+                       lc.ROWS_CHUNK)
+    chunk = torch.as_tensor(streams.chunk, device=dev).long()
+    lo = (lc.SEG * torch.as_tensor(streams.stream, device=dev)).double()
+    lo = lo[None, :, None]
+    s = torch.maximum(p[:, lc.S_IDX].index_select(1, chunk).double(), lo)
+    e = torch.minimum(p[:, lc.E_IDX].index_select(1, chunk).double(),
+                      lo + (lc.SEG - 1))
+    return float((e - s + 1).clamp_min(0).sum())
+
+
 def census_bound(census, nbytes):
-    """The mixed-slot core's bound from its census: (ms, "operations" or
+    """A Humlicek core's bound from its census: (ms, "operations" or
     "bytes"), the larger of :func:`census_ops` over the FP32 peak and
-    ``nbytes`` (:func:`core_bytes`, :func:`pair_bytes`) over the memory
-    rate."""
+    ``nbytes`` (:func:`core_bytes`, :func:`pair_bytes`, :func:`seg_bytes`)
+    over the memory rate."""
     t_ops, t_bytes = census_ops(census) / PEAK_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")

@@ -7,7 +7,8 @@ library and through libraries built from other versions of the kernel
 source, in one process on one card, on the inputs of ``chip_smoke.py``::
 
     python -m pylbl_tpu_torch.tools.core_ab --other PATH.cu[:K] [...]
-        [--cells A16,A,B,C,D,F,G,Cc,Rc,Rv,R16] [--reps N] [--json OUT]
+        [--cells A16,A,B,C,D,F,G,Cc,Rc,Rv,R16,Sc,S16] [--reps N]
+        [--json OUT]
 
 Each ``--other`` names a source file or ``this``, and the chunks per
 piece its walk takes (default: the plan's, :func:`core_piece_chunks`,
@@ -16,7 +17,10 @@ core's pieces are fixed), as ``tools/ab.py`` says; another library must
 have this checkout's C entries.  The cells are ``core_census``'s: the
 mixed-slot core's A x 16, A, B, C, D, F's block of 4 and G's shard; CORR
 on C's core CSR ``Cc``; the rows core on C ``Rc``, the same with the
-separate min-y block ``Rv``, and on E x 16 ``R16``.
+separate min-y block ``Rv``, and on E x 16 ``R16``; the segment core
+(``pylbl_seg``, its chunk kernel and fold summed in the kernel-alone
+time) on C's plan with ``core_mode="seg"`` ``Sc`` and on E x 16 ``S16``
+(its grid is the library's: K is not read).
 
 Per cell the builds run in turns, timed with CUDA events and the kernel
 alone from a profiler trace (the call's host work, a scratch allocation
@@ -34,12 +38,12 @@ import torch
 
 from . import (PEAK_BYTES, PEAK_OPS, ab, card, census_bound, census_ops,
                core_usage, pair_usage, require_cuda)
-from .core_census import (CORE_CELLS, PairCell, build_cells,
-                          describe_cell)
+from .core_census import (CORE_CELLS, SEG_CELLS, PairCell, SegCell,
+                          build_cells, describe_cell)
 from ..ops import lineshape_cuda as lc
 
 KERNEL = "core_segmix_kernel"
-CELLS = CORE_CELLS + ("Cc", "Rc", "Rv", "R16")
+CELLS = CORE_CELLS + ("Cc", "Rc", "Rv", "R16") + SEG_CELLS
 
 
 class Runner:
@@ -81,8 +85,11 @@ def usage_line(use):
 
 
 def build_usages(log):
-    """The mixed-slot core's and the unit walk's ``ptxas_usage``."""
-    return {"segmix": core_usage(log), **pair_usage(log)}
+    """The mixed-slot core's, the unit walk's and the segment core's
+    ``ptxas_usage`` (an earlier build's: its chunk kernel's)."""
+    return {"segmix": core_usage(log), **pair_usage(log),
+            "seg_core": core_usage(log, "seg_core_kernel")
+            or core_usage(log, "seg_chunk_kernelILi0E")}
 
 
 def run(others, cells=CELLS, reps=10, out=None):
@@ -95,7 +102,7 @@ def run(others, cells=CELLS, reps=10, out=None):
         for kernel, use in uses.items():
             print(f"  {label}: {kernel} {usage_line(use)}")
     for cell in build_cells(list(cells), torch.device("cuda")):
-        pair = isinstance(cell, PairCell)
+        pair = isinstance(cell, (PairCell, SegCell))
         runner = cell if pair else Runner(cell)
         counts = cell.census()
         print(describe_cell(cell, counts))

@@ -16,7 +16,8 @@ y (:func:`rows_census`).  It runs on any device (the CPU too) on the
 inputs of ``chip_smoke.py``::
 
     python -m pylbl_tpu_torch.tools.core_census
-        [--cells A16,A,B,C,D,F,G,Cc,Rc,R16] [--device cpu|cuda] [--json OUT]
+        [--cells A16,A,B,C,D,F,G,Cc,Rc,R16,Sc,S16] [--device cpu|cuda]
+        [--json OUT]
 
 Cells of the mixed-slot core, built by ``wings_ab``'s builders: ``A16`` /
 ``A`` the 7-gas column at 0.1 cm-1, 16 layers / the first 2; ``B`` the
@@ -29,7 +30,12 @@ Of the unit walk: ``Cc`` CORR on C's layer over its core-window CSR
 raw SoA, whose windows are the wing windows); ``Rc`` the rows core of C's
 ``core_mode="rows"`` device plan; ``R16`` the rows core of C's pack over
 the canonical 16-layer column (E x 16, ``make_batched_fn(core_mode=
-"rows")``).
+"rows")``).  Of the segment core (``seg_core_kernel``, which runs the
+mixed-slot core's phases on chunks whose instances are all in slot 0, so
+that the mixed-slot census counts it): ``Sc`` C's plan with
+``core_mode="seg"``, ``S16`` E x 16 through ``make_batched_fn(core_mode=
+"seg")``; their bytes are the 7 parameter rows read, the stream walk and
+the output (:func:`pylbl_tpu_torch.tools.seg_bytes`).
 
 Per cell it prints the walked chunks (or items) by class, the in-window
 points, the needed points by list, the instances with an in-window point
@@ -51,10 +57,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import (CUT_OFF, PEAK_BYTES, PEAK_OPS, canonical_layers,
-               census_bound, census_ops, core_bytes, core_ops,
-               headline_pack, headline_workload, layer_workload, pair_bytes,
-               rows_ops, run_main, tile_ops)
+from . import (CUT_OFF, OPS_LORENTZ, PEAK_BYTES, PEAK_OPS,
+               canonical_layers, census_bound, census_ops, core_bytes,
+               core_ops, headline_pack, headline_workload, layer_workload,
+               pair_bytes, rows_ops, run_main, seg_bytes, seg_wings_evals,
+               tile_ops)
 from . import wings_ab
 from ..ops import lineshape_cuda as lc
 from ..ops.voigt import region_limits
@@ -63,7 +70,10 @@ CORE_CELLS = ("A16", "A", "B", "C", "D", "F", "G")
 # The unit walk's cells: CORR on C's core CSR, the rows core on C and
 # on E x 16.
 PAIR_CELLS = ("Cc", "Rc", "R16")
-CELLS = CORE_CELLS + PAIR_CELLS
+# The segment core's cells: C's plan with core_mode="seg", and E x 16
+# through make_batched_fn(core_mode="seg").
+SEG_CELLS = ("Sc", "S16")
+CELLS = CORE_CELLS + PAIR_CELLS + SEG_CELLS
 # Pair labels: offset outside the window, in the window with a +0.0
 # correction, then the lists.
 OUT, NONE, K1, R1, R2, R3, CPF_I, CPF_II = range(8)
@@ -417,6 +427,85 @@ def synthetic_core(seed=0, layers=2, tile=256, tile_chunks=(3, 0, 6),
     return params, t_start, t_chunks, t_chunks.size * tile
 
 
+def synthetic_segment(seed=0, kind="core", layers=2, tile=256,
+                      tile_chunks=(3, 0, 6), odd=True,
+                      classes=(0, 1, 2, 3, 4), slots_used=None):
+    """A segment pass input made from ``seed`` with numpy: ([B, 8, I]
+    float32 parameters, t_start, t_chunks, chunk_slot int32, num_points),
+    each walked chunk in a random slot of its tile (streams of several
+    chunks and empty ones).  "core": :func:`synthetic_core`'s chunks (every
+    class and Humlicek region, dead instances) with the slot row zero;
+    "wings": raw rows in absolute coordinates around each chunk's segment
+    (windows that hold it or end inside it; in two chunks of three also
+    windows that miss it, some empty, and a tenth dead; srw log-uniform
+    0.05-5, y 1e-3-30, prefactors of both signs).
+    With ``odd``: an infinite and a NaN prefactor, a NaN y, y = 0 at x = 0
+    in its window (core: in a class-4 chunk), and in the wings a NaN
+    window start.  ``classes``: the core chunks' classes in turn
+    (:func:`synthetic_core`); ``slots_used``: the chunks' slots are drawn
+    from the first ``slots_used`` of the tile's (longer streams)."""
+    rng = np.random.default_rng(seed)
+    t_chunks = np.asarray(tile_chunks, np.int32)
+    t_start = (np.cumsum(t_chunks) - t_chunks).astype(np.int32)
+    chunks = int(t_chunks.sum())
+    slots = tile // lc.SEG
+    chunk_slot = rng.integers(0, min(slots, slots_used or slots),
+                              chunks).astype(np.int32)
+    n = chunks * lc.ROWS_CHUNK
+    if kind == "core":
+        params = synthetic_core(seed, layers, tile, tile_chunks,
+                                classes)[0]
+        params[:, lc.SR_SLOT] = 0.0
+        if odd:
+            # Chunk 1 (K1): an infinite prefactor in offsets 3..9; chunk 4
+            # (class 4): a NaN prefactor and y = 0 at x = 0 (offset 5);
+            # chunk 3: a NaN y, whose NaN min y takes class 4 (the whole
+            # correction), as in the JAX conds.
+            c = lc.ROWS_CHUNK
+            for i, rows, vals in (
+                    (c + 40, (lc.SR_PREF, lc.SR_SREL, lc.SR_EREL),
+                     (np.inf, 3.0, 9.0)),
+                    (4 * c + 7, (lc.SR_PREF, lc.SR_SREL, lc.SR_EREL),
+                     (np.nan, 0.0, 31.0)),
+                    (4 * c + 9, range(lc.SR_SLOT),
+                     (-5.0, 0.0, 1.0, 0.0, 1.0, 2.0, 12.0)),
+                    (3 * c + 100, (lc.SR_Y,), (np.nan,))):
+                for r, v in zip(rows, vals):
+                    params[:, r, i] = v
+        return params, t_start, t_chunks, chunk_slot, t_chunks.size * tile
+    tiles = np.repeat(np.arange(t_chunks.size), t_chunks)
+    lo = np.repeat(tiles * tile + lc.SEG * chunk_slot,
+                   lc.ROWS_CHUNK).astype(np.float64)
+    center = lo + rng.integers(-40, 72, n)
+    # Windows that reach the segment (holding it or ending inside it); in
+    # every chunk but each third, also misses, random ones and dead fills.
+    start = lo + rng.integers(-60, 17, n)
+    end = lo + rng.integers(15, 80, n)
+    mixed = np.repeat(np.arange(chunks) % 3 != 0, lc.ROWS_CHUNK)
+    odd_w = mixed & (rng.random(n) < 0.3)
+    start = np.where(odd_w, lo + rng.integers(-20, 40, n), start)
+    end = np.where(odd_w, start + rng.integers(-3, 60, n), end)
+    rows = np.stack([center, rng.uniform(-0.5, 0.5, n),
+                     np.exp(rng.uniform(np.log(0.05), np.log(5.0), n)),
+                     np.exp(rng.uniform(np.log(1e-3), np.log(30.0), n)),
+                     rng.uniform(0.1, 2.0, n)
+                     * np.where(rng.random(n) < 0.2, -1.0, 1.0),
+                     start, end, np.zeros(n)]).astype(np.float32)
+    fills = np.asarray(lc._SEG_FILLS, np.float32)
+    rows[:, mixed & (rng.random(n) < 0.1)] = fills[:, None]
+    if odd:
+        rows[lc.PREF, 130] = np.inf
+        rows[lc.PREF, 260] = np.nan
+        rows[lc.Y, 300] = np.nan
+        rows[lc.S_IDX, 420] = np.nan
+        rows[:, 520] = (lo[520] + 5, 0.0, 1.0, 0.0, 1.0, lo[520] - 4,
+                        lo[520] + 40, 0.0)
+    params = np.stack([rows] * layers)
+    for b in range(1, layers):
+        params[b, lc.Y] = rows[lc.Y] * np.float32(1 + 0.1 * b)
+    return params, t_start, t_chunks, chunk_slot, t_chunks.size * tile
+
+
 # Synthetic pair-walk lines by class: y from (low, high), beside y = 0, a
 # tiny y and the classes' thresholds.
 _LINE_Y = ((70.55, 95.0), (8.425, 70.5), (6.8, 8.424), (2.0, 6.799),
@@ -608,6 +697,81 @@ class PairCell:
                              n, tile, ymin=self.ymin)
 
 
+class SegCell:
+    """One cell of the segment pass (``pylbl_seg``): its seg-mode
+    :class:`CorePlan` (``kind`` "core" or "wings") and parameters [B, 8, I]
+    or [8, I]; ``run(piece)`` launches the pass through the current
+    library (the chunk kernel's grid is the library's own: ``piece`` is
+    not read), ``plain(piece)`` its plain version; ``kernel`` the pass's
+    kernels' names in a profiler trace (this build's chunk kernel and the
+    fold, and the earlier builds' chunk kernel); ``nbytes`` its bytes
+    (:func:`seg_bytes`: 7 rows).  The core's census is the mixed-slot
+    core's over the plan's chunk CSR (its instances are all in slot 0);
+    the wings carry their terms ``evals``, ``ops`` (7 a term, the
+    Lorentzian's) and ``bound_ms``."""
+
+    KERNELS = {"core": ("seg_core_kernel", "seg_fold_kernel",
+                        "seg_chunk_kernel"),
+               "wings": ("seg_wings_kernel", "seg_fold_kernel",
+                         "seg_chunk_kernel")}
+
+    def __init__(self, name, plan, params):
+        self.name = name
+        self.plan = plan
+        self.params = params
+        self.kind = plan.kind
+        self.line = "seg"
+        self.kernel = self.KERNELS[self.kind]
+        self.nbytes = seg_bytes(self.kind, params, plan.streams,
+                                plan.num_points)
+        if self.kind == "wings":
+            self.evals = seg_wings_evals(params, plan.streams)
+            self.ops = OPS_LORENTZ * self.evals
+            self.bound_ms = max(self.ops / PEAK_OPS,
+                                self.nbytes / PEAK_BYTES) * 1e3
+
+    def census(self):
+        consts = self.plan._device_consts(self.params.device)
+        return census(self.params, consts["t_start"], consts["t_chunks"])
+
+    @property
+    def ops41(self):
+        return core_ops(self.params)
+
+    def run(self, piece=None):
+        return self.plan.seg_pass(self.params)
+
+    def plain(self, piece=None):
+        return self.plan.seg_pass(self.params, plain=True)
+
+
+def seg_layer_cell(name, device, work=None, **modes):
+    """Sc (``core_mode="seg"``) or Sw (``wings_mode="seg"``): the segment
+    pass of a layer's device plan (``chip_smoke.py`` phase 11)."""
+    work = work or headline_workload()
+    plan = lc.make_device_plan(work["arrays"], work["kin"], work["n"],
+                               work["npv"], CUT_OFF, device=device, **modes)
+    if "core_mode" in modes:
+        return SegCell(name, plan.core, plan.groups)
+    return SegCell(name, plan.wings, plan.soa)
+
+
+def seg_column_cell(device, work=None, layers=16):
+    """S16: the segment core of a layer's pack over the canonical column
+    of ``layers`` layers (E x 16, ``make_batched_fn(core_mode="seg")``,
+    ``chip_smoke.py`` phase 12)."""
+    from ..parallel.lines import make_batched_fn
+
+    work = work or headline_workload()
+    fn = make_batched_fn(work["pack"], work["grid"], core_mode="seg",
+                         device=device)
+    t, p, vmr = canonical_layers(layers)
+    _, core = fn.stage.assemble(*(torch.as_tensor(a, dtype=torch.float32,
+                                                  device=device)
+                                  for a in (t, p, vmr["H2O"])))
+    return SegCell("S16", fn.core_plan, core)
+
+
 def corr_cell(device, work=None):
     """Cc: CORR over a layer's raw SoA and the tile CSR of its core windows
     (``chip_smoke.py`` phase 11; ``work``: a ``layer_workload``, the
@@ -668,7 +832,7 @@ def build_cells(names, device, work=None):
     grid = {k: np.arange(*v) for k, v in wings_ab.GRIDS.items()}
     layers = {"A16": ("A", slice(0, 16)), "A": ("A", slice(0, 2)),
               "B": ("B", [0, 5]), "F": ("F", slice(0, 4))}
-    if set(names) & {"Cc", "Rc", "Rv", "R16"}:
+    if set(names) & {"Cc", "Rc", "Rv", "R16", "Sc", "S16"}:
         work = work or headline_workload()
     cells = []
     for name in names:
@@ -692,6 +856,11 @@ def build_cells(names, device, work=None):
             cells.append(rows_layer_cell(name, device, name == "Rv", work))
         elif name == "R16":
             cells.append(rows_column_cell(device, work))
+        elif name == "Sc":
+            cells.append(seg_layer_cell(name, device, work,
+                                        core_mode="seg"))
+        elif name == "S16":
+            cells.append(seg_column_cell(device, work))
         else:
             raise ValueError(f"unknown cell {name!r}")
     return cells

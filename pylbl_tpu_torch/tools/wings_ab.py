@@ -7,7 +7,8 @@ library and through libraries built from other versions of the kernel
 source, in one process on one card, on the inputs of ``chip_smoke.py``::
 
     python -m pylbl_tpu_torch.tools.wings_ab --other PATH.cu[:K] [...]
-        [--cells D,Cr,Bs,Co,E2,A16,A,B,C,Ct,F,G] [--reps N] [--json OUT]
+        [--cells D,Cr,Bs,Co,E2,A16,A,B,C,Ct,F,G,Sw] [--reps N]
+        [--json OUT]
 
 Each ``--other`` names a source file or ``this``, and the chunks per
 piece its wings walk takes (default: :data:`WINGS_PIECE_CHUNKS`), as
@@ -42,14 +43,22 @@ Of the ownership-checked raw Lorentzian (OWN):
   column) on one straddle CSR at the batched pipeline's stride
   (``wings_strided_checked``, phase 12).
 
+Of the segment wings (``pylbl_seg``, kind "wings"):
+
+- ``Sw``: C's plan with ``wings_mode="seg"`` (phase 11); its bound the
+  larger of 7 operations a term and the bytes of the 7 rows read, the
+  stream walk and the output (``seg_bytes``); its grid is the
+  library's, so K is not read.
+
 Per cell the builds run in turns and are compared with the plain version
 at their piece size (``tools/ab.py``), each timed with CUDA events and
 the wings kernel alone from a profiler trace (``lorentz_walk_kernel`` or
-``wings_kernel``).  Each cell prints its line kind, its counted
+``wings_kernel``; Sw: the chunk kernel ``seg_wings_kernel``, or an
+earlier build's ``seg_chunk_kernel``, and ``seg_fold_kernel``).  Each cell prints its line kind, its counted
 evaluations, its bound (``tile_ops`` at 67 TFLOP/s), its reciprocal floor
 (:func:`rcp_floor_ms` at the SM clock nvidia-smi reads under load) and
 each build's times; each build prints its Lorentzian walk's registers
-and spills by line kind from ``-Xptxas -v``.  This build reads 0 against
+and spills by line kind, and its segment wings', from ``-Xptxas -v``.  This build reads 0 against
 its plain version on every cell; a build whose RAW or OWN term is still
 the IEEE quotient (before the walk took them) differs from it by that
 rounding.  Without CUDA it exits with code 2.
@@ -58,14 +67,14 @@ import numpy as np
 import torch
 
 from . import (CUT_OFF, OPS_LORENTZ, PEAK_BYTES, PEAK_OPS, ab,
-               canonical_layers, card, headline_pack, headline_workload,
-               layer_workload, rcp_floor_ms, require_cuda, sm_clock_mhz,
-               tile_ops, walk_usage)
+               canonical_layers, card, core_usage, headline_pack,
+               headline_workload, layer_workload, rcp_floor_ms,
+               require_cuda, sm_clock_mhz, tile_ops, walk_usage)
 from ..database.fixtures import synthetic_line_pack
 from ..ops import lineshape_cuda as lc
 
 CELLS = ("D", "Cr", "Bs", "Co", "E2", "A16", "A", "B", "C", "Ct", "F",
-         "G")
+         "G", "Sw")
 # The line kind of each cell that is not the prepacked wings'.
 LINES = {"D": "raw", "Cr": "raw", "Bs": "raw", "Co": "own", "E2": "own"}
 # The wings kernels' names in a profiler trace: the Lorentzian walk, and
@@ -96,7 +105,10 @@ def layer_inputs(names, layers):
 class Cell:
     """One cell's wings inputs: ``run(piece)`` runs the pass with pieces
     of ``piece`` chunks through the current library, ``plain(piece)`` its
-    plain version, ``evals`` its counted terms, ``line`` its line kind."""
+    plain version, ``evals`` its counted terms, ``line`` its line kind,
+    ``kernel`` its kernels' names in a profiler trace."""
+
+    kernel = KERNELS
 
     def __init__(self, name, soa, n_out, launch, plain, counts, inputs):
         self.name = name
@@ -310,6 +322,16 @@ def shard_stage(packs, grid, device, spec=2, mode="balanced", tile=1024):
     return stage, soa, core
 
 
+def seg_wings_cell(device, work=None):
+    """Sw: the segment wings (``pylbl_seg``) of C's plan with
+    ``wings_mode="seg"`` (phase 11), a ``core_census.SegCell``: its bound
+    the larger of 7 operations a term and the 7 rows read
+    (``seg_bytes``)."""
+    from .core_census import seg_layer_cell
+
+    return seg_layer_cell("Sw", device, work, wings_mode="seg")
+
+
 def build_cells(names, device):
     packs = column_packs() if set(names) & {"A16", "A", "B", "Bs", "F",
                                             "G"} else None
@@ -332,11 +354,19 @@ def build_cells(names, device):
         "F": lambda: stacked_cell("F", packs, grid["F"], slice(0, 4),
                                   device),
         "G": lambda: shard_cell(packs, grid["A"], device),
+        "Sw": lambda: seg_wings_cell(device),
     }
     unknown = [name for name in names if name not in makers]
     if unknown:
         raise ValueError(f"unknown cell(s) {unknown}; cells: {CELLS}")
     return [makers[name]() for name in names]
+
+
+def seg_wings_usage(log):
+    """The segment wings' chunk kernel's ``ptxas_usage`` (an earlier
+    build's ``seg_chunk_kernel<1>``); None when the log has neither."""
+    return (core_usage(log, "seg_wings_kernel")
+            or core_usage(log, "seg_chunk_kernelILi1E"))
 
 
 def run(others, cells=CELLS, reps=10, out=None):
@@ -347,9 +377,13 @@ def run(others, cells=CELLS, reps=10, out=None):
     for label, kinds in usage.items():
         for kind, use in (kinds or {}).items():
             print(f"  {label}: Lorentzian walk ({kind.upper()}) {use}")
-    report = {"card": card(), "walk_usage": usage, "cells": {}}
+    seg = ab.build_usage(builds, seg_wings_usage)
+    for label, use in seg.items():
+        print(f"  {label}: segment wings {use}")
+    report = {"card": card(), "walk_usage": usage, "seg_wings_usage": seg,
+              "cells": {}}
     for cell in build_cells(list(cells), torch.device("cuda")):
-        turns = ab.in_turns(builds, cell.run, cell.plain, reps, KERNELS)
+        turns = ab.in_turns(builds, cell.run, cell.plain, reps, cell.kernel)
         mhz = sm_clock_mhz(lambda: cell.run(lc.WINGS_PIECE_CHUNKS))
         record = {"line": cell.line, "evals": cell.evals,
                   "bound_ms": cell.bound_ms, "sm_mhz": mhz,

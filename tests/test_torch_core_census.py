@@ -123,6 +123,36 @@ def test_census_matches_brute_force(seed):
     assert ((params[:, lc.SR_EREL] < 0) | (params[:, lc.SR_SREL] > 31)).any()
 
 
+@pytest.mark.parametrize("seed,classes", [(0, (0, 1, 2, 3, 4)),
+                                          (5, (4, 4, 4, 1))])
+def test_segment_census_matches_brute_force(seed, classes):
+    """The segment core's census (``SegCell.census``: the mixed-slot
+    census over a seg plan's chunk CSR, its instances all in slot 0) on
+    a synthetic segment input of every class (and a class-4-heavy one)
+    in streams of several chunks: the brute-force counts."""
+    params, t_start, t_chunks, c_slot, n = cc.synthetic_segment(
+        seed, "core", odd=False, classes=classes, slots_used=2)
+    plan = lc.CorePlan.__new__(lc.CorePlan)       # the walk alone
+    plan.kind, plan.tile, plan.num_points, plan._dev = "core", 256, n, {}
+    plan.mode, plan.t_start, plan.t_chunks = "seg", t_start, t_chunks
+    plan.slot, plan.c_slot = None, c_slot
+    plan.seg0 = plan.inst_line = np.zeros(params.shape[-1], np.int64)
+    plan.streams = lc.SegStreams(t_start, t_chunks, c_slot, 8)
+    cell = cc.SegCell("S", plan, torch.as_tensor(params))
+    got = cell.census()
+    labels, classes_seen, instances, nothing, by_list = brute_force(
+        params, t_start, t_chunks)
+    assert (params[:, lc.SR_SLOT] == 0).all()
+    assert list(got["chunks_by_class"].values()) == classes_seen
+    assert got["needed"] == {k: labels[k] for k in got["needed"]}
+    assert got["needed"]["cpf12_i"] and got["needed"]["r3"]
+    assert got["in_window"] == sum(labels.values()) - labels["out"]
+    assert got["instances"] == instances
+    assert got["instances_needing_nothing"] == nothing
+    assert got["instances_by_list"] == by_list
+    assert np.diff(plan.streams.ptr).max() > 1
+
+
 def test_census_counts_add_up():
     """needed + in-window needing nothing = in-window; in-window + outside
     = lane evaluations; the classes add up to the chunks; on the

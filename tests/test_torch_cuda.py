@@ -206,10 +206,50 @@ def seg_plans(layers, npv, n, tile, batched, device):
             (wings, torch.as_tensor(wings_params, device=device))]
 
 
+def synthetic_seg(kind, tile, batched, device, **kwargs):
+    """A synthetic segment input (tools/core_census.py
+    ``synthetic_segment``: every class and region, or class-4-heavy; an
+    infinite and a NaN prefactor, a NaN y, y = 0 at x = 0, dead instances,
+    empty streams) on ``device``: (params, streams, CSR tensors, n)."""
+    from pylbl_tpu_torch.tools.core_census import synthetic_segment
+
+    params, t_start, t_chunks, c_slot, n = synthetic_segment(
+        kind=kind, tile=tile, **kwargs)
+    params = torch.as_tensor(params if batched else params[0],
+                             device=device)
+    streams = lc.SegStreams(t_start, t_chunks, c_slot, tile // 32)
+    return params, streams, streams.tensors(device)[3:], n
+
+
+def check_synthetic_seg(device, tile, batched, **kwargs):
+    """The segment core (every class; class-4-heavy) and wings on
+    synthetic inputs with non-finite values: bit for bit (NaN where the
+    plain version's is), repeats bit for bit.  Returns the launches."""
+    cases = [("core", {}), ("core", {"classes": (4, 4, 4, 1)}),
+             ("wings", {})]
+    for seed, (kind, extra) in enumerate(cases):
+        params, streams, csr, n = synthetic_seg(kind, tile, batched, device,
+                                                seed=seed, **extra, **kwargs)
+        got = lc.seg_pass(params, streams, n, tile, kind=kind)
+        again = lc.seg_pass(params, streams, n, tile, kind=kind)
+        want = lc.seg_plain(params, *csr, n, tile, kind=kind)
+        torch.cuda.synchronize()
+        assert got.shape == ((2, n) if batched else (n,))
+        finite = torch.isfinite(want)
+        assert bool(torch.isnan(want).any()) and bool((~finite).any())
+        assert float(want[finite].abs().max()) > 0
+        assert nan_equal(got, want) and nan_equal(again, got)
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+    return len(cases)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", [256, 1024])
 @pytest.mark.parametrize("batched", [False, True])
 def test_seg_kernels_match_plain(cuda_device, tile, batched):
+    """The segment core and wings on a real plan, and on synthetic inputs
+    of every class (and class-4-heavy) with non-finite values: bit for
+    bit."""
     layers, npv, n = single_gas_layers(0.1)
     lc.reset_launches()
     for plan, params in seg_plans(layers, npv, n, tile, batched,
@@ -221,6 +261,9 @@ def test_seg_kernels_match_plain(cuda_device, tile, batched):
         assert float(want.abs().max()) > 0 and torch.equal(got, want)
     assert lc.LAUNCHES["seg_core"] == 1 and lc.LAUNCHES["seg_wings"] == 1
     assert sum(lc.LAUNCHES.values()) == 2
+    cases = check_synthetic_seg(cuda_device, tile, batched)
+    assert lc.LAUNCHES["seg_core"] + lc.LAUNCHES["seg_wings"] == \
+        2 + 2 * cases
 
 
 @pytest.mark.gpu
@@ -518,6 +561,33 @@ def test_core_lists_equal_plain_at_each_piece(cuda_device, seed, tile,
 
 
 @pytest.mark.gpu
+def test_core_takes_the_whole_correction_where_a_chunk_min_y_is_nan(
+        cuda_device):
+    """A NaN y makes its chunk's min y NaN (the plain version's amin, as
+    jnp.min), which fails every test of the JAX conds: the mixed-slot core
+    gives the chunk class 4, the whole correction, and the NaN-y instance
+    adds nothing (correction(x, NaN) is 0).  Equal to the plain version bit
+    for bit, and to the chunk with that instance at a class-4 y and an
+    empty window (tests/test_torch_seg_walk.py holds the plain version
+    against the JAX kernel there)."""
+    params, t_start, t_chunks, host, n = core_input(4, cuda_device,
+                                                    layers=1)
+    col = int(host[:2].sum()) * 128 + 40          # tile 2's first chunk
+    params[0, lc.SR_Y, col] = float("nan")
+    got = lc.core_segmix_pass(params, t_start, t_chunks, n, 256)
+    want = lc.core_segmix_plain(params, t_start, t_chunks, n, 256)
+    assert torch.equal(got, want)
+    as4 = params.clone()
+    as4[0, lc.SR_Y, col] = 1.0
+    as4[0, lc.SR_SREL, col] = 1.0
+    as4[0, lc.SR_EREL, col] = 0.0
+    assert torch.equal(lc.core_segmix_plain(as4, t_start, t_chunks, n, 256),
+                       want)
+    assert torch.equal(lc.core_segmix_pass(as4, t_start, t_chunks, n, 256),
+                       got)
+
+
+@pytest.mark.gpu
 def test_core_keeps_a_non_finite_prefactor_to_its_points(cuda_device):
     """An instance of infinite prefactor: its slot's points of its window
     offsets are not finite (the whole correction times inf), every other
@@ -681,6 +751,11 @@ def test_split_seg_kernels_equal_plain(cuda_device, batched):
         assert float(want.abs().max()) > 0
         assert torch.equal(got, want) and torch.equal(got, again)
     assert lc.LAUNCHES["seg_core"] == 2 and lc.LAUNCHES["seg_wings"] == 2
+    # Synthetic streams of many chunks (two slots of a tile in use), at
+    # tiles 256 and 1024, with non-finite values.
+    for tile in (256, 1024):
+        check_synthetic_seg(cuda_device, tile, batched,
+                            tile_chunks=(21, 0, 18), slots_used=2)
 
 
 @pytest.mark.gpu

@@ -644,8 +644,15 @@ def test_seg_streams_plan():
     assert list(streams.chunk) == [1, 4, 0, 2, 3, 7, 5, 6]
     assert list(streams.stream) == [0, 0, 1, 1, 1, 4, 6, 6]
     assert list(streams.ptr) == [0, 2, 5, 5, 5, 6, 6, 8, 8, 8, 8, 8, 8]
-    assert streams.stats() == {"chunks": 8, "blocks": 2, "streams": 12,
+    assert streams.stats() == {"chunks": 8, "core_piece": 1,
+                               "core_blocks": 8, "streams": 12,
                                "most_chunks_stream": 3}
+    assert streams.stats("wings", 16) == {"chunks": 8, "wings_warps": 8,
+                                          "streams": 12,
+                                          "most_chunks_stream": 3}
+    many = lc.SEG_CORE_MANY
+    assert lc.seg_core_piece(many // 16, 16) == lc.SEG_CORE_PIECE
+    assert lc.seg_core_piece(many - 1) == 1
     again = lc.SegStreams(*(torch.as_tensor(a) for a in (
         tile_start, tile_chunks, chunk_slot)), 4)
     assert list(again.chunk) == list(streams.chunk)

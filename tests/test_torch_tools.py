@@ -231,9 +231,10 @@ def test_core_ab_refuses_without_cuda_and_parses_its_builds(monkeypatch,
     assert ab.parse_other("a/b.cu", lc.WINGS_PIECE_CHUNKS) == (
         Path("a/b.cu"), lc.WINGS_PIECE_CHUNKS)
     assert core_census.CORE_CELLS == ("A16", "A", "B", "C", "D", "F", "G")
-    assert core_census.CELLS == core_census.CORE_CELLS + ("Cc", "Rc", "R16")
+    assert core_census.CELLS == core_census.CORE_CELLS + ("Cc", "Rc", "R16",
+                                                          "Sc", "S16")
     assert core_ab.CELLS == core_census.CORE_CELLS + ("Cc", "Rc", "Rv",
-                                                      "R16")
+                                                      "R16", "Sc", "S16")
     with pytest.raises(SystemExit):
         core_ab.main(["--reps", "x"])
 
@@ -299,6 +300,56 @@ def test_core_ab_unit_walk_cells_on_cpu(monkeypatch, capsys):
     assert "needs a CUDA card" in capsys.readouterr().out
 
 
+def test_segment_cells_on_cpu(monkeypatch, capsys):
+    """The segment pass's cells, made at a small size on the CPU (3000
+    headline lines): core_ab's Sc (C's plan, ``core_mode="seg"``) and S16
+    (the canonical 16-layer column, ``make_batched_fn(core_mode="seg")``)
+    and wings_ab's Sw (``wings_mode="seg"``); each launch (the plain
+    version here) equals its plain version; their kernels' names cover
+    the chunk kernel, the fold and the earlier chunk kernel; their bytes
+    are the 7 rows read; the wings' bound is the larger of 7 operations a
+    term and those bytes; the cores' census sees needed points and
+    describes both bounds.  Asked for these cells, both tools exit 2
+    without a card."""
+    from pylbl_tpu_torch.tools import (OPS_LORENTZ, PEAK_BYTES, PEAK_OPS,
+                                       seg_bytes, seg_wings_evals)
+
+    work = layer_workload(headline_pack(3000, nu_max=260.0),
+                          np.arange(1.0, 220.0, 0.1))
+    cells = core_census.build_cells(["Sc", "S16"], "cpu", work)
+    cells.append(wings_ab.seg_wings_cell("cpu", work))
+    assert [c.name for c in cells] == ["Sc", "S16", "Sw"]
+    assert [c.kind for c in cells] == ["core", "core", "wings"]
+    assert cells[1].params.shape[0] == 16
+    lc.reset_launches()
+    for cell in cells:
+        assert cell.kernel[1:] == ("seg_fold_kernel", "seg_chunk_kernel")
+        got = cell.run(None)
+        assert got.shape[-1] == work["n"] and float(got.abs().max()) > 0
+        assert torch.equal(got, cell.plain(None))
+        assert cell.nbytes == seg_bytes(cell.kind, cell.params,
+                                        cell.plan.streams, work["n"])
+        if cell.kind == "wings":
+            evals = seg_wings_evals(cell.params, cell.plan.streams)
+            assert cell.evals == evals > 0
+            assert cell.bound_ms == max(OPS_LORENTZ * evals / PEAK_OPS,
+                                        cell.nbytes / PEAK_BYTES) * 1e3
+            continue
+        counts = cell.census()
+        assert counts["needed_total"] > 0
+        text = core_census.describe_cell(cell, counts)
+        bound, bound_by = census_bound(counts, cell.nbytes)
+        assert f"bound {bound:.6f} ms ({bound_by}, {cell.nbytes} bytes)" \
+            in text and "core_ops" in text
+    assert sum(lc.LAUNCHES.values()) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert core_ab.main(["--other", "build/ab_src/parent/lineshape.cu",
+                         "--cells", "Sc,S16"]) == 2
+    assert wings_ab.main(["--other", "build/ab_src/parent/lineshape.cu",
+                          "--cells", "Sw"]) == 2
+    assert capsys.readouterr().out.count("needs a CUDA card") == 2
+
+
 def ptxas_entry(name, registers, stores=0, loads=0, smem=16):
     """One kernel's lines of nvcc's ``-Xptxas -v`` report."""
     return (f"ptxas info    : Compiling entry function '{name}' for "
@@ -322,7 +373,7 @@ def test_wings_ab_cells_and_walk_usage_by_line_kind(monkeypatch, capsys):
     kernel and the core are not the walk), and an earlier build's walk of
     one template argument as PRE."""
     assert wings_ab.CELLS == ("D", "Cr", "Bs", "Co", "E2", "A16", "A", "B",
-                              "C", "Ct", "F", "G")
+                              "C", "Ct", "F", "G", "Sw")
     assert wings_ab.LINES == {"D": "raw", "Cr": "raw", "Bs": "raw",
                               "Co": "own", "E2": "own"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -379,6 +430,28 @@ def test_pair_usage_reads_the_unit_walks_and_the_earlier_corr():
         "registers": 64, "spill_stores": 28, "spill_loads": 40,
         "smem": 28688}
     assert pair_usage("") == {"corr": None, "rows": None, "rows_vmem": None}
+
+
+def test_segment_usage_reads_this_and_the_earlier_chunk_kernels():
+    """core_ab's and wings_ab's reading of the segment pass's chunk
+    kernels from a ``-Xptxas -v`` log: ``seg_core_kernel`` and
+    ``seg_wings_kernel``, or an earlier build's ``seg_chunk_kernel<0>``
+    and ``<1>``."""
+    seg_args = "EEvPKfxxPKiiPf"
+    log = "".join([
+        ptxas_entry(f"{NS}15seg_core_kernelILb0{seg_args}", 59, smem=34288),
+        ptxas_entry(f"{NS}16seg_wings_kernelEPKfxxPKiS3_iPf", 37,
+                    smem=32768)])
+    assert core_ab.build_usages(log)["seg_core"]["registers"] == 59
+    assert wings_ab.seg_wings_usage(log) == {
+        "registers": 37, "spill_stores": 0, "spill_loads": 0,
+        "smem": 32768}
+    earlier = "".join(ptxas_entry(
+        f"{NS}16seg_chunk_kernelILi{k}EEEvPKfxxPKiS4_iPf", 40 + k)
+        for k in (0, 1))
+    assert core_ab.build_usages(earlier)["seg_core"]["registers"] == 40
+    assert wings_ab.seg_wings_usage(earlier)["registers"] == 41
+    assert wings_ab.seg_wings_usage("") is None
 
 
 def test_wings_ab_raw_and_own_cells_on_cpu():
