@@ -132,6 +132,15 @@ kernels and the native pedestal scan from this checkout into ``build/``
     ``Gas(pack, "H2O", np.float32)`` by position (phase 8's spectrum bit
     for bit) and ``make_batched_tpu_fn`` by position against
     ``make_batched_fn`` on two of phase 10's layers, bit for bit.
+19. non-finite lines: every kernel (all fifteen counters) on a small
+    poisoned input (``pylbl_tpu_torch/tools/nonfinite.py``: prefactors of
+    +inf, -inf and NaN, a NaN y, a NaN y with an infinite prefactor, y =
+    0 at x = 0, a NaN srw, NaN window edges; the segment passes and the
+    mixed-slot core on ``synthetic_segment``'s poisoned input), then CORR
+    (one layer, two) and the rows core (one layer, two, the separate
+    min-y block) on the NaN-y inputs, where a NaN y takes the whole
+    correction as JAX's conds: each kernel equals its plain version bit
+    for bit, NaN where its NaN is, and a repeat equals it too.
 
 Every kernel equals its plain version bit for bit.  Each kernel record
 carries its launches on its path, its time and its plain version's, and
@@ -2006,6 +2015,48 @@ def phase_compat(torch, P, lc, pack, grid, col, k_c):
           "bit")
 
 
+def bits_equal(torch, got, want):
+    """NaN where ``want`` has NaN, every other bit equal."""
+    nan = torch.isnan(want)
+    return got.shape == want.shape and torch.equal(torch.isnan(got), nan) \
+        and torch.equal(got[~nan].view(torch.int32),
+                        want[~nan].view(torch.int32))
+
+
+def phase_nonfinite(torch, lc):
+    """Phase 19: every kernel on a small poisoned input
+    (``pylbl_tpu_torch/tools/nonfinite.py``), held to its plain version bit
+    for bit, a repeat too; then CORR and the rows core on the NaN-y
+    inputs."""
+    from pylbl_tpu_torch.tools.nonfinite import (KERNEL_CASES, family_case,
+                                                 nan_y_corr, nan_y_rows)
+
+    start = time.perf_counter()
+    cases = [family_case(f, n, "cuda") for f, n in KERNEL_CASES]
+    cases += [nan_y_corr(1, "cuda"), nan_y_corr(2, "cuda"),
+              nan_y_rows(1, "cuda"), nan_y_rows(2, "cuda"),
+              nan_y_rows(1, "cuda", vmem=True)]
+    lc.reset_launches()
+    for case in cases:
+        before = lc.LAUNCHES[case.counter]
+        got, again = case.run(), case.run()
+        want = case.plain()
+        torch.cuda.synchronize()
+        nan = int(torch.isnan(want).sum())
+        inf = int(torch.isinf(want).sum())
+        check(lc.LAUNCHES[case.counter] == before + 2
+              and bits_equal(torch, got, want)
+              and bits_equal(torch, again, got),
+              f"phase 19 {case.counter} ({case.family}, {case.layers} "
+              f"layer(s), {nan} NaN and {inf} infinite points of "
+              f"{want.numel()}) equals its plain version bit for bit, "
+              "repeat too")
+    launches = dict(lc.LAUNCHES)
+    check(set(launches) == set(KERNELS) and all(launches.values()),
+          f"phase 19 ran every kernel on poisoned lines: {launches}")
+    print(f"phase 19 took {time.perf_counter() - start:.1f} s")
+
+
 def phase_bench(headline_rate, card, records):
     """Phase 17: ``python -m pylbl_tpu_torch bench`` as a user runs it, at
     the JAX bench's widths."""
@@ -2302,6 +2353,10 @@ def main():
     phase_installed(torch, k_c)
     phase_compat(torch, P, lc, gas.pack, grid_h, col_a, k_c)
     print(f"phase 18 took {time.perf_counter() - start:.1f} s")
+
+    # Phase 19: every kernel on poisoned lines (after the records' counts:
+    # these launches are not the main path's).
+    phase_nonfinite(torch, lc)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",

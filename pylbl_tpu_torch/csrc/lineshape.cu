@@ -149,7 +149,9 @@
 //   and per slot adds each warp group's live instances in order from
 //   +0.0, then ((g0 + g1) + g2) + g3 into its registers' piece accumulator
 //   (core_sum).  A skipped term is +/-0.0 and a sum that starts at +0.0
-//   never holds -0.0, so the bits are those of every term added; the
+//   never holds -0.0, so the bits are those of every term added; an
+//   offset whose sum went non-finite in one slot is NaN in the tile's
+//   other slots, as the one-hot product's 0 * inf (core_spread); the
 //   pieces fold into the tile in piece order (piece_fold).  The kernel is
 //   bound by instruction issue and its barriers: more code (a phase
 //   compiled per class, two entries a lane, unrolled or regrouped sums)
@@ -175,9 +177,11 @@
 //   each landed ring slot; the rows core: a thread an instance) turns each
 //   item into {need window, c_int, c_frac}, {srw, y, pref, class code}
 //   (pair_item): the class from y (CORR: the line's own; the rows core: the
-//   group's min y), and the window narrowed to the points that can need a
-//   correction (|x| < xlim0 widened for x's roundings; a non-finite prefactor
-//   keeps its window, where pref * 0.0 is NaN).  A unit is an item with one
+//   group's min y; a NaN y takes class 4, the whole correction, as it
+//   fails every test of the JAX conds), and the window narrowed to the
+//   points that can need a correction (|x| < xlim0 widened for x's
+//   roundings; a non-finite prefactor keeps its window, where pref * 0.0
+//   is NaN).  A unit is an item with one
 //   point group of 32 points its need window meets; a block scan numbers the
 //   units in item order, and per pass of up to 256 units thread u classifies
 //   unit u's points, lane = unit (the window, then x^2 < k1_limit in class 1,
@@ -424,12 +428,15 @@ __device__ __forceinline__ Limits region_limits(float y)
 }
 
 // The class of an item from y (CORR: the line's own y; the rows core: the
-// group's min y; a core chunk: its instances' min y, where chunk_class
-// sends NaN to 4): 0 (skipped: y >= 70.55 or NaN, every term +0.0 in the
-// plain version), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4.
+// group's min y; a core chunk: its instances' min y): 0 (skipped: y >=
+// 70.55, every term +0.0), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else
+// 4.  A NaN y fails every test of the JAX conds and takes class 4, the
+// whole correction: a NaN-y item itself lists nothing there but a
+// non-finite prefactor's window (correction(x, NaN) is 0, pref * 0 NaN),
+// and a rows group's other instances take theirs from their own y.
 __device__ __forceinline__ int pair_class(float y)
 {
-    return !(y < F(70.55)) ? 0 : y >= F(8.425) ? 1 : y >= F(6.8) ? 2
+    return y >= F(70.55) ? 0 : y >= F(8.425) ? 1 : y >= F(6.8) ? 2
         : y >= F(2.0) ? 3 : 4;
 }
 
@@ -904,6 +911,7 @@ struct CoreShared {
     unsigned slot_of[kCoreSlots][kCoreWarps];  // warp w's live instances
     int count[kCoreWarps][kCoreLists];  // warp w's pairs of each list
     unsigned touched[kCoreWarps];       // the slots warp w's instances hit
+    unsigned spread[kCoreSlots];        // core_spread's non-finite sums
 };
 
 // Lists the chunk's needed pairs, instance i = threadIdx.x with ``need``
@@ -1010,6 +1018,40 @@ __device__ __forceinline__ void core_sum(CoreShared& sh,
     }
 }
 
+// The plain version's one-hot slot select (as the TPU's one-hot product)
+// adds 0 * v into every other slot of the tile, NaN where a value v is
+// not finite (a non-finite prefactor, y = 0 at x = 0).  A slot's piece sum
+// at offset o is not finite exactly where one of its terms was not (a sum
+// of finite terms past FLT_MAX would count too, far beyond any line
+// list's values), so at the piece's end each warp ballots its slots' sums
+// into spread, and after a barrier a point of offset o in slot s takes
+// NaN where another slot's sum at o is not finite.  NaN absorbs, so
+// adding it at the piece's end gives the bits of adding it at its chunk.
+__device__ __forceinline__ void core_spread(CoreShared& sh, int slots,
+                                            float (&acc)[kCoreSlots / 4])
+{
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < kCoreSlots / 4; ++k) {
+        const unsigned bad = __ballot_sync(0xffffffffu, !isfinite(acc[k]));
+        if (lane == 0) sh.spread[4 * k + warp] = bad;
+    }
+    __syncthreads();
+    unsigned all = 0u;
+    for (int q = 0; q < slots; ++q) all |= sh.spread[q];
+    if (all == 0u) return;                         // block-uniform
+#pragma unroll
+    for (int k = 0; k < kCoreSlots / 4; ++k) {
+        const int sl = 4 * k + warp;
+        unsigned others = 0u;
+        for (int q = 0; q < slots; ++q)
+            others |= q == sl ? 0u : sh.spread[q];
+        if ((others >> lane) & 1u)
+            acc[k] = acc[k] + __int_as_float(0x7fffffff);   // NaN
+    }
+}
+
 // min.NaN: the smaller of a and b, NaN if either is (fminf drops a NaN).
 __device__ __forceinline__ float fmin_nan(float a, float b)
 {
@@ -1022,8 +1064,8 @@ __device__ __forceinline__ float fmin_nan(float a, float b)
 // every warp for itself: no barrier.  A NaN y makes the min NaN, as the
 // plain version's amin and jnp.min, and a NaN min fails every test of
 // the JAX conds (_seg_chunk_accumulate), so the chunk takes class 4, the
-// whole correction; its NaN-y instances list nothing there (core_needs:
-// not y < 70.55), as correction(x, NaN) is 0.
+// whole correction (pair_class); its NaN-y instances list nothing there
+// (core_needs: not y < 70.55), as correction(x, NaN) is 0.
 __device__ __forceinline__ int chunk_class(const float* yrow, int lane)
 {
     float m = fmin_nan(fmin_nan(yrow[lane], yrow[lane + 32]),
@@ -1031,7 +1073,7 @@ __device__ __forceinline__ int chunk_class(const float* yrow, int lane)
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         m = fmin_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
-    return m != m ? 4 : pair_class(m);
+    return pair_class(m);
 }
 
 // Phases 1-3 of the core chunk in ring slot s, the one copy the mixed-slot
@@ -1119,6 +1161,7 @@ core_segmix_kernel(const float* __restrict__ params, long long p_b,
         cp_async_commit();
         if (core_chunk(sh, s, slots)) core_sum(sh, acc);
     }
+    core_spread(sh, slots, acc);
     float* o = out + ((long long)b * num_tiles + t) * tile;
     float* dst = piece_dst(pc, o, b, t, piece, tile);
 #pragma unroll
@@ -1167,8 +1210,8 @@ struct UnitShared {
 // and 0.5, so [floor(c - H) - 1, ceil(c + H) + 1] within [ws, we] holds
 // every such point; otherwise the window stays [ws, we].  A non-finite
 // prefactor keeps [ws, we] (pref * 0.0 is NaN there); an item of class 0,
-// or of y >= 70.55 (the rows core's class is the group's), gets the empty
-// window [0, -1].
+// or of y >= 70.55 or NaN (the rows core's class is the group's; a NaN y
+// is class 4), gets the empty window [0, -1].
 __device__ __forceinline__ void pair_item(float4 w, float4 f, int cls,
                                           float4& a, float4& b)
 {

@@ -1441,16 +1441,14 @@ def _chunk_pairs(start, count, width, seq0, device):
 
 def _line_corrections(x, y, pref):
     """pref * (K_class - K_lorentz) with the class picked from each line's
-    own y (``_correction_line``); lines with y >= 70.55 give 0.  x [..., n],
-    y and pref [..., 1]."""
+    own y (``_correction_line``); lines with y >= 70.55 give 0, a NaN y
+    takes the whole correction (0, so pref * 0).  x [..., n], y and pref
+    [..., 1]."""
     flat_x = x.reshape(-1, x.shape[-1])
     flat_y = y.reshape(-1, 1)
     flat_p = pref.reshape(-1, 1)
     val = torch.zeros_like(flat_x)
-    taken = flat_y[:, 0] >= _CORE_SKIP_Y
-    for threshold, corr_fn in _CORE_CLASSES:
-        cls = (~taken) & (flat_y[:, 0] >= threshold)
-        taken = taken | cls
+    for cls, corr_fn in _classes_of(flat_y[:, 0]):
         idx = torch.nonzero(cls).flatten()
         if idx.numel():
             val[idx] = flat_p[idx] * corr_fn(flat_x[idx], flat_y[idx])
@@ -1759,18 +1757,22 @@ def _core_values(row, offs, corr_fn):
     return torch.where(mask, row[SR_PREF] * val, torch.zeros_like(val))
 
 
-def _class_chunks(blocks):
-    """(mask over [B, C] chunks, correction) per Humlicek class, picked by
-    the chunk's min y as the JAX conds pick it: chunks at y >= 70.55 are
-    in none, and a NaN min y (a NaN y: amin keeps it) fails every test and
-    takes the last class, the whole correction."""
-    ymin = blocks[:, :, SR_Y].amin(dim=-1)
-    taken = ymin >= _CORE_SKIP_Y
+def _classes_of(y):
+    """(mask over y, correction) per Humlicek class, picked by y as the
+    JAX conds pick it: y >= 70.55 is in none, and a NaN y fails every
+    test and takes the last class, the whole correction."""
+    taken = y >= _CORE_SKIP_Y
     last = len(_CORE_CLASSES) - 1
     for k, (threshold, corr_fn) in enumerate(_CORE_CLASSES):
-        cls = ~taken if k == last else (~taken) & (ymin >= threshold)
+        cls = ~taken if k == last else (~taken) & (y >= threshold)
         taken = taken | cls
         yield cls, corr_fn
+
+
+def _class_chunks(blocks):
+    """:func:`_classes_of` over [B, C] chunks by the chunk's min y (a NaN
+    y: amin keeps it, and the chunk takes the whole correction)."""
+    return _classes_of(blocks[:, :, SR_Y].amin(dim=-1))
 
 
 def _launch_core(params, tile_start, tile_chunks, num_tiles, tile, chunk,
@@ -2045,7 +2047,8 @@ def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
     order; point p = r * (tile/8) + c of the tile sits in row r, and a
     group's instance r applies to row r only.  A group whose min y (row
     56, or ``ymin`` [B, 1, G]) is >= 70.55 is skipped; otherwise its class
-    (k1, k12, k123 or the full form) is picked from that min y and
+    (k1, k12, k123 or the full form, a NaN min y the full form) is picked
+    from that min y and
     ``pref * (K_class - K_lorentz)``, window-masked, is added to a running
     sum per point and piece of ``piece`` groups of the walk, from +0.0 in
     group order, and the tile is ((0 + piece 0) + piece 1) + ...  (the
@@ -2073,10 +2076,7 @@ def rows_tiles_plain(groups, g_start, g_n, num_tiles, tile,
         blk = groups[:, :YMIN_ROW][:, :, col].permute(0, 2, 3, 1)
         ym = torch.where(live, ymin_rows[:, col], _CORE_SKIP_Y)  # [B, T, S]
         vals = groups.new_zeros((batch, num_tiles, gs.numel(), 8, row_w))
-        taken = ym >= _CORE_SKIP_Y
-        for threshold, corr_fn in _CORE_CLASSES:
-            cls = (~taken) & (ym >= threshold)
-            taken = taken | cls
+        for cls, corr_fn in _classes_of(ym):
             idx = torch.nonzero(cls)                         # [M, 3]
             if not idx.numel():
                 continue

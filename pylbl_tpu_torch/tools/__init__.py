@@ -23,6 +23,9 @@
   core, the segment core, CORR, the rows core) against libraries built
   from other versions of ``csrc/lineshape.cu``, in turns.
 
+``nonfinite`` has no entry point: it makes each kernel family's input
+with non-finite lines, which ``chip_smoke.py`` and the tests run.
+
 The benchmark entry point, ``python -m pylbl_tpu_torch bench``
 (``pylbl_tpu_torch/bench.py``), runs on the helpers here, and so does
 ``chip_smoke.py``: the operation counts below set both the kernel records'

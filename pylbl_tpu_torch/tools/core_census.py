@@ -185,12 +185,13 @@ GROUP = 32
 
 def item_class(y):
     """[...] class of pair-walk items from y (csrc ``pair_class``; CORR:
-    the line's own y, the rows core: the group's min y): 0 (y >= 70.55 or
-    NaN, skipped), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4."""
+    the line's own y, the rows core: the group's min y): 0 (y >= 70.55,
+    skipped), 1 (>= 8.425, K1), 2 (>= 6.8), 3 (>= 2.0), else 4, NaN
+    included (it fails every test of the JAX conds)."""
     cls = torch.full(y.shape, 4, dtype=torch.int64, device=y.device)
-    for threshold, value in ((2.0, 3), (6.8, 2), (8.425, 1)):
+    for threshold, value in ((2.0, 3), (6.8, 2), (8.425, 1), (70.55, 0)):
         cls = torch.where(y >= threshold, value, cls)
-    return torch.where(y < 70.55, cls, 0)
+    return cls
 
 
 def pair_items(ws, we, c_int, c_frac, srw, y, pref, cls):

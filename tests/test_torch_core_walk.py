@@ -14,7 +14,9 @@ what its blocks compute, phase by phase:
   whole class correction) into a zeroed [instance, offset] value block;
 - sum in the one-block order: per slot, each warp group's live instances
   in order from +0.0, then ((g0 + g1) + g2) + g3 into the piece
-  accumulator; the pieces fold in piece order.
+  accumulator; an offset whose chunk sum went non-finite in one slot
+  makes the other slots NaN there at the piece's end (the one-hot
+  product's 0 * inf); the pieces fold in piece order.
 
 The model equals ``core_tiles_plain`` bit for bit at pieces of 1, 2 and 4
 on inputs made from a numpy seed with every class and region, and on a
@@ -39,6 +41,7 @@ from pylbl_tpu_torch.ops import lineshape_cuda as lc
 from pylbl_tpu_torch.ops import voigt
 from pylbl_tpu_torch.parallel.lines import make_multigas_batched_fn
 from pylbl_tpu_torch.tools import core_census as cc
+from pylbl_tpu_torch.tools import nonfinite as nf
 
 torch.set_num_threads(1)
 # The kernel's lists: K1 (class 1), regions 1, 2, 3 and CPF12, and the
@@ -162,6 +165,11 @@ def kernel_model(params, t_start, t_chunks, tile, piece):
                         params[b, :, col:col + 128], slots)
                     acc = acc + sums
                     seen.append((cls, lists))
+                # core_spread: NaN where another slot's piece sum is not
+                # finite.
+                spread = ~torch.isfinite(acc)
+                others = spread.sum(0) - spread.int() > 0
+                acc = torch.where(others, acc + float("nan"), acc)
                 pieces.append(acc.reshape(-1))
             tot = pieces[0]
             if len(pieces) > 1:
@@ -197,13 +205,14 @@ def test_model_equals_plain_on_every_class_and_region(seed, piece):
     assert int(t_chunks.max()) > piece             # a tile of pieces
 
 
-def test_model_keeps_a_non_finite_prefactor_to_its_points():
+def test_model_spreads_a_non_finite_prefactor_over_the_slots():
     """An instance of infinite prefactor: its in-window offsets take the
     whole correction (a skipped term would be NaN, not +0.0), so its slot's
-    points of those offsets in its tile are not finite, as in the earlier
-    kernel, and every other point equals the plain version without the
-    instance bit for bit.  (The plain version's one-hot slot product
-    spreads a NaN over the chunk's other slots: 0 * NaN.)"""
+    points of those offsets in its tile are not finite, and the tile's
+    other slots are NaN at those offsets (the plain version's one-hot slot
+    product, as JAX's, adds 0 * inf there: ``core_spread``); the model
+    equals the plain version bit for bit, NaN for NaN, and every other
+    point the plain version without the instance."""
     params, t_start, t_chunks, _ = cc.synthetic_core(4, layers=1)
     params = torch.as_tensor(params)
     col = int(t_start[2]) * 128 + 40              # tile 2's first chunk
@@ -218,10 +227,16 @@ def test_model_keeps_a_non_finite_prefactor_to_its_points():
                                torch.as_tensor(t_chunks), t_chunks.size,
                                256, piece=1)
     bad = torch.zeros_like(got, dtype=torch.bool)
-    slot = int(params[0, lc.SR_SLOT, col])
-    bad[0, 2, 32 * slot + 3:32 * slot + 10] = True
+    for slot in range(8):
+        bad[0, 2, 32 * slot + 3:32 * slot + 10] = True
     assert torch.equal(~torch.isfinite(got), bad)
     assert torch.equal(got[~bad], want[~bad])
+    plain = lc.core_tiles_plain(params, torch.as_tensor(t_start),
+                                torch.as_tensor(t_chunks), t_chunks.size,
+                                256, piece=1)
+    nan = torch.isnan(plain)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], plain[~nan])
 
 
 @pytest.mark.parametrize("piece", [1, 2, 4])
@@ -318,3 +333,24 @@ def test_plain_matches_pallas_on_a_class4_heavy_input():
     scale = np.abs(want).max()
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_model_equals_plain_on_poisoned_lines(layers):
+    """The mixed-slot core's poisoned input (``nonfinite.family_case``: an
+    infinite and a NaN prefactor, a NaN y, y = 0 at x = 0, instances in
+    slots drawn from the seed), one layer and two: the model, with its
+    spread of a slot's non-finite sums over the other slots, equals the
+    plain version bit for bit, NaN for NaN."""
+    case = nf.family_case("segmix", layers)
+    params = torch.as_tensor(case.inputs["params"]).reshape(
+        layers, lc.SEGP_ROWS, -1)
+    t_start, t_chunks = case.inputs["csr"]
+    got, _ = kernel_model(params, t_start, t_chunks, 256,
+                          lc.core_piece_chunks(t_chunks))
+    want = case.plain().reshape(layers, -1)
+    got = got.reshape(layers, -1)[:, :want.shape[-1]]
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and bool(torch.isfinite(want).any())
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])

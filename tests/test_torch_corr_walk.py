@@ -25,7 +25,8 @@ kernel folds (``tile_plain(..., "core")``) bit for bit, at tiles 256, 512
 and 1024, one layer and two, on the core-window CSR and the wing-window
 CSR, at pieces of 1 and 2 chunks, on inputs made from a numpy seed with
 every class and region, a tiny y, lines at y >= 70.55 and NaN y, dead pad
-lines, a non-finite prefactor and windows across point groups.  The need
+lines, a non-finite prefactor and windows across point groups (a NaN y
+takes class 4, the whole correction, as the JAX conds take it).  The need
 window holds every point that needs a correction, by brute force.  The
 plain version still matches the JAX ``_pallas_pass(..., "core")`` in
 interpret mode on a class-4-heavy input at the tolerance of
@@ -42,6 +43,7 @@ from pylbl_tpu.ops import lineshape_pallas as jlp
 
 from pylbl_tpu_torch.ops import lineshape_cuda as lc
 from pylbl_tpu_torch.tools import core_census as cc
+from pylbl_tpu_torch.tools import nonfinite as nf
 from test_torch_core_walk import ANY, K1, R1, list_value
 
 torch.set_num_threads(1)
@@ -185,12 +187,14 @@ def test_model_equals_plain_on_every_class_and_region(tile, layers, csr,
     assert bool(((lo // GROUP) != (hi // GROUP)).any())
 
 
-def test_model_keeps_non_finite_prefactors_and_skips_what_plain_skips():
+def test_model_keeps_non_finite_prefactors_and_takes_a_nan_y_whole():
     """A line of infinite prefactor keeps its whole wing window (pref *
-    0.0 is NaN there), one of NaN prefactor too; a NaN y, and y >= 70.55
-    with an infinite prefactor, are skipped as the plain version skips
-    them (+0.0): the model equals the plain version bit for bit, NaN for
-    NaN, and the non-finite points are those lines' in-window points."""
+    0.0 is NaN there), one of NaN prefactor too; a NaN y takes class 4,
+    the whole correction, as JAX's conds, and with an infinite prefactor
+    its window is NaN (correction(x, NaN) is 0, inf * 0 NaN); y >= 70.55
+    with an infinite prefactor is skipped (+0.0): the model equals the
+    plain version bit for bit, NaN for NaN, and the non-finite points are
+    those lines' in-window points."""
     soa, start, nchunks, n = corr_input(7, 256, layers=1)
     line0 = int(start[2])
     y = soa[0, lc.Y, line0:line0 + 64]
@@ -207,12 +211,18 @@ def test_model_keeps_non_finite_prefactors_and_skips_what_plain_skips():
     assert same_bits(got, want)
     bad = ~torch.isfinite(want[0])
     assert bool(bad.any())
-    tile2 = bad[512:768]
-    for line in (a, c):
+    for line in (a, c, d):
+        # The line's window over the tiles whose walk holds it.
         s, e = int(soa[0, lc.S_IDX, line]), int(soa[0, lc.E_IDX, line])
-        inside = torch.zeros(256, dtype=torch.bool)
-        inside[max(s - 512, 0):max(min(e - 512 + 1, 256), 0)] = True
-        assert bool(tile2[inside].all())
+        inside = torch.zeros(n, dtype=torch.bool)
+        inside[max(s, 0):max(e + 1, 0)] = True
+        walked = torch.zeros(n, dtype=torch.bool)
+        for t in range(len(nchunks)):
+            if start[t] <= line < start[t] + 64 * nchunks[t]:
+                walked[256 * t:256 * (t + 1)] = True
+        inside &= walked
+        assert bool(inside.any()) and bool(bad[inside].all())
+    assert bool(torch.isnan(want[0][inside]).all())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -273,3 +283,30 @@ def test_plain_matches_pallas_on_a_class4_heavy_input():
     scale = np.abs(want).max()
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+def test_plain_matches_pallas_on_a_nan_y_line():
+    """A NaN y with an infinite prefactor (``nonfinite.nan_y_corr``): JAX's
+    conds fail every test on the NaN and take the whole correction, which
+    is 0 there, so the line's window in tile 1 is NaN at 40 points; the
+    plain version has NaN at exactly those points, and the other points
+    within 1e-6 of the scale, as ``test_plain_matches_pallas_on_a_class4_
+    heavy_input``.  The model takes it bit for bit."""
+    case = nf.nan_y_corr()
+    i = case.inputs
+    got = case.plain().numpy()
+    want = np.asarray(jlp._pallas_pass(jnp.asarray(i["soa"]), *i["csr"],
+                                       i["n"], 256, 64, "core",
+                                       interpret=True))
+    assert got.shape == want.shape == (i["n"],)
+    assert int(np.isnan(want).sum()) == 40
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isfinite(want[~np.isnan(want)]).all()
+    finite = np.isfinite(want)
+    scale = np.abs(want[finite]).max()
+    assert scale > 0
+    np.testing.assert_allclose(got[finite], want[finite], rtol=0,
+                               atol=scale * 1e-6)
+    model = corr_model(torch.as_tensor(i["soa"])[None], *i["csr"], i["n"],
+                       256, 64)
+    assert same_bits(model[0], case.plain())

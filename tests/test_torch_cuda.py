@@ -588,10 +588,13 @@ def test_core_takes_the_whole_correction_where_a_chunk_min_y_is_nan(
 
 
 @pytest.mark.gpu
-def test_core_keeps_a_non_finite_prefactor_to_its_points(cuda_device):
+def test_core_spreads_a_non_finite_prefactor_over_the_slots(cuda_device):
     """An instance of infinite prefactor: its slot's points of its window
-    offsets are not finite (the whole correction times inf), every other
-    point equals the plain version without the instance bit for bit."""
+    offsets are not finite (the whole correction times inf), and the
+    tile's other slots are NaN at those offsets, as the plain version's
+    (and JAX's) one-hot slot select gives 0 * inf there; the kernel equals
+    the plain version bit for bit, NaN for NaN, and every other point the
+    plain version without the instance."""
     params, t_start, t_chunks, host, n = core_input(4, cuda_device,
                                                     layers=1)
     col = int(host[:2].sum()) * 128 + 40          # tile 2's first chunk
@@ -603,10 +606,12 @@ def test_core_keeps_a_non_finite_prefactor_to_its_points(cuda_device):
     gone[0, lc.SR_PREF, col] = 0.0
     want = lc.core_segmix_plain(gone, t_start, t_chunks, n, 256)
     bad = torch.zeros_like(got, dtype=torch.bool)
-    slot = int(params[0, lc.SR_SLOT, col])
-    bad[0, 512 + 32 * slot + 3:512 + 32 * slot + 10] = True
+    for slot in range(8):
+        bad[0, 512 + 32 * slot + 3:512 + 32 * slot + 10] = True
     assert torch.equal(~torch.isfinite(got), bad)
     assert torch.equal(got[~bad], want[~bad])
+    assert nan_equal(got, lc.core_segmix_plain(params, t_start, t_chunks, n,
+                                               256))
 
 
 # --- The unit walk (CORR and the rows core) on synthetic walks: every
@@ -626,9 +631,11 @@ def nan_equal(got, want):
 def test_corr_walk_equals_plain(cuda_device, tile, csr, piece):
     """CORR's unit walk equals its plain version bit for bit at pieces of
     1 and 2 chunks, one layer and two, and repeats bit for bit; with an
-    infinite and a NaN prefactor, a NaN y and an infinite prefactor at y
-    >= 70.55 it gives the plain version's NaN where the plain version
-    does, and its values elsewhere."""
+    infinite and a NaN prefactor, and a NaN y with an infinite
+    prefactor, it gives the plain version's NaN where the plain version
+    does, and its values elsewhere: the NaN-y line takes the whole
+    correction (class 4, as JAX's conds), so its window is NaN in the
+    tiles whose walk holds it."""
     from pylbl_tpu_torch.tools.core_census import synthetic_corr
 
     soa_np, start_np, n_np, n = synthetic_corr(
@@ -660,13 +667,23 @@ def test_corr_walk_equals_plain(cuda_device, tile, csr, piece):
                                       (lc.PREF, float("nan")),
                                       (lc.Y, float("nan")))):
         bad[0, row, line0 + int(pick[k])] = value
-    bad[0, lc.PREF, line0 + int(pick[2])] = float("inf")
+    nan_y = line0 + int(pick[2])
+    bad[0, lc.PREF, nan_y] = float("inf")
     got = lc.tile_pass(bad, start, nchunks, n, tile, 64, "core", pieces)
     want = lc.tile_plain(bad, start, nchunks, n, tile, 64, "core",
                          piece=piece)
     torch.cuda.synchronize()
     assert bool((~torch.isfinite(want)).any())
     assert nan_equal(got, want)
+    s, e = (int(soa_np[0, row, nan_y]) for row in (lc.S_IDX, lc.E_IDX))
+    inside = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    inside[max(s, 0):max(e + 1, 0)] = True
+    walked = torch.zeros_like(inside)
+    for t in range(len(n_np)):
+        if start_np[t] <= nan_y < start_np[t] + 64 * n_np[t]:
+            walked[tile * t:tile * (t + 1)] = True
+    inside &= walked
+    assert bool(inside.any()) and bool(torch.isnan(want[0][inside]).all())
 
 
 @pytest.mark.gpu
@@ -676,8 +693,10 @@ def test_rows_walk_equals_plain(cuda_device, tile, vmem):
     """The rows core's unit walk equals its plain version bit for bit, one
     layer and two, with the class from row 56 or from a separate min-y
     block that moves groups to other classes, and repeats bit for bit; an
-    infinite prefactor (also at an own y >= 70.55 in a walked group) and a
-    NaN min y give the plain version's NaN and +0.0."""
+    infinite prefactor (also at an own y >= 70.55 in a walked group) gives
+    the plain version's NaN, and a NaN min y (row 56, or the separate
+    block) takes class 4, the whole correction, as JAX's conds: the same
+    values as a min y of 1.5."""
     from pylbl_tpu_torch.tools.core_census import synthetic_rows
 
     groups_np, plan, n = synthetic_rows(tile // 128, layers=2, tile=tile,
@@ -692,13 +711,12 @@ def test_rows_walk_equals_plain(cuda_device, tile, vmem):
                                       ymin[..., 1::5])
         ymin[..., 3::7] = 1.5
 
-    def run(g, single=False):
+    def run(g, single=False, ym=ymin):
         if single:
             g = g[1]
-        if ymin is None:
+        if ym is None:
             return lc.rows_pass(g, walk, n, tile)
-        return lc.rows_vmem_pass(g, ymin[1] if single else ymin, walk, n,
-                                 tile)
+        return lc.rows_vmem_pass(g, ym[1] if single else ym, walk, n, tile)
 
     lc.reset_launches()
     got, again, one = run(groups), run(groups), run(groups, True)
@@ -715,12 +733,91 @@ def test_rows_walk_equals_plain(cuda_device, tile, vmem):
     bad[0, 4 * 8 + 0, col] = float("inf")
     bad[0, 4 * 8 + 1, far] = float("inf")
     bad[0, 3 * 8 + 1, far] = 80.0
-    bad[0, lc.YMIN_ROW, int(torch.nonzero(ym < 2.0).flatten()[1])] = \
-        float("nan")
-    got = run(bad)
-    want = lc.rows_plain(bad, g_start, g_n, n, tile, ymin=ymin)
+    nan_group = int(torch.nonzero(ym < 2.0).flatten()[1])
+
+    def with_min(value):
+        g = bad.clone()
+        g[0, lc.YMIN_ROW, nan_group] = value
+        y = None if ymin is None else ymin.clone()
+        if y is not None:
+            y[0, 0, nan_group] = value
+        return g, y
+
+    def plain_with_min(value):
+        g, y = with_min(value)
+        return lc.rows_plain(g, g_start, g_n, n, tile, ymin=y)
+
+    bad, bad_ymin = with_min(float("nan"))
+    got = run(bad, ym=bad_ymin)
+    want = lc.rows_plain(bad, g_start, g_n, n, tile, ymin=bad_ymin)
     torch.cuda.synchronize()
     assert nan_equal(got, want)
+    assert nan_equal(want, plain_with_min(1.5))
+    assert not nan_equal(want, plain_with_min(80.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [1, 2])
+def test_corr_walk_takes_a_nan_y_line_whole(cuda_device, layers):
+    """CORR on the NaN-y input (``nonfinite.nan_y_corr``: a NaN y with an
+    infinite prefactor, in every layer): the kernel equals its plain
+    version bit for bit, NaN at the 40 points of the line's window in
+    each layer, and repeats bit for bit."""
+    from pylbl_tpu_torch.tools.nonfinite import nan_y_corr
+
+    case = nan_y_corr(layers, cuda_device)
+    lc.reset_launches()
+    got, again = case.run(), case.run()
+    want = case.plain()
+    torch.cuda.synchronize()
+    assert lc.LAUNCHES["tile_correction"] == 2
+    assert int(torch.isnan(want).sum()) == 40 * layers
+    assert nan_equal(got, want) and nan_equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,vmem", [(1, False), (2, False), (1, True)])
+def test_rows_walk_takes_a_nan_min_y_group_whole(cuda_device, layers, vmem):
+    """The rows core on the NaN-min-y input (``nonfinite.nan_y_rows``: slot
+    0's y and the group's min y NaN, in every layer), one layer, two and
+    the separate min-y block: the group's other instances take their
+    whole corrections, every point finite, the kernel equal to its plain
+    version bit for bit, and a repeat too."""
+    from pylbl_tpu_torch.tools.nonfinite import nan_y_rows
+
+    case = nan_y_rows(layers, cuda_device, vmem)
+    lc.reset_launches()
+    got, again = case.run(), case.run()
+    want = case.plain()
+    torch.cuda.synchronize()
+    assert lc.LAUNCHES[case.counter] == 2
+    assert bool(torch.isfinite(want).all()) and float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_every_kernel_equals_plain_on_poisoned_lines(cuda_device):
+    """Every kernel on its family's poisoned input
+    (``nonfinite.family_case``: infinite and NaN prefactors, a NaN y, y =
+    0 at x = 0, a NaN srw and NaN window edges): NaN where the plain
+    version's is, every other bit equal, a repeat too, each counter
+    launched."""
+    from pylbl_tpu_torch.tools.nonfinite import KERNEL_CASES, family_case
+
+    lc.reset_launches()
+    for family, layers in KERNEL_CASES:
+        case = family_case(family, layers, cuda_device)
+        got, again = case.run(), case.run()
+        want = case.plain()
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        assert bool(nan.any()), family
+        assert torch.equal(torch.isnan(got), nan), family
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32)), family
+        assert torch.equal(again.view(torch.int32),
+                           got.view(torch.int32)), family
+    assert all(v > 0 for v in lc.LAUNCHES.values()), lc.LAUNCHES
 
 
 # --- The segment pass per chunk and the rows core per piece on the dense

@@ -18,7 +18,8 @@ a separate min-y block that differs from it, on inputs made from a numpy
 seed with every class and region, dead slots, a tiny y, instances at y >=
 70.55 in walked groups, need windows across point groups and non-finite
 prefactors (the plain version's NaN at each in-window point of a walked
-group, also where the instance's own y is >= 70.55).  The plain version
+group, also where the instance's own y is >= 70.55) and a NaN min y (class
+4, the whole correction, as the JAX conds take it).  The plain version
 still matches the JAX ``_pallas_rows_pass`` in interpret mode on a
 class-4-heavy input at the tolerance of tests/test_torch_lineshape.py
 ``test_rows_pass_matches_pallas``.  The kernel itself is held to the
@@ -34,6 +35,7 @@ from pylbl_tpu.ops import lineshape_pallas as jlp
 
 from pylbl_tpu_torch.ops import lineshape_cuda as lc
 from pylbl_tpu_torch.tools import core_census as cc
+from pylbl_tpu_torch.tools import nonfinite as nf
 from test_torch_core_walk import K1, R1
 from test_torch_corr_walk import fold, same_bits, walk_sums
 
@@ -124,8 +126,10 @@ def test_model_keeps_non_finite_prefactors():
     """An instance of infinite prefactor in a walked group: every point of
     its row in its window is not finite (pref times the class
     correction), also where its own y is >= 70.55 (pref * 0.0); a NaN
-    prefactor the same; a NaN group min y skips the group: the model
-    equals the plain version bit for bit, NaN for NaN."""
+    prefactor the same; a NaN group min y takes class 4, the whole
+    correction, as JAX's conds, each instance its own from its y, as the
+    group's true min y (below 2) takes it: the model equals the plain
+    version bit for bit, NaN for NaN."""
     groups, plan, n = rows_input(9, 256, 1)
     ym = groups[0, lc.YMIN_ROW]
     col = int(torch.nonzero((ym < 8.0) & (ym > 0.5)).flatten()[0])
@@ -140,11 +144,18 @@ def test_model_keeps_non_finite_prefactors():
     groups[0, 5 * 8 + 0, far] = 0.0
     groups[0, 6 * 8 + 0, far] = float(n)
     nan_group = int(torch.nonzero(ym < 2.0).flatten()[1])
+    true_min = groups.clone()
     groups[0, lc.YMIN_ROW, nan_group] = float("nan")
     got = rows_model(groups, plan.g_start, plan.g_n, n, 256)
     want = lc.rows_plain(groups, plan.g_start, plan.g_n, n, 256)
     assert same_bits(got, want)
     assert int((~torch.isfinite(want)).sum()) > 32
+    assert same_bits(want, lc.rows_plain(true_min, plan.g_start, plan.g_n,
+                                         n, 256))
+    skipped = groups.clone()
+    skipped[0, lc.YMIN_ROW, nan_group] = 80.0
+    assert not same_bits(want, lc.rows_plain(skipped, plan.g_start,
+                                             plan.g_n, n, 256))
 
 
 def test_plain_matches_pallas_on_a_class4_heavy_input():
@@ -169,3 +180,38 @@ def test_plain_matches_pallas_on_a_class4_heavy_input():
     scale = np.abs(want).max()
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+
+
+@pytest.mark.parametrize("layers,vmem", [(1, False), (2, False),
+                                         (1, True)])
+def test_plain_matches_pallas_on_a_nan_min_y_group(layers, vmem):
+    """A group whose slot 0 has a NaN y, and so a NaN min y
+    (``nonfinite.nan_y_rows``): JAX's conds take the whole correction for
+    the group, each other instance its own from its y; the plain version
+    against ``_pallas_rows_pass`` (one layer, a two-layer batch) and
+    ``_pallas_rows_pass_vmem`` (the separate min-y block): within 1e-6 of
+    the scale at every point, the same points finite; the model takes it
+    bit for bit."""
+    case = nf.nan_y_rows(layers, vmem=vmem)
+    i = case.inputs
+    got = case.plain().numpy()
+    if vmem:
+        want = jlp._pallas_rows_pass_vmem(
+            jnp.asarray(i["groups"]), jnp.asarray(i["ymin"]), *i["csr"],
+            i["n"], 256, interpret=True)
+    else:
+        want = jlp._pallas_rows_pass(jnp.asarray(i["groups"]), *i["csr"],
+                                     i["n"], 256, i["chunk"],
+                                     interpret=True)
+    want = np.asarray(want)
+    assert got.shape == want.shape == ((layers, i["n"]) if layers > 1
+                                       else (i["n"],))
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    scale = np.abs(want).max()
+    assert np.isfinite(scale) and scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * 1e-6)
+    groups = torch.as_tensor(i["groups"]).reshape(layers, 64, -1)
+    ymin = None if i["ymin"] is None else torch.as_tensor(
+        i["ymin"]).reshape(layers, 1, -1)
+    model = rows_model(groups, *i["csr"], i["n"], 256, ymin)
+    assert torch.equal(model, case.plain().reshape(layers, -1))
