@@ -1,0 +1,7 @@
+"""Share of the traced window in which no kernel or copy ran, in %."""
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
