@@ -25,6 +25,7 @@ from .. import webapi
 from ..models.lines.physics import LinePack
 from ..models.tips import TotalPartitionFunction
 from ..runtime import native
+from ..utils.observability import metrics
 
 SCHEMA = """
 CREATE TABLE IF NOT EXISTS molecule (
@@ -375,6 +376,7 @@ class Database:
         cached = self._pack_cache.get(name)
         if cached is not None:
             return cached
+        metrics.count("database.pack_reads")
         disk = None if self.pack_cache_dir is None \
             else Path(self.pack_cache_dir) / f"{name}.lpk.npz"
         if disk is not None and disk.exists():

@@ -135,6 +135,7 @@ from .voigt import (XLIM0_MAX, voigt_correction, voigt_correction_k1,
 from ..runtime.build import PACKAGE_DIR, load_library
 from ..runtime.device import resolve_device
 from ..utils.constants import RSQRPI
+from ..utils.observability import metrics
 
 # SoA row order in the packed (8, N) line block.
 C_INT, C_FRAC, SRW, Y, PREF, S_IDX, E_IDX, _PAD = range(8)
@@ -996,11 +997,14 @@ def plan_strided_stage(s_wide, e_wide, core_lo, core_hi, y_ref, n_out,
                       .max(initial=0)) + 1)
         if stride is None:
             return None
-    lay = build_strided_layout(s_wide, stride, n_out, chunk=chunk,
-                               e_wide=e_wide, tile=tile, tail=tail)
-    c_lo, c_hi = lay.gather_windows(core_lo, core_hi)
-    cp = CorePlan(c_lo, c_hi, n_out, tile, sort_key=lay.gather(y_ref),
-                  mode=core_mode)
+    with metrics.timed("lines.layout"):
+        lay = build_strided_layout(s_wide, stride, n_out, chunk=chunk,
+                                   e_wide=e_wide, tile=tile, tail=tail)
+        c_lo, c_hi = lay.gather_windows(core_lo, core_hi)
+        sort_key = lay.gather(y_ref)
+    with metrics.timed("lines.core_plan"):
+        cp = CorePlan(c_lo, c_hi, n_out, tile, sort_key=sort_key,
+                      mode=core_mode)
     return stride, lay, cp
 
 

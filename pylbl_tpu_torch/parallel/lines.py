@@ -31,6 +31,7 @@ from ..ops import lineshape_cuda as lc
 from ..ops.lineshape import accumulate_segment
 from ..runtime.device import resolve_backend, resolve_device, resolve_dtype
 from ..utils import constants as c
+from ..utils.observability import metrics
 
 
 class UnstackableError(ValueError):
@@ -453,33 +454,37 @@ class _LineStage:
         if wings_chunk is not None and not 0 < wings_chunk <= lc.MAX_CHUNK:
             raise ValueError(f"wings_chunk {wings_chunk}: the wings kernel "
                              f"takes 1-{lc.MAX_CHUNK} lines per chunk")
-        if planned is None:
-            planned = lc.plan_strided_stage(s_wide, e_wide, core_lo, core_hi,
-                                            y_ref, n_out, tile=tile,
-                                            chunk=wings_chunk
-                                            or lc.STRIDED_CHUNK,
-                                            core_mode=core_mode,
-                                            tail=wings_tail)
+        with metrics.timed("lines.plan"):
+            if planned is None:
+                planned = lc.plan_strided_stage(
+                    s_wide, e_wide, core_lo, core_hi, y_ref, n_out,
+                    tile=tile, chunk=wings_chunk or lc.STRIDED_CHUNK,
+                    core_mode=core_mode, tail=wings_tail)
+                if planned is not None:
+                    with metrics.timed("lines.permute"):
+                        arrays_np = lc.permute_line_arrays(arrays_np,
+                                                           planned[1].perm)
             if planned is not None:
-                arrays_np = lc.permute_line_arrays(arrays_np, planned[1].perm)
-        if planned is not None:
-            self.wings_stride, lay, self.core_plan = planned
-            csr = [lay.w_start, lay.w_n]
-            if lay.t_start is not None:
-                csr += [lay.t_start, lay.t_n]
-            nlines = lay.nlines
-            self.wings_chunk = wings_chunk or lc.STRIDED_CHUNK
-        else:
-            self.wings_stride = None
-            self.wings_chunk = wings_chunk or chunk
-            csr = list(lc.tile_line_ranges(s_wide, e_wide, n_out, tile,
-                                           self.wings_chunk))
-            nlines = static["num_lines"]
-            self.core_plan = lc.CorePlan(core_lo, core_hi, n_out, tile,
-                                         sort_key=y_ref, mode=core_mode)
+                self.wings_stride, lay, self.core_plan = planned
+                csr = [lay.w_start, lay.w_n]
+                if lay.t_start is not None:
+                    csr += [lay.t_start, lay.t_n]
+                nlines = lay.nlines
+                self.wings_chunk = wings_chunk or lc.STRIDED_CHUNK
+            else:
+                self.wings_stride = None
+                self.wings_chunk = wings_chunk or chunk
+                with metrics.timed("lines.layout"):
+                    csr = list(lc.tile_line_ranges(s_wide, e_wide, n_out,
+                                                   tile, self.wings_chunk))
+                nlines = static["num_lines"]
+                with metrics.timed("lines.core_plan"):
+                    self.core_plan = lc.CorePlan(core_lo, core_hi, n_out,
+                                                 tile, sort_key=y_ref,
+                                                 mode=core_mode)
+            with metrics.timed("lines.pieces"):
+                self.wings_pieces = lc.TilePieces.of_csr(*csr[1::2])
         self.csr = csr
-        self.csr_dev = [torch.as_tensor(a, device=device) for a in csr]
-        self.wings_pieces = lc.TilePieces.of_csr(*csr[1::2])
         self.static = static
         self.n_out = n_out
         self.tile = tile
@@ -488,9 +493,11 @@ class _LineStage:
         self.plain = plain
         self.prepacked = self.wings_stride is not None \
             or self.core_plan.mode == "segmix"
-        self.arrays = as_tensors(arrays_np, device, dtype)
-        self.core_inst = None if self.core_plan.mode == "rows" \
-            else self.core_plan.expand_line_arrays(self.arrays)
+        with metrics.timed("lines.upload"):
+            self.csr_dev = [torch.as_tensor(a, device=device) for a in csr]
+            self.arrays = as_tensors(arrays_np, device, dtype)
+            self.core_inst = None if self.core_plan.mode == "rows" \
+                else self.core_plan.expand_line_arrays(self.arrays)
         # The SoA holds whole wings chunks (JAX pads to ``chunk``, which
         # every default wings chunk divides).
         self.pad = -nlines % math.lcm(chunk, self.wings_chunk)
@@ -499,39 +506,43 @@ class _LineStage:
         """Layer-batch kernel inputs: (wings SoA [B, 8, N], core params
         [B, 8, I] or rows groups [B, 64, G]), grid coordinates relative to
         ``origin``."""
-        ka = shift_origin(line_kernel_arrays(self.arrays, self.static, t, p,
-                                             x), origin)
-        soa = wings_soa(ka, self.prepacked, self.dtype, self.pad)
-        if self.core_inst is None:
-            return soa, self.core_plan.group_params(ka)
-        ka_i = shift_origin(line_kernel_arrays(self.core_inst, self.static, t,
-                                               p, x), origin)
-        return soa, self.core_plan.seg_params(ka_i).contiguous()
+        with metrics.timed("lines.assemble"):
+            ka = shift_origin(line_kernel_arrays(self.arrays, self.static, t,
+                                                 p, x), origin)
+            soa = wings_soa(ka, self.prepacked, self.dtype, self.pad)
+            if self.core_inst is None:
+                return soa, self.core_plan.group_params(ka)
+            ka_i = shift_origin(line_kernel_arrays(self.core_inst,
+                                                   self.static, t, p, x),
+                                origin)
+            return soa, self.core_plan.seg_params(ka_i).contiguous()
 
     def wings_pass(self, soa, plain=None):
-        plain = self.plain if plain is None else plain
-        csr = self.csr_dev
-        if self.wings_stride is not None:
-            tail_csr = csr[2:] or [None, None]
-            if plain:
-                return lc.wings_strided_plain(
+        with metrics.timed("lines.wings"):
+            plain = self.plain if plain is None else plain
+            csr = self.csr_dev
+            if self.wings_stride is not None:
+                tail_csr = csr[2:] or [None, None]
+                if plain:
+                    return lc.wings_strided_plain(
+                        soa, csr[0], csr[1], self.n_out, self.tile,
+                        self.wings_stride, self.wings_chunk, *tail_csr,
+                        tail=self.wings_tail or 128)
+                return lc.wings_strided_pass(
                     soa, csr[0], csr[1], self.n_out, self.tile,
                     self.wings_stride, self.wings_chunk, *tail_csr,
-                    tail=self.wings_tail or 128)
-            return lc.wings_strided_pass(
-                soa, csr[0], csr[1], self.n_out, self.tile, self.wings_stride,
-                self.wings_chunk, *tail_csr, tail=self.wings_tail or 128,
-                pieces=self.wings_pieces)
-        kind = "wings_pre" if self.prepacked else "wings"
-        if plain:
-            return lc.tile_plain(soa, csr[0], csr[1], self.n_out, self.tile,
-                                 self.wings_chunk, kind)
-        return lc.tile_pass(soa, csr[0], csr[1], self.n_out, self.tile,
-                            self.wings_chunk, kind, self.wings_pieces)
+                    tail=self.wings_tail or 128, pieces=self.wings_pieces)
+            kind = "wings_pre" if self.prepacked else "wings"
+            if plain:
+                return lc.tile_plain(soa, csr[0], csr[1], self.n_out,
+                                     self.tile, self.wings_chunk, kind)
+            return lc.tile_pass(soa, csr[0], csr[1], self.n_out, self.tile,
+                                self.wings_chunk, kind, self.wings_pieces)
 
     def core_pass(self, params, plain=None):
-        return self.core_plan.core_pass(
-            params, plain=self.plain if plain is None else plain)
+        with metrics.timed("lines.core"):
+            return self.core_plan.core_pass(
+                params, plain=self.plain if plain is None else plain)
 
     def run(self, t, p, x, origin=0):
         soa, core = self.assemble(t, p, x, origin)
@@ -604,8 +615,9 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     device = resolve_device(device)
     tile = tile or lc.DEFAULT_TILE
     chunk = chunk or lc.DEFAULT_CHUNK
-    arrays_np, host, static, names = stack_device_packs(packs, grid,
-                                                        cut_off)
+    with metrics.timed("lines.stack"):
+        arrays_np, host, static, names = stack_device_packs(packs, grid,
+                                                            cut_off)
     num_points = static["num_points"]
     flat_points = static["flat_points"]
     n_per_v = static["n_per_v"]
@@ -632,7 +644,8 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         def inputs(temperature, pressure, vmr, check):
             t, p, x = _inputs(temperature, pressure, vmr)
             if check and guarded:
-                guard(t, p)
+                with metrics.timed("lines.guard"):
+                    guard(t, p)
             return t, p, x
 
         def weighted(temperature, pressure, vmr, check):
@@ -659,7 +672,8 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
         # core_halfwidth), the full window, the splat chunk.
         window = (2 * cut_off + 1) * n_per_v + 1
         core_w = min(128, (cut_off + 1) * n_per_v)
-        arrays_dev = as_tensors(arrays_np, device, dtype)
+        with metrics.timed("lines.upload"):
+            arrays_dev = as_tensors(arrays_np, device, dtype)
 
         def run_xla(t, p, x):
             ka = _pad_to_chunk(
@@ -673,15 +687,17 @@ def make_multigas_batched_fn(packs, grid, cut_off=c.DEFAULT_CUT_OFF,
     # Flat windows for the CSR, from unshifted positions +/-1 wavenumber
     # slop, clamped per gas segment then offset; core instance windows
     # placed in the flat grid the same way.
-    off = arrays_np["flat_off"].astype(np.int64)
-    b0 = np.floor(host["nu"]).astype(np.int64)
-    s_loc = np.clip((b0 - 1 - cut_off - v0) * n_per_v, 0, num_points - 1)
-    e_loc = np.clip((b0 + 1 + cut_off + 1 - v0) * n_per_v, 0,
-                    num_points - 1)
-    center0, reach, y_ref = _core_reach(host, v0, n_per_v, cut_off, t_max,
-                                        p_max_atm)
-    core_lo = off + np.clip(center0 - reach, 0, num_points - 1)
-    core_hi = off + np.clip(center0 + reach, 0, num_points - 1)
+    with metrics.timed("lines.plan"):
+        off = arrays_np["flat_off"].astype(np.int64)
+        b0 = np.floor(host["nu"]).astype(np.int64)
+        s_loc = np.clip((b0 - 1 - cut_off - v0) * n_per_v, 0,
+                        num_points - 1)
+        e_loc = np.clip((b0 + 1 + cut_off + 1 - v0) * n_per_v, 0,
+                        num_points - 1)
+        center0, reach, y_ref = _core_reach(host, v0, n_per_v, cut_off,
+                                            t_max, p_max_atm)
+        core_lo = off + np.clip(center0 - reach, 0, num_points - 1)
+        core_hi = off + np.clip(center0 + reach, 0, num_points - 1)
     stage = _LineStage(arrays_np, static, off + s_loc, off + e_loc, core_lo,
                        core_hi, y_ref, flat_points, tile, chunk, core_mode,
                        wings_tail, device, dtype, backend == "plain",

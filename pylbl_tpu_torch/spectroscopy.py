@@ -23,6 +23,7 @@ from .database.db import (AliasNotFoundError, CrossSectionNotFoundError,
 from .plugins import continua, cross_sections, molecular_lines
 from .runtime.device import resolve_backend, resolve_device, resolve_dtype
 from .utils.constants import KB
+from .utils.observability import metrics
 from .utils.xrlite import DataArray, Dataset
 
 
@@ -104,43 +105,46 @@ class Spectroscopy:
                 spelling runtime/device.resolve_backend maps to one of
                 them.
         """
-        self.mesh = mesh
-        self.sharding_mode = sharding_mode
-        self._sharded_fns = {}
-        self.device = mesh.device if mesh is not None \
-            else resolve_device(device)
-        self.dtype = resolve_dtype(dtype)
-        self.backend = resolve_backend(backend, self.device)
-        self.atmosphere = Atmosphere(atmosphere, mapping=mapping)
-        self.grid = np.asarray(grid)
-        self.lines_database = database
-        self.lines_backend = lines_backend
-        self.lines_engine = molecular_lines[lines_backend]
-        self.continua_backend = continua_backend
-        self.continua_engine = continua[continua_backend]
-        self.cross_sections_backend = cross_sections_backend
-        self.cross_sections_engine = cross_sections[cross_sections_backend]
-        self.cache = {}
-        self._multigas_fns = {}
-        if device_mechanisms is None:
-            device_mechanisms = self.device.type == "cuda"
-        self.device_mechanisms = device_mechanisms
-        self._mechanism_fns = {}
-        # Tight kernel envelope from this atmosphere's actual conditions.
-        from .parallel.lines import derive_envelope
-        self._envelope = derive_envelope(
-            np.asarray(self.atmosphere.temperature.data),
-            np.asarray(self.atmosphere.pressure.data))
+        with metrics.timed("spectroscopy.init"):
+            self.mesh = mesh
+            self.sharding_mode = sharding_mode
+            self._sharded_fns = {}
+            self.device = mesh.device if mesh is not None \
+                else resolve_device(device)
+            self.dtype = resolve_dtype(dtype)
+            self.backend = resolve_backend(backend, self.device)
+            self.atmosphere = Atmosphere(atmosphere, mapping=mapping)
+            self.grid = np.asarray(grid)
+            self.lines_database = database
+            self.lines_backend = lines_backend
+            self.lines_engine = molecular_lines[lines_backend]
+            self.continua_backend = continua_backend
+            self.continua_engine = continua[continua_backend]
+            self.cross_sections_backend = cross_sections_backend
+            self.cross_sections_engine = \
+                cross_sections[cross_sections_backend]
+            self.cache = {}
+            self._multigas_fns = {}
+            if device_mechanisms is None:
+                device_mechanisms = self.device.type == "cuda"
+            self.device_mechanisms = device_mechanisms
+            self._mechanism_fns = {}
+            # Tight kernel envelope from this atmosphere's actual conditions.
+            from .parallel.lines import derive_envelope
+            self._envelope = derive_envelope(
+                np.asarray(self.atmosphere.temperature.data),
+                np.asarray(self.atmosphere.pressure.data))
 
-        Output = namedtuple("Output",
-                            ["dims", "dim_sizes", "mechanisms", "units"])
-        mechanisms = ["lines", "continuum", "cross_section"]
-        dims = list(self.atmosphere.temperature.dims) + \
-            ["mechanism", "wavenumber"]
-        dim_sizes = [x for x in self.atmosphere.temperature.sizes.values()] \
-            + [len(mechanisms), self.grid.size]
-        self.output = Output(dims=dims, dim_sizes=dim_sizes,
-                             mechanisms=mechanisms, units={"units": "m-1"})
+            Output = namedtuple("Output",
+                                ["dims", "dim_sizes", "mechanisms", "units"])
+            mechanisms = ["lines", "continuum", "cross_section"]
+            dims = list(self.atmosphere.temperature.dims) + \
+                ["mechanism", "wavenumber"]
+            dim_sizes = list(self.atmosphere.temperature.sizes.values()) \
+                + [len(mechanisms), self.grid.size]
+            self.output = Output(dims=dims, dim_sizes=dim_sizes,
+                                 mechanisms=mechanisms,
+                                 units={"units": "m-1"})
 
     def list_molecules(self):
         """Molecules available in the spectral database."""
@@ -148,13 +152,15 @@ class Spectroscopy:
 
     def _load_molecules(self):
         """Loads each atmosphere gas's backend objects once."""
-        for name in self.atmosphere.gases:
-            if name not in self.cache:
-                self.cache[name] = MoleculeCache(
-                    name, self.grid, self.lines_database,
-                    self.lines_engine, self.continua_engine,
-                    self.cross_sections_engine,
-                    self._accepted(self.lines_engine))
+        with metrics.timed("molecules.load"):
+            for name in self.atmosphere.gases:
+                if name not in self.cache:
+                    self.cache[name] = MoleculeCache(
+                        name, self.grid, self.lines_database,
+                        self.lines_engine, self.continua_engine,
+                        self.cross_sections_engine,
+                        self._accepted(self.lines_engine))
+                    metrics.count("molecules.loaded")
 
     def _accepted(self, fn, envelope=False):
         """This object's device, dtype and backend (and the atmosphere's
@@ -181,14 +187,19 @@ class Spectroscopy:
         if fns is not None:
             return fns
         data = self.cache[name]
-        cont_fns = None
-        if data.gas_continua is not None:
-            cont_fns = [cont.device_spectra(self.grid, self.device)
-                        for cont in data.gas_continua]
-        xsec_fn = None
-        if data.cross_section is not None:
-            xsec_fn = data.cross_section.device_absorption_fn(self.grid,
-                                                              self.device)
+        if data.gas_continua is None and data.cross_section is None:
+            fns = self._mechanism_fns[name] = (None, None)
+            return fns
+        with metrics.timed("continua.build"):
+            cont_fns = None
+            if data.gas_continua is not None:
+                cont_fns = [cont.device_spectra(self.grid, self.device)
+                            for cont in data.gas_continua]
+            xsec_fn = None
+            if data.cross_section is not None:
+                xsec_fn = data.cross_section.device_absorption_fn(
+                    self.grid, self.device)
+        metrics.count("continua.builds")
         self._mechanism_fns[name] = (cont_fns, xsec_fn)
         return cont_fns, xsec_fn
 
@@ -200,12 +211,14 @@ class Spectroscopy:
             return None
         if self.device_mechanisms:
             cont_fns, _ = self._device_mechanism_fns(name)
-            total = sum(fn(temperature, pressure, vmr_by_gas)
-                        for fn in cont_fns)
-            return total.cpu().numpy()
-        return sum(continuum.spectra(temperature, pressure, vmr_by_gas,
-                                     self.grid)
-                   for continuum in data.gas_continua)
+            with metrics.timed("continua.run"):
+                total = sum(fn(temperature, pressure, vmr_by_gas)
+                            for fn in cont_fns)
+                return total.cpu().numpy()
+        with metrics.timed("continua.run"):
+            return sum(continuum.spectra(temperature, pressure, vmr_by_gas,
+                                         self.grid)
+                       for continuum in data.gas_continua)
 
     def _xsec_batch(self, name, temperature, pressure):
         """[B, grid] cross sections [m2] for one gas; device path when
@@ -215,9 +228,11 @@ class Spectroscopy:
             return None
         if self.device_mechanisms:
             _, xsec_fn = self._device_mechanism_fns(name)
-            return xsec_fn(temperature, pressure).cpu().numpy()
-        return data.cross_section.absorption_coefficient_batch(
-            self.grid, temperature, pressure)
+            with metrics.timed("continua.run"):
+                return xsec_fn(temperature, pressure).cpu().numpy()
+        with metrics.timed("continua.run"):
+            return data.cross_section.absorption_coefficient_batch(
+                self.grid, temperature, pressure)
 
     def _pad_mesh_batch(self, temperature, pressure, vmr):
         """Pads a layer batch to a multiple of the mesh batch axis with
@@ -331,40 +346,45 @@ class Spectroscopy:
         if cached == "unstackable":
             return None
         if cached is None:
-            try:
-                if self.mesh is not None:
-                    from .parallel.sharded import \
-                        make_multigas_sharded_pipeline
-                    fn = make_multigas_sharded_pipeline(
-                        packs, self.grid, self.mesh, mode=self.sharding_mode,
-                        remove_pedestal=remove_pedestal,
-                        weight_density=False, backend=backend,
-                        dtype=self.dtype)
-                else:
-                    fn = make_multigas_batched_fn(
-                        packs, self.grid, t_max=self._envelope[0],
-                        p_max_atm=self._envelope[1], backend=backend,
-                        device=self.device, dtype=self.dtype)
-            except UnstackableError:
-                self._multigas_fns[key] = "unstackable"
-                return None
-            remover = make_stacked_pedestal_remover(packs, self.grid) \
-                if remove_pedestal and self.mesh is None else None
+            with metrics.timed("lines.build"):
+                try:
+                    if self.mesh is not None:
+                        from .parallel.sharded import \
+                            make_multigas_sharded_pipeline
+                        fn = make_multigas_sharded_pipeline(
+                            packs, self.grid, self.mesh,
+                            mode=self.sharding_mode,
+                            remove_pedestal=remove_pedestal,
+                            weight_density=False, backend=backend,
+                            dtype=self.dtype)
+                    else:
+                        fn = make_multigas_batched_fn(
+                            packs, self.grid, t_max=self._envelope[0],
+                            p_max_atm=self._envelope[1], backend=backend,
+                            device=self.device, dtype=self.dtype)
+                except UnstackableError:
+                    self._multigas_fns[key] = "unstackable"
+                    return None
+                remover = make_stacked_pedestal_remover(packs, self.grid) \
+                    if remove_pedestal and self.mesh is None else None
+            metrics.count("lines.builds")
             cached = (fn, remover, list(packs))
             self._multigas_fns[key] = cached
         fn, remover, names = cached
-        vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
-                            for n in names], axis=1)
-        if self.mesh is not None:
-            num = temperature.size
-            t, p, x = self._pad_mesh_batch(temperature, pressure, vmr_mat)
-            if local:
-                return names, fn.rows(t, p, x, False)
-            return names, fn.full(t, p, x, False)[:num]
-        k = fn(temperature, pressure, vmr_mat)
-        if remover is not None:
-            k = remover(k, temperature, pressure, vmr_mat)
-        return names, k
+        with metrics.timed("lines.run"):
+            vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
+                                for n in names], axis=1)
+            if self.mesh is not None:
+                num = temperature.size
+                t, p, x = self._pad_mesh_batch(temperature, pressure,
+                                               vmr_mat)
+                if local:
+                    return names, fn.rows(t, p, x, False)
+                return names, fn.full(t, p, x, False)[:num]
+            k = fn(temperature, pressure, vmr_mat)
+            if remover is not None:
+                k = remover(k, temperature, pressure, vmr_mat)
+            return names, k
 
     def _compute_lines_stacked(self, temperature, pressure, vmr_by_gas,
                                remove_pedestal, backend=None):
@@ -416,28 +436,32 @@ class Spectroscopy:
             temperature, pressure = temperature[rows], pressure[rows]
             vmr_by_gas = {n: v[rows] for n, v in vmr_by_gas.items()}
         ngrid = self.grid.size
+        mechanism_fns = {name: self._device_mechanism_fns(name)
+                         for name in names}
         per_gas = {}
-        for name in names:
-            nd = number_density(temperature, pressure, vmr_by_gas[name])
-            parts = []
-            if name in stacked_names:
-                g = stacked_names.index(name)
-                parts.append(torch.as_tensor(nd[:, None], dtype=k_dev.dtype,
-                                             device=self.device)
-                             * k_dev[:, g, :ngrid])
-            cont_fns, xsec_fn = self._device_mechanism_fns(name)
-            if cont_fns is not None:
-                for fn in cont_fns:
-                    parts.append(fn(temperature, pressure, vmr_by_gas))
-            if xsec_fn is not None:
-                parts.append(torch.as_tensor(nd[:, None], device=self.device)
-                             * xsec_fn(temperature, pressure))
-            total = parts[0] if parts else torch.zeros(
-                (temperature.size, ngrid), dtype=torch.float64,
-                device=self.device)
-            for part in parts[1:]:
-                total = total + part
-            per_gas[name] = total
+        with metrics.timed("continua.run"):
+            for name in names:
+                nd = number_density(temperature, pressure, vmr_by_gas[name])
+                parts = []
+                if name in stacked_names:
+                    g = stacked_names.index(name)
+                    parts.append(torch.as_tensor(
+                        nd[:, None], dtype=k_dev.dtype, device=self.device)
+                        * k_dev[:, g, :ngrid])
+                cont_fns, xsec_fn = mechanism_fns[name]
+                if cont_fns is not None:
+                    for fn in cont_fns:
+                        parts.append(fn(temperature, pressure, vmr_by_gas))
+                if xsec_fn is not None:
+                    parts.append(torch.as_tensor(nd[:, None],
+                                                 device=self.device)
+                                 * xsec_fn(temperature, pressure))
+                total = parts[0] if parts else torch.zeros(
+                    (temperature.size, ngrid), dtype=torch.float64,
+                    device=self.device)
+                for part in parts[1:]:
+                    total = total + part
+                per_gas[name] = total
 
         wavenumber = DataArray(self.grid, dims=("wavenumber",),
                                attrs={"units": "cm-1"})
@@ -447,11 +471,13 @@ class Spectroscopy:
         out_shape = shape + (ngrid,)
 
         def host(t):
-            if self.mesh is not None:
-                from .parallel import collectives
-                from .parallel.mesh import BATCH_AXIS
-                t = collectives.all_gather(t, self.mesh, BATCH_AXIS)[:num]
-            return t.cpu().numpy().astype(np.float64).reshape(out_shape)
+            with metrics.timed("output"):
+                if self.mesh is not None:
+                    from .parallel import collectives
+                    from .parallel.mesh import BATCH_AXIS
+                    t = collectives.all_gather(t, self.mesh,
+                                               BATCH_AXIS)[:num]
+                return t.cpu().numpy().astype(np.float64).reshape(out_shape)
 
         if output_format == "gas":
             for name, total in per_gas.items():
@@ -478,6 +504,10 @@ class Spectroscopy:
         Returns:
             Dataset of absorption coefficients [m-1].
         """
+        with metrics.timed("absorption"):
+            return self._compute_absorption(output_format, remove_pedestal)
+
+    def _compute_absorption(self, output_format, remove_pedestal):
         pressure, temperature, vmr_by_gas = self.atmosphere.packed()
         if remove_pedestal is None:
             remove_pedestal = self.continua_backend == "mt_ckd"
@@ -590,8 +620,6 @@ class Spectroscopy:
         every rank) and writes; the other ranks' ``writer`` is ignored
         (None will do).  A barrier closes the pass.
         """
-        from .utils.observability import metrics
-
         pressure, temperature, vmr_full = self.atmosphere.packed()
         if remove_pedestal is None:
             remove_pedestal = self.continua_backend == "mt_ckd"
@@ -673,24 +701,25 @@ class Spectroscopy:
 
     def _create_output_dataset(self, absorption, output_format):
         """Assembles the output Dataset (reference spectroscopy.py:208-235)."""
-        wavenumber = DataArray(self.grid, dims=("wavenumber",),
-                               attrs={"units": "cm-1"})
-        data_vars = {"wavenumber": wavenumber}
-        dims = list(self.output.dims)
-        units = self.output.units
-        if output_format == "all":
-            data_vars["mechanism"] = DataArray(
-                np.asarray(self.output.mechanisms), dims=("mechanism",))
-            data_vars.update(absorption)
-        elif output_format == "gas":
-            dims.pop(-2)
-            data_vars.update({
-                x: DataArray(np.sum(y.values, axis=-2), dims=dims,
-                             attrs=units)
-                for x, y in absorption.items()})
-        else:
-            dims.pop(-2)
-            data = [np.sum(x.values, axis=-2) for x in absorption.values()]
-            data_vars["absorption"] = DataArray(sum(data), dims=dims,
-                                                attrs=units)
-        return Dataset(data_vars=data_vars)
+        with metrics.timed("output"):
+            wavenumber = DataArray(self.grid, dims=("wavenumber",),
+                                   attrs={"units": "cm-1"})
+            data_vars = {"wavenumber": wavenumber}
+            dims = list(self.output.dims)
+            units = self.output.units
+            if output_format == "all":
+                data_vars["mechanism"] = DataArray(
+                    np.asarray(self.output.mechanisms), dims=("mechanism",))
+                data_vars.update(absorption)
+            elif output_format == "gas":
+                dims.pop(-2)
+                data_vars.update({
+                    x: DataArray(np.sum(y.values, axis=-2), dims=dims,
+                                 attrs=units)
+                    for x, y in absorption.items()})
+            else:
+                dims.pop(-2)
+                data = [np.sum(x.values, axis=-2) for x in absorption.values()]
+                data_vars["absorption"] = DataArray(sum(data), dims=dims,
+                                                    attrs=units)
+            return Dataset(data_vars=data_vars)

@@ -9,7 +9,15 @@ Counterpart of pylbl_tpu/utils/observability.py:
   ``lines.absorption_batch`` and the counters ``lines.processed``,
   ``lines.point_evals`` and ``lines.grid_points``); a timer is host clock
   around a block that ends with the device-to-host copy, so on the card it
-  covers the synchronised work,
+  covers the synchronised work.  ``Spectroscopy`` times its layers
+  (``spectroscopy.init``, ``absorption``, ``molecules.load``,
+  ``lines.build``, ``lines.run``, ``continua.build``, ``continua.run``,
+  ``output`` and their parts) and counts the per-instance work it builds
+  (``lines.builds``, ``continua.builds``, ``molecules.loaded``,
+  ``database.pack_reads``),
+- each stage timer is also a span: while a ``torch.profiler`` records, it
+  opens the range ``pylbl.<stage>``, on the profiler's clock beside the
+  card's work,
 - a ``torch.profiler`` trace context writing TensorBoard traces.
 """
 import contextlib
@@ -17,7 +25,11 @@ import logging
 import threading
 import time
 
+import torch
+
 logger = logging.getLogger("pylbl_tpu_torch")
+# Name of a stage's range in a profiler trace: SPAN_PREFIX + stage.
+SPAN_PREFIX = "pylbl."
 
 
 def configure_logging(level=logging.INFO):
@@ -44,9 +56,16 @@ class Metrics:
 
     @contextlib.contextmanager
     def timed(self, stage):
+        """Times the block into the ``stage`` timer and, only while a
+        profiler records, opens the range ``SPAN_PREFIX + stage`` over it
+        (the test costs far less than a range with no profiler)."""
+        span = torch.profiler.record_function(SPAN_PREFIX + stage) \
+            if torch.autograd._profiler_enabled() \
+            else contextlib.nullcontext()
         start = time.perf_counter()
         try:
-            yield
+            with span:
+                yield
         finally:
             elapsed = time.perf_counter() - start
             with self._lock:

@@ -87,6 +87,24 @@ def test_cli_compute_end_to_end(inputs, tmp_path, capsys):
     assert rel(got, want) < 5e-4
 
 
+def test_cli_compute_metrics_print_the_spans(inputs, tmp_path, capsys):
+    """``compute --metrics`` prints the stages of the request path and
+    the counters of the per-instance work."""
+    metrics.reset()
+    assert main(compute_args(inputs, tmp_path / "spans.nc", "--format",
+                             "total", "--metrics")) == 0
+    printed = capsys.readouterr().out
+    snapshot = json.loads(printed[:printed.rindex("}") + 1])
+    stages = ("spectroscopy.init", "absorption", "molecules.load",
+              "lines.build", "lines.stack", "lines.plan", "lines.upload",
+              "lines.run", "lines.guard", "lines.assemble", "lines.wings",
+              "lines.core", "continua.run", "output")
+    assert all(snapshot["timers"][stage]["calls"] >= 1 for stage in stages)
+    assert snapshot["counters"]["lines.builds"] == 1
+    assert snapshot["counters"]["molecules.loaded"] == 1
+    assert snapshot["counters"]["database.pack_reads"] == 1
+
+
 def test_cli_compute_streamed(inputs, tmp_path, capsys):
     """``compute --streamed`` writes the file of
     ``compute_absorption_streamed``, timing each stage of its one block."""
