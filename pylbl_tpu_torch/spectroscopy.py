@@ -296,6 +296,12 @@ class Spectroscopy:
         product is one wings pass plus one core pass; the pedestal is
         removed on the device (only [B, N] endpoint values visit the host).
 
+        A built single-device pipeline lives on this object and, shared
+        with every object on the same ``Database``, in the database's
+        ``stacked_pipelines`` (database/db.py): a new object over another
+        atmosphere in the same quantized envelope reuses it (the counter
+        ``lines.shared_hits``) and builds nothing.
+
         Under a mesh the pipeline is the line-sharded one
         (parallel/sharded.py ``make_multigas_sharded_pipeline``): the
         batch is padded to the mesh's batch axis, gases without packed
@@ -319,10 +325,6 @@ class Spectroscopy:
             (:class:`~pylbl_tpu_torch.parallel.lines.UnstackableError`),
             some engine has no packed lines or the backend is "xla".
         """
-        from .parallel.lines import (UnstackableError,
-                                     make_multigas_batched_fn,
-                                     make_stacked_pedestal_remover)
-
         if backend is None and self.backend == "xla" and self.mesh is None:
             return None
         packs = {}
@@ -340,36 +342,32 @@ class Spectroscopy:
         if not packs:
             return None
         backend = resolve_backend(backend or self.backend, self.device)
-        key = (float(self.grid[0]), float(self.grid[-1]), self.grid.size,
-               tuple(packs), backend, self._envelope, bool(remove_pedestal))
+        # The grid enters the build through its ends, size and spacing
+        # (grid[1]); the packs by identity, since another object of the
+        # same name (a re-read, another engine's) may hold other lines.
+        key = (float(self.grid[0]), float(self.grid[1]),
+               float(self.grid[-1]), self.grid.size, tuple(packs), backend,
+               self._envelope, bool(remove_pedestal), self.device,
+               self.dtype, tuple(map(id, packs.values())))
+        # Single-device pipelines are shared by the objects on one
+        # Database (a Database-like object without the cache keeps them
+        # per object, as the mesh path does).
+        shared = None if self.mesh is not None else getattr(
+            self.lines_database, "stacked_pipelines", None)
         cached = self._multigas_fns.get(key)
+        if cached is None and shared is not None:
+            cached = shared.get(key)
+            if cached is not None:
+                metrics.count("lines.shared_hits")
+                self._multigas_fns[key] = cached
+        if cached is None:
+            cached = self._build_lines_stacked(packs, backend,
+                                               remove_pedestal)
+            self._multigas_fns[key] = cached
+            if shared is not None:
+                shared.put(key, packs.values(), cached)
         if cached == "unstackable":
             return None
-        if cached is None:
-            with metrics.timed("lines.build"):
-                try:
-                    if self.mesh is not None:
-                        from .parallel.sharded import \
-                            make_multigas_sharded_pipeline
-                        fn = make_multigas_sharded_pipeline(
-                            packs, self.grid, self.mesh,
-                            mode=self.sharding_mode,
-                            remove_pedestal=remove_pedestal,
-                            weight_density=False, backend=backend,
-                            dtype=self.dtype)
-                    else:
-                        fn = make_multigas_batched_fn(
-                            packs, self.grid, t_max=self._envelope[0],
-                            p_max_atm=self._envelope[1], backend=backend,
-                            device=self.device, dtype=self.dtype)
-                except UnstackableError:
-                    self._multigas_fns[key] = "unstackable"
-                    return None
-                remover = make_stacked_pedestal_remover(packs, self.grid) \
-                    if remove_pedestal and self.mesh is None else None
-            metrics.count("lines.builds")
-            cached = (fn, remover, list(packs))
-            self._multigas_fns[key] = cached
         fn, remover, names = cached
         with metrics.timed("lines.run"):
             vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
@@ -385,6 +383,35 @@ class Spectroscopy:
             if remover is not None:
                 k = remover(k, temperature, pressure, vmr_mat)
             return names, k
+
+    def _build_lines_stacked(self, packs, backend, remove_pedestal):
+        """Builds the stacked pipeline over ``packs``: (fn, remover or
+        None, names), or "unstackable"."""
+        from .parallel.lines import (UnstackableError,
+                                     make_multigas_batched_fn,
+                                     make_stacked_pedestal_remover)
+
+        with metrics.timed("lines.build"):
+            try:
+                if self.mesh is not None:
+                    from .parallel.sharded import \
+                        make_multigas_sharded_pipeline
+                    fn = make_multigas_sharded_pipeline(
+                        packs, self.grid, self.mesh, mode=self.sharding_mode,
+                        remove_pedestal=remove_pedestal,
+                        weight_density=False, backend=backend,
+                        dtype=self.dtype)
+                else:
+                    fn = make_multigas_batched_fn(
+                        packs, self.grid, t_max=self._envelope[0],
+                        p_max_atm=self._envelope[1], backend=backend,
+                        device=self.device, dtype=self.dtype)
+            except UnstackableError:
+                return "unstackable"
+            remover = make_stacked_pedestal_remover(packs, self.grid) \
+                if remove_pedestal and self.mesh is None else None
+        metrics.count("lines.builds")
+        return fn, remover, list(packs)
 
     def _compute_lines_stacked(self, temperature, pressure, vmr_by_gas,
                                remove_pedestal, backend=None):

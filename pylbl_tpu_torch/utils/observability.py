@@ -13,8 +13,8 @@ Counterpart of pylbl_tpu/utils/observability.py:
   (``spectroscopy.init``, ``absorption``, ``molecules.load``,
   ``lines.build``, ``lines.run``, ``continua.build``, ``continua.run``,
   ``output`` and their parts) and counts the per-instance work it builds
-  (``lines.builds``, ``continua.builds``, ``molecules.loaded``,
-  ``database.pack_reads``),
+  (``lines.builds``, ``lines.shared_hits``, ``continua.builds``,
+  ``molecules.loaded``, ``database.pack_reads``),
 - each stage timer is also a span: while a ``torch.profiler`` records, it
   opens the range ``pylbl.<stage>``, on the profiler's clock beside the
   card's work,

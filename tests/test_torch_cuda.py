@@ -92,23 +92,34 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                               1024, fn.wings_stride)
 
 
-@pytest.mark.gpu
-def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
-    """The main path on the card (kernels) agrees with the same path on
-    the CPU (plain versions), and repeats bit for bit."""
-    db = Database(tmp_path / "gpu.db")
+def card_database(path):
+    db = Database(path)
     for pack in packs().values():
         db.ingest_line_pack(pack)
+    return db
+
+
+def card_column(temperature=T):
+    """The two-layer column of T, P and VMR with O2 and N2 added."""
     names = {"H2O": "water_vapor", "CO2": "carbon_dioxide", "O3": "ozone",
              "O2": "oxygen", "N2": "nitrogen"}
     vmr = {"H2O": VMR[:, 0], "CO2": VMR[:, 1], "O3": VMR[:, 2],
            "O2": [0.209, 0.209], "N2": [0.78, 0.78]}
     data = {"p": (["layer"], P, {"standard_name": "air_pressure"}),
-            "t": (["layer"], T, {"standard_name": "air_temperature"})}
+            "t": (["layer"], temperature,
+                  {"standard_name": "air_temperature"})}
     for name, std in names.items():
         data[name.lower()] = (["layer"], np.asarray(vmr[name]), {
             "standard_name": f"mole_fraction_of_{std}_in_air"})
-    atm = Dataset(data_vars=data)
+    return Dataset(data_vars=data)
+
+
+@pytest.mark.gpu
+def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
+    """The main path on the card (kernels) agrees with the same path on
+    the CPU (plain versions), and repeats bit for bit."""
+    db = card_database(tmp_path / "gpu.db")
+    atm = card_column()
     grid = np.arange(1.0, 220.0, 0.1)
     gpu = Spectroscopy(atm, grid, db, device=cuda_device)
     cpu = Spectroscopy(atm, grid, db, device="cpu")
@@ -119,6 +130,46 @@ def test_spectroscopy_on_card_matches_cpu(cuda_device, tmp_path):
     scale = np.abs(want).max()
     assert float((np.abs(got - want) / np.maximum(np.abs(want),
                                                   scale * 1e-6)).max()) < 5e-5
+
+
+@pytest.mark.gpu
+def test_objects_on_one_database_share_the_stacked_pipeline(cuda_device,
+                                                            tmp_path):
+    """A second object on the same Database takes the first one's stacked
+    pipeline and returns, bit for bit, what the first object and a fresh
+    build return; ten objects hold no more than one entry more than one
+    object does."""
+    from pylbl_tpu_torch.utils.observability import metrics
+
+    grid = np.arange(1.0, 220.0, 0.1)
+    warmer = T + np.asarray([0.8, 0.5])  # the same 290 K bucket
+
+    def total(db, temperature=T):
+        spec = Spectroscopy(card_column(temperature), grid, db,
+                            device=cuda_device)
+        return spec.compute_absorption(output_format="total")[
+            "absorption"].data
+
+    db = card_database(tmp_path / "shared.db")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    first = total(db)
+    torch.cuda.synchronize()
+    one = torch.cuda.memory_allocated()
+    metrics.reset()
+    assert np.array_equal(total(db), first)
+    hit = total(db, warmer)
+    counters = metrics.snapshot()["counters"]
+    assert counters["lines.shared_hits"] == 2
+    assert "lines.builds" not in counters
+    assert np.array_equal(hit, total(card_database(tmp_path / "cold.db"),
+                                     warmer))
+    for _ in range(7):
+        total(db, warmer)
+    torch.cuda.synchronize()
+    ten = torch.cuda.memory_allocated()
+    entry = one - before
+    assert entry > 0 and abs(ten - one) <= entry
 
 
 # --- Single-gas kernels: tile line functions, segment passes, single-layer

@@ -121,11 +121,12 @@ def test_a_second_call_builds_nothing(tmp_path):
     assert "lines.run" in stages and "continua.run" in stages
     assert not stages & {"lines.build", "continua.build", "lines.plan"}
     assert metrics.snapshot()["counters"] == fresh
-    # A new object on the same database builds its own, and reads no pack.
+    # A new object on the same database takes the database's stacked
+    # pipeline, and reads no pack.
     metrics.reset()
     spectroscopy(database).compute_absorption("total")
     assert metrics.snapshot()["counters"] == {
-        "lines.builds": 1, "continua.builds": len(GASES),
+        "lines.shared_hits": 1, "continua.builds": len(GASES),
         "molecules.loaded": len(GASES)}
 
 
