@@ -18,9 +18,11 @@ With ``--trace 1`` the window runs under ``torch.profiler`` for at most
 After the window (and after the peak device memory is read and the
 program's objects are freed) the plain reference computes the checked
 points of ``inputs.CHECKED_CALLS`` calls drawn from the seed, each over its
-own atmosphere, in float64 on the device, and the run compares them with
-what the calls returned.  Standard error ends with each compared number
-beside its limit; standard output ends with the result line.
+own atmosphere, in float64 on the device, with the reference's pedestal
+taken out where the configuration's ``remove_pedestal`` states it, and
+the run compares them with what the calls returned (``judge``).  Standard
+error ends with each compared number beside its limit; standard output
+ends with the result line.
 """
 import argparse
 import contextlib
@@ -41,8 +43,9 @@ from .system import System
 
 ROOT = Path(__file__).resolve().parents[2]
 TRACE_SECONDS = 5.0
-# Requests made in set-up, before the window.
-WARM_CALLS = 2
+# Requests made in set-up, before the window: the first builds the
+# Database's shared lines pipeline and every kernel a request runs.
+WARM_CALLS = 1
 # Modules no process of the benchmark may hold: JAX and the JAX package,
 # by top-level name.
 FORBIDDEN = ("jax", "jaxlib", "flax", "pylbl_tpu")
@@ -62,18 +65,38 @@ def set_caches(root):
         os.environ[key] = str(Path(root) / rel)
 
 
-def judge(got, ref, limit):
+def judge(got, ref, limits):
     """(checks, failed calls): ``rel_err``, the largest relative gap of a
-    checked call's point from the reference, with its limit, and the
-    number of checked calls with a point beyond it.  ``got`` and ``ref``
-    hold one array a checked call."""
-    worst = []
-    for g, r in zip(got, ref):
-        if not (np.isfinite(r).all() and (r > 0).all()):
+    checked call's point from the reference, with its limit
+    (``limits["rel_err"]``), and the number of checked calls with a point
+    beyond it.  ``got`` holds one array a checked call, ``ref`` one
+    (reference, reference before the pedestal) pair.  The gap is over the
+    reference, which has to be finite and positive at every checked point.
+    With ``limits["rel_err_floor"]`` (phi) it is over the larger of
+    |reference| and phi x the reference before the pedestal, which then has
+    to be finite and positive: the float32 error of the program's line
+    field scales with the field before the pedestal is taken out, not with
+    what is left after it."""
+    floor = limits.get("rel_err_floor")
+    worst, floored, points = [], 0, 0
+    for g, (r, r0) in zip(got, ref):
+        base = r if floor is None else r0
+        if not (np.isfinite(base).all() and (base > 0).all()
+                and np.isfinite(r).all()):
             raise RuntimeError("the reference is not finite and positive "
                                "at every checked point")
-        rel = np.abs(np.asarray(g, np.float64) - r) / r
+        scale = r
+        if floor is not None:
+            scale = np.maximum(np.abs(r), floor * r0)
+            floored += int((floor * r0 > np.abs(r)).sum())
+            points += r.size
+        rel = np.abs(np.asarray(g, np.float64) - r) / scale
         worst.append(float(np.where(np.isfinite(rel), rel, np.inf).max()))
+    if floor is not None:
+        print(f"lblbench: {floor!r} x the reference before the pedestal is "
+              f"the divisor at {floored} of {points} checked points "
+              f"({100.0 * floored / points:.4f}%)", file=sys.stderr)
+    limit = limits["rel_err"]
     checks = {"rel_err": {"value": max(worst), "limit": limit}}
     return checks, sum(w > limit for w in worst)
 
@@ -132,14 +155,14 @@ def window(system, inputs, seconds, traced):
 
 
 def run_cell(root, cell, seed, seconds, traced, device, t_start,
-             system_factory=System):
+             system_factory=System, check=judge):
     """Runs the cell and returns the result dict (the result line's keys,
-    ``checks`` last)."""
+    ``checks`` last); ``check`` compares as :func:`judge` does."""
     import torch
 
     from ..reference import lbl
 
-    config, traffic = cell.config, cell.traffic
+    config = cell.config
     marks = [("imports", time.perf_counter())]
     inputs = inputs_mod.make(config, seed)
     marks.append(("inputs", time.perf_counter()))
@@ -147,7 +170,8 @@ def run_cell(root, cell, seed, seconds, traced, device, t_start,
         seconds = min(seconds, TRACE_SECONDS)
     cuda = torch.device(device).type == "cuda"
     with tempfile.TemporaryDirectory(prefix="lblbench-") as work:
-        system = system_factory(config, traffic, inputs, Path(work), device)
+        system = system_factory(config, cell.traffic, inputs, Path(work),
+                                device)
         marks.append(("system", time.perf_counter()))
         for k in range(WARM_CALLS):
             system(inputs.request(k))
@@ -167,15 +191,16 @@ def run_cell(root, cell, seed, seconds, traced, device, t_start,
         torch.cuda.empty_cache()
     ref_start = time.perf_counter()
     checked = inputs.checked(len(calls))
-    ref = [lbl.absorption(config, inputs.lines, requests[i].atmosphere,
-                          inputs.grid, requests[i].state, requests[i].point,
-                          "float64", device) for i in checked]
+    ref = lbl.totals(config, inputs.lines,
+                     [(requests[i].atmosphere, requests[i].state,
+                       requests[i].point) for i in checked],
+                     inputs.grid, "float64", device,
+                     spec_mod.remove_pedestal(config))
     window_s = calls[-1][1] - calls[0][0]
     print(f"lblbench: {len(calls)} calls in {window_s:.3f} s, reference "
           f"of {len(checked)} calls {time.perf_counter() - ref_start:.3f} s",
           file=sys.stderr)
-    checks, failed = judge([samples[i] for i in checked], ref,
-                           cell.limits["rel_err"])
+    checks, failed = check([samples[i] for i in checked], ref, cell.limits)
     correct = failed == 0
     run = Run(states_per_call=requests[0].atmosphere.num_states, calls=calls,
               requests=requests, window_s=window_s, setup_s=setup_s,

@@ -58,6 +58,14 @@ def cell(root, name):
                            if _reports(m, name)])
 
 
+def remove_pedestal(config):
+    """Whether the configuration states the reference's pedestal taken out
+    (its ``remove_pedestal``; a configuration without the key takes none
+    out).  The program, the plain reference and the control all read it
+    here."""
+    return bool(config.get("remove_pedestal", False))
+
+
 def _load(root, folder, name):
     """The module ``lblbench/<folder>/<name>.py``."""
     path = Path(root) / "lblbench" / folder / f"{name}.py"

@@ -3,11 +3,14 @@ it.  Set-up ingests the line lists through ``Database.ingest_line_pack``
 into a database file under ``workdir``, and the user keeps that
 ``Database``.  The atmosphere of a ``Spectroscopy`` is fixed when it is
 built, so each request builds a new one over the request's atmosphere and
-calls ``compute_absorption(output_format="total", remove_pedestal=...)``,
+calls ``compute_absorption(output_format="total", remove_pedestal=...)``
+(the configuration's ``remove_pedestal``),
 with the spectrum handed back on the host.  The continua run on the device
 (``device_mechanisms``: the default on the card, asked for here so that the
 CPU tests take the same path).  Nothing else of the program is used."""
 import numpy as np
+
+from .spec import remove_pedestal
 
 # CF standard names of the gases (the port's ``atmosphere.py`` reads them).
 STANDARD_NAMES = {"H2O": "water_vapor", "CO2": "carbon_dioxide",
@@ -45,7 +48,7 @@ class System:
             self.db.ingest_line_pack(LinePack(formula=name, **lines))
         self.grid = inputs.grid
         self.device = device
-        self.remove_pedestal = traffic["remove_pedestal"]
+        self.remove_pedestal = remove_pedestal(config)
 
     def __call__(self, request):
         atm = request.atmosphere

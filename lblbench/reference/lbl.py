@@ -19,6 +19,10 @@ program reproduces, point by point and line by line:
 - the Voigt function K(x, y) by the regions of Humlicek's W4 and CPF12
   (voigt.c): the Lorentzian beyond xlim0 and for y >= 70.55, W4's three
   rationals and CPF12's two sums inside;
+- with ``remove_pedestal`` (the reference API's default with MT-CKD), each
+  line, in list order, then subtracts min(k[s], k[e]) of its gas's
+  accumulated cross section k over its window [s, e] (spectra.c:66-78,
+  :func:`pedestals`);
 - each gas's cross section times its number density p x / (kB T), summed
   over the gases, plus the MT-CKD continua (mtckd.py).
 
@@ -26,8 +30,9 @@ Everything is worked out here from the line lists and the layers: nothing
 of the program is imported or read.  ``precision`` chooses the arithmetic:
 "float64" is the reference; "bfloat16" is the control, the same sums with
 each line's x, y and prefactor rounded to bfloat16, the Voigt function and
-the terms in bfloat16, the sums in float32 and the continua in float32
-(the step below each precision the configuration states).
+the terms in bfloat16, the sums and the pedestal loop in float32 and the
+continua in float32 (the step below each precision the configuration
+states).
 """
 import numpy as np
 import torch
@@ -178,19 +183,77 @@ def blocks(count):
         start = stop
 
 
+def _device_lines(lines, keep, device):
+    """The first ``keep`` lines' parameters as tensors on ``device``."""
+    slot = np.clip(lines["iso"][:keep] - 1, 0, lines["q_table"].shape[0] - 1)
+    return {name: torch.as_tensor(value, device=device) for name, value in (
+        ("nu", lines["nu"][:keep]), ("sw", lines["sw"][:keep]),
+        ("ga", lines["gamma_air"][:keep]), ("gs", lines["gamma_self"][:keep]),
+        ("na", lines["n_air"][:keep]), ("da", lines["delta_air"][:keep]),
+        ("el", lines["elower"][:keep]), ("slot", slot),
+        ("mass", lines["mass_slots"][lines["iso"][:keep] - 1]),
+        ("q_ref", partition(lines, [T_REF])[0]))}
+
+
+def _line_params(dev, line, layer, cut_off, v0, n_per_v):
+    """Each (line, layer) pair's window and Voigt inputs in float64
+    (spectra.c), ``line`` and ``layer`` broadcast against each other:
+    ``dev`` holds the lines (:func:`_device_lines`) and each layer's
+    ``t``, ``p``, ``x`` and ``q_t``.  The window is [start, end] in
+    internal grid points, before clamping."""
+    tk = dev["t"][layer]
+    nu_l = dev["nu"][line]
+    p_atm = dev["p"][layer] * PA_TO_ATM
+    partial = p_atm * dev["x"][layer]
+    shifted = nu_l + p_atm * dev["da"][line]
+    bucket = torch.floor(shifted)
+    gamma = (dev["ga"][line] * (p_atm - partial)
+             + dev["gs"][line] * partial) \
+        * (T_REF / tk) ** dev["na"][line]
+    alpha = (nu_l / VLIGHT) * torch.sqrt(R2 * tk / dev["mass"][line])
+    slot_l = dev["slot"][line]
+    strength = (dev["sw"][line]
+                * torch.exp(dev["el"][line] * C2 * (tk - T_REF)
+                            / (tk * T_REF))
+                * (1.0 - torch.exp(-C2 * nu_l / tk))
+                / (1.0 - torch.exp(-C2 * nu_l / T_REF))
+                * dev["q_ref"][slot_l] / dev["q_t"][layer, slot_l]
+                * 1e-4)
+    repwid = SQRT_LN2 / alpha
+    return {"shifted": shifted, "repwid": repwid, "y": repwid * gamma,
+            "pref": strength * RSQRPI * repwid,
+            "start": (bucket - cut_off - v0) * n_per_v,
+            "end": (bucket + cut_off + 1 - v0) * n_per_v}
+
+
+def _terms(prm, j, inside, v0, n_per_v, term_dtype):
+    """prefactor x K(x, y) at internal grid points ``j`` (float64) where
+    ``inside``, 0 elsewhere, in ``term_dtype``; ``prm`` from
+    :func:`_line_params`, broadcast against ``j``."""
+    xs = ((v0 + j / n_per_v - prm["shifted"]) * prm["repwid"]).to(term_dtype)
+    ys = prm["y"].to(term_dtype)
+    pref = prm["pref"].to(term_dtype)
+    xs, ys = torch.broadcast_tensors(xs, ys)
+    return torch.where(inside, pref * voigt(xs, ys), torch.zeros_like(xs))
+
+
 def cross_section(lines, grid, cut_off, t, p, x, points, precision,
-                  device):
+                  device, pedestal=None, layer=None):
     """One gas's cross section [m2] at pairs of a layer and an internal
     grid point: ``t`` [K], ``p`` [Pa], ``x`` (the gas's mole fraction) and
     ``points`` (int) are arrays of one entry a pair.  Each is the sum of
     prefactor x K(x, y) over the lines whose window holds the point, the
-    line's physics worked out for the pair's layer (spectra.c)."""
+    line's physics worked out for the pair's layer (spectra.c).  With
+    ``pedestal`` ([layers, kept lines], :func:`pedestals`) and ``layer``
+    (each pair's row of it), returns (cross section, the sum of the
+    pedestals of the same lines); without, (cross section, None)."""
     term_dtype, sum_dtype, _ = PRECISIONS[precision]
     v0, vn, n_per_v, _ = internal_grid(grid)
     keep = kept(lines["nu"], v0, vn, cut_off)
     out = torch.zeros(points.size, dtype=sum_dtype, device=device)
+    taken = None if pedestal is None else torch.zeros_like(out)
     if keep == 0 or points.size == 0:
-        return out
+        return out, taken
     nu = lines["nu"][:keep]
     # A line's window starts at its bucket floor(shifted centre); the shift
     # moves it by less than a wavenumber, so the lines with floor(nu) one
@@ -200,16 +263,14 @@ def cross_section(lines, grid, cut_off, t, p, x, points, precision,
     hi = points // n_per_v + v0 + cut_off + 1
     first = np.searchsorted(floor_nu, lo, side="left")
     count = np.searchsorted(floor_nu, hi, side="right") - first
-    slot = np.clip(lines["iso"][:keep] - 1, 0, lines["q_table"].shape[0] - 1)
-    dev = {name: torch.as_tensor(value, device=device) for name, value in (
-        ("nu", nu), ("sw", lines["sw"][:keep]),
-        ("ga", lines["gamma_air"][:keep]), ("gs", lines["gamma_self"][:keep]),
-        ("na", lines["n_air"][:keep]), ("da", lines["delta_air"][:keep]),
-        ("el", lines["elower"][:keep]), ("slot", slot),
-        ("mass", lines["mass_slots"][lines["iso"][:keep] - 1]),
-        ("q_ref", partition(lines, [T_REF])[0]),
-        ("q_t", partition(lines, t)), ("t", t), ("p", p), ("x", x),
-        ("j", points.astype(np.float64)), ("first", first))}
+    dev = _device_lines(lines, keep, device)
+    dev.update({name: torch.as_tensor(value, device=device) for name, value
+                in (("q_t", partition(lines, t)), ("t", t), ("p", p),
+                    ("x", x), ("j", points.astype(np.float64)),
+                    ("first", first))})
+    if pedestal is not None:
+        pedestal = torch.as_tensor(pedestal, device=device)
+        dev["layer"] = torch.as_tensor(layer, device=device)
     for blk in blocks(count):
         cnt = torch.as_tensor(count[blk], device=device)
         owner = torch.repeat_interleave(
@@ -217,56 +278,167 @@ def cross_section(lines, grid, cut_off, t, p, x, points, precision,
         line = dev["first"][owner] + torch.arange(
             owner.numel(), device=device) - torch.repeat_interleave(
                 torch.cumsum(cnt, 0) - cnt, cnt)
-        tk, j = dev["t"][owner], dev["j"][owner]
-        nu_l = dev["nu"][line]
-        p_atm = dev["p"][owner] * PA_TO_ATM
-        partial = p_atm * dev["x"][owner]
-        shifted = nu_l + p_atm * dev["da"][line]
-        bucket = torch.floor(shifted)
-        inside = ((bucket - cut_off - v0) * n_per_v <= j) \
-            & (j <= (bucket + cut_off + 1 - v0) * n_per_v)
-        gamma = (dev["ga"][line] * (p_atm - partial)
-                 + dev["gs"][line] * partial) \
-            * (T_REF / tk) ** dev["na"][line]
-        alpha = (nu_l / VLIGHT) * torch.sqrt(R2 * tk / dev["mass"][line])
-        slot_l = dev["slot"][line]
-        strength = (dev["sw"][line]
-                    * torch.exp(dev["el"][line] * C2 * (tk - T_REF)
-                                / (tk * T_REF))
-                    * (1.0 - torch.exp(-C2 * nu_l / tk))
-                    / (1.0 - torch.exp(-C2 * nu_l / T_REF))
-                    * dev["q_ref"][slot_l] / dev["q_t"][owner, slot_l]
-                    * 1e-4)
-        repwid = SQRT_LN2 / alpha
-        xs = ((v0 + j / n_per_v - shifted) * repwid).to(term_dtype)
-        ys = (repwid * gamma).to(term_dtype)
-        pref = (strength * RSQRPI * repwid).to(term_dtype)
-        terms = torch.where(inside, pref * voigt(xs, ys),
-                            torch.zeros_like(xs))
+        j = dev["j"][owner]
+        prm = _line_params(dev, line, owner, cut_off, v0, n_per_v)
+        inside = (prm["start"] <= j) & (j <= prm["end"])
+        terms = _terms(prm, j, inside, v0, n_per_v, term_dtype)
         out.index_add_(0, owner, terms.to(sum_dtype))
-    return out
+        if pedestal is not None:
+            taken.index_add_(0, owner, torch.where(
+                inside, pedestal[dev["layer"][owner], line],
+                torch.zeros_like(out[:1])))
+    return out, taken
+
+
+def endpoints(num_points, n_per_v):
+    """The internal grid points at which a window can start or end: every
+    whole wavenumber, and the last point (a window past the grid's top
+    ends there)."""
+    return np.unique(np.append(np.arange(0, num_points, n_per_v),
+                               num_points - 1))
+
+
+def pedestals(lines, grid, cut_off, t, p, x, precision, device):
+    """[layers, kept lines]: the pedestal each line takes out of one gas's
+    cross section in each layer (``t``, ``p``, ``x``: one entry a layer),
+    by the reference's loop (spectra.c:66-78): the lines in list order,
+    each adding its terms over its window [s, e] (clamped to the grid) and
+    then subtracting min(k[s], k[e]) over it, from the one accumulator k.
+    A line whose window misses the grid (s >= n or e < 0) takes nothing.
+
+    Only k's values at s and e are read, and every s and e is one of
+    :func:`endpoints`, so k is kept there alone: a line adds its terms at
+    the endpoints in its window and takes its pedestal out of them.  The
+    loop runs over the lines, each step over every layer at once; the
+    terms are worked out on ``device`` in blocks of lines, in
+    ``precision``, and k is kept in its accumulation type."""
+    term_dtype, sum_dtype, _ = PRECISIONS[precision]
+    v0, vn, n_per_v, num_points = internal_grid(grid)
+    keep = kept(lines["nu"], v0, vn, cut_off)
+    layers = t.size
+    host = torch.zeros(0, dtype=sum_dtype).numpy().dtype
+    if keep == 0 or layers == 0:
+        return np.zeros((layers, keep), host)
+    ends = endpoints(num_points, n_per_v)
+    last = ends.size - 1
+    dev = _device_lines(lines, keep, device)
+    dev.update({name: torch.as_tensor(value, device=device) for name, value
+                in (("q_t", partition(lines, t)), ("t", t), ("p", p),
+                    ("x", x), ("ends", ends.astype(np.float64)))})
+    layer = torch.arange(layers, device=device)[:, None]
+    # k at the endpoints, endpoint by endpoint, each a row of the layers.
+    acc = np.zeros((ends.size, layers), host)
+    ped = np.zeros((keep, layers), host)
+    rows = np.arange(layers)
+    per_block = max(1, PAIRS_PER_BLOCK // (layers * (2 * cut_off + 4)))
+    for start in range(0, keep, per_block):
+        line = torch.arange(start, min(start + per_block, keep),
+                            device=device)[None, :]
+        prm = _line_params(dev, line, layer, cut_off, v0, n_per_v)
+        s, e = prm["start"].long(), prm["end"].long()
+        live = (s < num_points) & (e >= 0)
+        # Each window's first and last endpoint, as indices of ``ends``.
+        first = torch.where(live, s.clamp(0, num_points - 1) // n_per_v, 0)
+        final = torch.where(e > num_points - 1, last,
+                            e.clamp(min=0) // n_per_v)
+        final = torch.where(live, final, 0)
+        # A line's endpoints base, base + 1, ..., top - 1 hold its window
+        # in every layer.
+        base = torch.where(live, first, last).amin(0)
+        top = final.amax(0) + 1
+        width = max(int((top - base).max()), 1)
+        slot = base[None, :, None] + torch.arange(width, device=device)
+        inside = live[..., None] & (first[..., None] <= slot) \
+            & (slot <= final[..., None])
+        j = dev["ends"][slot.clamp(max=last)]
+        terms = _terms({k: v[..., None] for k, v in prm.items()}, j, inside,
+                       v0, n_per_v, term_dtype)
+        # [line, endpoint, layer] on the host.
+        terms = terms.to(sum_dtype).permute(1, 2, 0).contiguous() \
+            .cpu().numpy()
+        inside = inside.to(sum_dtype).permute(1, 2, 0).contiguous() \
+            .cpu().numpy()
+        # A line whose window is the same live one in every layer.
+        same = (live.all(0) & (first == first[:1]).all(0)
+                & (final == final[:1]).all(0)).tolist()
+        any_live = live.any(0).tolist()
+        live = live.to(sum_dtype).T.contiguous().cpu().numpy()
+        first, final = first.T.cpu().numpy(), final.T.cpu().numpy()
+        for i, (lo, hi) in enumerate(zip(base.tolist(), top.tolist())):
+            if not any_live[i]:
+                continue
+            window = acc[lo:hi]
+            window += terms[i, :hi - lo]
+            if same[i]:
+                k = np.minimum(acc[first[i, 0]], acc[final[i, 0]])
+                window -= k
+            else:
+                k = np.minimum(acc[first[i], rows], acc[final[i], rows]) \
+                    * live[i]
+                window -= k * inside[i, :hi - lo]
+            ped[start + i] = k
+    return np.ascontiguousarray(ped.T)
+
+
+def totals(config, lines, calls, grid, precision="float64", device="cpu",
+           remove_pedestal=False):
+    """[(total, total before the pedestal)] of each call, a call being
+    (atmosphere, state, point): the total absorption [m-1] at its (state,
+    point) pairs, the density-weighted cross sections of every gas with
+    lines plus the continua, as float64 numpy (computed in ``precision``).
+    With ``remove_pedestal`` each gas's cross section has the reference's
+    pedestals taken out (:func:`pedestals`, over the layers of every call
+    at once); without, the two totals are the same array."""
+    _, sum_dtype, cont_dtype = PRECISIONS[precision]
+    flat = [atm.flat() for atm, _, _ in calls]
+    # The layers the calls read, and each pair's row among them.
+    used = [np.unique(state) for _, state, _ in calls]
+    offset = np.cumsum([0] + [u.size for u in used])
+    row = np.concatenate([o + np.searchsorted(u, state) for o, u, (_, state, _)
+                          in zip(offset, used, calls)])
+    t_row = np.concatenate([f[0][u] for f, u in zip(flat, used)])
+    p_row = np.concatenate([f[1][u] for f, u in zip(flat, used)])
+    t, p = t_row[row], p_row[row]
+    point = np.concatenate([pt for _, _, pt in calls])
+    total = torch.zeros(row.size, dtype=sum_dtype, device=device)
+    before = total.clone()
+    for name, gas_lines in lines.items():
+        x_row = np.concatenate([f[2][name][u] for f, u in zip(flat, used)])
+        x = x_row[row]
+        ped = pedestals(gas_lines, grid, config["cut_off"], t_row, p_row,
+                        x_row, precision, device) if remove_pedestal else None
+        k, taken = cross_section(gas_lines, grid, config["cut_off"], t, p, x,
+                                 point, precision, device, ped, row)
+        density = torch.as_tensor(p * x / (KB * t), device=device) \
+            .to(sum_dtype)
+        before += k * density
+        if taken is not None:
+            total += (k - taken) * density
+    if not remove_pedestal:
+        total = before
+    out, out_before = total.double().cpu().numpy(), \
+        before.double().cpu().numpy()
+    start = np.cumsum([0] + [state.size for _, state, _ in calls])
+    tables = mtckd.Tables(cont_dtype)
+    results = []
+    for c, (_, state, pt) in enumerate(calls):
+        t_all, p_all, vmr_all = flat[c]
+        r = out[start[c]:start[c + 1]]
+        r0 = out_before[start[c]:start[c + 1]] if remove_pedestal else r
+        for s in np.unique(state):
+            where = np.flatnonzero(state == s)
+            vmr = {g: float(v[s]) for g, v in vmr_all.items()}
+            continua = mtckd.continua(tables, grid[pt[where]],
+                                      float(t_all[s]), float(p_all[s]), vmr)
+            r[where] += continua
+            if r0 is not r:
+                r0[where] += continua
+        results.append((r, r0))
+    return results
 
 
 def absorption(config, lines, atmosphere, grid, state, point,
-               precision="float64", device="cpu"):
-    """Total absorption [m-1] at (state, point) pairs: the density-weighted
-    cross sections of every gas with lines plus the continua, as float64
-    numpy (computed in ``precision``)."""
-    _, sum_dtype, cont_dtype = PRECISIONS[precision]
-    t_all, p_all, vmr_all = atmosphere.flat()
-    t, p = t_all[state], p_all[state]
-    total = torch.zeros(state.size, dtype=sum_dtype, device=device)
-    for name, gas_lines in lines.items():
-        x = vmr_all[name][state]
-        k = cross_section(gas_lines, grid, config["cut_off"], t, p, x, point,
-                          precision, device)
-        density = torch.as_tensor(p * x / (KB * t), device=device)
-        total += k * density.to(sum_dtype)
-    out = total.double().cpu().numpy()
-    tables = mtckd.Tables(cont_dtype)
-    for s in np.unique(state):
-        where = np.flatnonzero(state == s)
-        vmr = {g: float(v[s]) for g, v in vmr_all.items()}
-        out[where] += mtckd.continua(tables, grid[point[where]],
-                                     float(t_all[s]), float(p_all[s]), vmr)
-    return out
+               precision="float64", device="cpu", remove_pedestal=False):
+    """The total absorption [m-1] of one call (:func:`totals`)."""
+    return totals(config, lines, [(atmosphere, state, point)], grid,
+                  precision, device, remove_pedestal)[0][0]

@@ -13,6 +13,13 @@ def broken(fault):
         calls = 0
         last = None
 
+        def __init__(self, *args):
+            super().__init__(*args)
+            if fault == "no_pedestal":
+                # The program run as with remove_pedestal=False: the
+                # pedestal left in the spectrum.
+                self.remove_pedestal = False
+
         def __call__(self, request):
             out = super().__call__(request)
             Broken.calls += 1
@@ -29,6 +36,8 @@ def broken(fault):
                 # One layer's spectrum altered where it is produced.
                 out[Broken.calls % out.shape[0]] *= 1.01
                 return out
+            if fault == "no_pedestal":
+                return out
             if fault == "stale":
                 # A result cached across requests: from the second call on,
                 # the answer to the request before.
@@ -38,7 +47,8 @@ def broken(fault):
     return Broken
 
 
-@pytest.mark.parametrize("name", ["col60-0p1.column", "col60-0p1.sites8"])
+@pytest.mark.parametrize("name", ["col60-0p1.column", "col60-0p1.sites8",
+                                  "col60-0p1.default"])
 def test_sound_run_is_correct(name):
     result = run(tiny_cell(name, sites=2 if "sites" in name else None))
     assert result["correct"] and result["failed"] == 0
@@ -47,10 +57,20 @@ def test_sound_run_is_correct(name):
 
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered",
                                    "stale"])
-@pytest.mark.parametrize("name", ["col60-0p1.column", "col60-0p1.sites8"])
+@pytest.mark.parametrize("name", ["col60-0p1.column", "col60-0p1.sites8",
+                                  "col60-0p1.default"])
 def test_fault_is_not_correct(name, fault):
     result = run(tiny_cell(name, sites=2 if "sites" in name else None),
                  factory=broken(fault))
     assert not result["correct"]
     assert result["failed"] > 0
 
+
+def test_pedestal_left_in_is_not_correct():
+    """The cell that takes the pedestal out fails a program that leaves it
+    in, under its floored check."""
+    cell = tiny_cell("col60-0p1.default")
+    assert cell.config["remove_pedestal"] and "rel_err_floor" in cell.limits
+    result = run(cell, factory=broken("no_pedestal"))
+    assert not result["correct"]
+    assert result["failed"] > 0
