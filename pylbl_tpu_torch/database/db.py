@@ -12,6 +12,8 @@ packed once into the structure-of-arrays the device pipeline consumes) and
 the offline ingestion of LinePacks and cross-section directories, with an
 optional on-disk npz cache of the packs.
 """
+import contextlib
+import math
 import sqlite3
 import threading
 from collections import OrderedDict
@@ -22,6 +24,7 @@ from pathlib import Path
 from re import match
 
 import numpy as np
+import torch
 
 from .. import webapi
 from ..models.lines.physics import LinePack
@@ -154,6 +157,60 @@ class StackedPipelines:
                 self._entries.popitem(last=False)
 
 
+class HostStaging:
+    """Pinned host buffers into which ``Spectroscopy.compute_absorption``
+    copies its blocks back from the card, kept across calls so that a
+    request allocates none.
+
+    A call leases a set of buffers of its own (:meth:`lease`; a call in
+    another thread takes another set) with its copy stream; a buffer grows
+    to the largest block it has held.
+    """
+
+    class Buffers:
+        """One lease's pinned buffers by key, and its copy stream on each
+        device."""
+
+        def __init__(self):
+            self._buffers = {}
+            self._streams = {}
+
+        def get(self, key, shape, dtype):
+            """A pinned host tensor of ``shape`` and ``dtype``: a view of
+            the buffer under ``key``, reallocated where it is too small or
+            of another dtype."""
+            numel = math.prod(shape)
+            buffer = self._buffers.get(key)
+            if buffer is None or buffer.dtype != dtype \
+                    or buffer.numel() < numel:
+                buffer = self._buffers[key] = torch.empty(
+                    numel, dtype=dtype, pin_memory=True)
+            return buffer[:numel].view(shape)
+
+        def stream(self, device):
+            stream = self._streams.get(device)
+            if stream is None:
+                stream = self._streams[device] = torch.cuda.Stream(device)
+            return stream
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free = []
+
+    @contextlib.contextmanager
+    def lease(self):
+        """Yields a :class:`Buffers` that no other lease holds until this
+        one ends.  A copy it started lands before a later lease's copies
+        into it (one stream orders them)."""
+        with self._lock:
+            buffers = self._free.pop() if self._free else self.Buffers()
+        try:
+            yield buffers
+        finally:
+            with self._lock:
+                self._free.append(buffers)
+
+
 class Database:
     """Spectral line parameter database.
 
@@ -161,6 +218,8 @@ class Database:
         path: path to the sqlite file.
         stacked_pipelines: the :class:`StackedPipelines` built over its
             packs, which die with it.
+        host_staging: the :class:`HostStaging` its ``Spectroscopy``
+            objects copy their results back through.
     """
 
     def __init__(self, path, echo=False, pack_cache_dir=None):
@@ -182,6 +241,7 @@ class Database:
         con.close()
         self._pack_cache = {}
         self.stacked_pipelines = StackedPipelines()
+        self.host_staging = HostStaging()
 
     def _connect(self):
         con = sqlite3.connect(self.path)

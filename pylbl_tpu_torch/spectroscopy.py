@@ -6,7 +6,9 @@ assembled into a Dataset with the same dims, units, mechanism ordering and
 output formats.  Lines of all gases and all layers run as one stacked
 device pipeline (parallel/lines.py) with the pedestal removed on the
 device; continua and cross sections evaluate layer-batched, on the device
-(``device_mechanisms``) or in host float64.  Under a ``mesh`` of ranks
+(``device_mechanisms``) or in host float64.  The device-reduced formats
+run a layer batch larger than the device in blocks of layers
+(``plan_blocks``).  Under a ``mesh`` of ranks
 (parallel/mesh.py) the lines run line-sharded (parallel/sharded.py) and
 every rank returns the same result.
 """
@@ -18,8 +20,8 @@ import torch
 
 from .atmosphere import Atmosphere
 from .database.db import (AliasNotFoundError, CrossSectionNotFoundError,
-                          IsotopologuesNotFoundError, TipsDataNotFoundError,
-                          TransitionsNotFoundError)
+                          HostStaging, IsotopologuesNotFoundError,
+                          TipsDataNotFoundError, TransitionsNotFoundError)
 from .plugins import continua, cross_sections, molecular_lines
 from .runtime.device import resolve_backend, resolve_device, resolve_dtype
 from .utils.constants import KB
@@ -30,6 +32,71 @@ from .utils.xrlite import DataArray, Dataset
 def number_density(temperature, pressure, volume_mixing_ratio):
     """Ideal-gas number density [m-3] (reference spectroscopy.py:18-29)."""
     return pressure * volume_mixing_ratio / (KB * temperature)
+
+
+# The memory model of the reduced path's blocks on the device: bytes a
+# state of a block holds at its peak.  The stacked lines stage peaks while
+# it assembles the kernel inputs: LINE_STATE_BYTES per stacked line or
+# core instance (their kernel arrays, the wings rows, the core
+# parameters) and FLAT_STATE_BYTES per point of the stacked [gases x
+# points] grid (the wings and core passes' fields and their sum, the
+# pedestal's float64 field where it is taken out), in 4-byte floats.  The
+# sums stage holds the stacked field and GRID_STATE_BYTES per output point
+# (the running float64 total, a gas's parts, the continua's temporaries).
+# Fitted on an H100 to torch.cuda.max_memory_allocated at 60-480 states
+# at 0.1 and 0.01 cm-1 (PERF.md section 3): 2.7% and 17% above the peaks.
+LINE_STATE_BYTES = 84
+FLAT_STATE_BYTES = 16
+GRID_STATE_BYTES = 80
+# Device bytes a call holds whatever its blocks, per output point (the
+# continua tables a new object uploads).
+GRID_FIXED_BYTES = 512
+# Share of the device memory the allocator can hand out that the blocks
+# plan on; the rest is left for fragmentation.
+BLOCK_MEMORY_SHARE = 0.85
+
+
+def block_bytes(lines, flat_points, grid_points, outputs, itemsize):
+    """(bytes a state, fixed bytes) of a block of the reduced path: the
+    larger of the stacked lines stage (``lines`` lines and core instances
+    and ``flat_points`` points of the stacked grid in ``itemsize``-byte
+    floats) and the sums stage (the stacked field kept, the per-gas sums
+    of ``outputs`` output variables), plus the ``outputs`` float64 results
+    of the block before, which wait for their copy to the host."""
+    lines_stage = itemsize / 4 * (LINE_STATE_BYTES * lines
+                                  + FLAT_STATE_BYTES * flat_points)
+    sums_stage = itemsize * flat_points + GRID_STATE_BYTES * grid_points \
+        + 8 * grid_points * (outputs - 1)
+    state = max(lines_stage, sums_stage) + 8 * grid_points * outputs
+    return int(state), GRID_FIXED_BYTES * grid_points
+
+
+def block_budget(device):
+    """Bytes the blocks may plan on: ``BLOCK_MEMORY_SHARE`` of what the
+    caching allocator can hand out on ``device`` (CUDA's free
+    memory and what the allocator holds unused), or None off CUDA."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    spare = torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+    return BLOCK_MEMORY_SHARE * (free + spare)
+
+
+def plan_blocks(num_states, state_bytes, fixed_bytes, budget):
+    """[(lo, hi)] bounds of the blocks that ``num_states`` states run in,
+    each block's ``state_bytes`` a state and the call's ``fixed_bytes``
+    within ``budget`` bytes: one block where all fit (or ``budget`` is
+    None), else the fewest blocks of near-equal size (one state at
+    least)."""
+    fit = num_states if budget is None \
+        else int((budget - fixed_bytes) // max(state_bytes, 1))
+    if fit >= num_states:
+        return [(0, num_states)]
+    count = -(-num_states // max(fit, 1))
+    size = -(-num_states // count)
+    return [(lo, min(lo + size, num_states))
+            for lo in range(0, num_states, size)]
 
 
 class MoleculeCache:
@@ -296,12 +363,6 @@ class Spectroscopy:
         product is one wings pass plus one core pass; the pedestal is
         removed on the device (only [B, N] endpoint values visit the host).
 
-        A built single-device pipeline lives on this object and, shared
-        with every object on the same ``Database``, in the database's
-        ``stacked_pipelines`` (database/db.py): a new object over another
-        atmosphere in the same quantized envelope reuses it (the counter
-        ``lines.shared_hits``) and builds nothing.
-
         Under a mesh the pipeline is the line-sharded one
         (parallel/sharded.py ``make_multigas_sharded_pipeline``): the
         batch is padded to the mesh's batch axis, gases without packed
@@ -312,6 +373,31 @@ class Spectroscopy:
         Args:
             vmr_by_gas: dict name -> [B] mole fractions (insertion order
                 fixes the gas order).
+            backend: as :meth:`_stacked_pipeline` takes it.
+
+        Returns:
+            (names, k) with ``names`` the stacked gas order and ``k`` a
+            [B, G, num_points] tensor of cross sections [m2] on the
+            internal grid, or None where :meth:`_stacked_pipeline` gives
+            no pipeline.
+        """
+        built = self._stacked_pipeline(vmr_by_gas, remove_pedestal, backend)
+        if built is None:
+            return None
+        return self._run_stacked(built, temperature, pressure, vmr_by_gas,
+                                 local)
+
+    def _stacked_pipeline(self, vmr_by_gas, remove_pedestal, backend=None):
+        """The built stacked pipeline over the gases of ``vmr_by_gas``:
+        (fn, remover or None, names), built on a miss.
+
+        A built single-device pipeline lives on this object and, shared
+        with every object on the same ``Database``, in the database's
+        ``stacked_pipelines`` (database/db.py): a new object over another
+        atmosphere in the same quantized envelope reuses it (the counter
+        ``lines.shared_hits``) and builds nothing.
+
+        Args:
             backend: override of the pipeline backend; default this
                 object's, except that under "xla" the stacked path is left
                 to the per-gas engines (None result) unless asked for
@@ -319,9 +405,7 @@ class Spectroscopy:
                 pipeline runs this object's backend).
 
         Returns:
-            (names, k) with ``names`` the stacked gas order and ``k`` a
-            [B, G, num_points] tensor of cross sections [m2] on the
-            internal grid, or None when the gases cannot be stacked
+            The pipeline, or None when the gases cannot be stacked
             (:class:`~pylbl_tpu_torch.parallel.lines.UnstackableError`),
             some engine has no packed lines or the backend is "xla".
         """
@@ -366,9 +450,13 @@ class Spectroscopy:
             self._multigas_fns[key] = cached
             if shared is not None:
                 shared.put(key, packs.values(), cached)
-        if cached == "unstackable":
-            return None
-        fn, remover, names = cached
+        return None if cached == "unstackable" else cached
+
+    def _run_stacked(self, built, temperature, pressure, vmr_by_gas,
+                     local=False):
+        """(names, k): the :meth:`_stacked_pipeline` ``built`` over these
+        layers, as :meth:`_lines_device_stacked` returns it."""
+        fn, remover, names = built
         with metrics.timed("lines.run"):
             vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
                                 for n in names], axis=1)
@@ -439,33 +527,50 @@ class Spectroscopy:
         host; the per-gas [B, 3, grid] mechanism arrays of the "all"
         format are never materialized.
 
+        On one device the states run in the blocks of
+        :meth:`_plan_blocks`, one block wherever the whole batch fits the
+        device: each block's results start back to the host while the
+        next block runs (:meth:`_reduced_blocks`).  A state's values do
+        not depend on the other states of its block, so the output equals
+        one unblocked call bit for bit.  Under a mesh the batch runs whole,
+        each rank's rows gathered over "batch" (:meth:`_reduced_mesh`).
+
         Returns:
             Dataset, or None when some gas's lines cannot take the
             stacked path (the caller falls back to the host path).
         """
         names = list(self.atmosphere.gases)
         has_lines = [n for n in names if self.cache[n].gas is not None]
-        num = temperature.size
-        stacked = self._lines_device_stacked(temperature, pressure,
-                                             vmr_by_gas, remove_pedestal,
-                                             local=self.mesh is not None)
-        stacked_names, k_dev = stacked if stacked is not None else ([], None)
+        built = self._stacked_pipeline(vmr_by_gas, remove_pedestal)
+        stacked_names = built[2] if built is not None else []
         if any(n not in stacked_names for n in has_lines):
             return None
-        if self.mesh is not None:
-            # This rank's batch rows of the padded batch; the per-gas sums
-            # are gathered over "batch" below.
-            from .parallel.sharded import row_slice
-            temperature, pressure, vmr_by_gas = self._pad_mesh_batch(
-                temperature, pressure, vmr_by_gas)
-            rows = row_slice(temperature.size, self.mesh)
-            k_dev = None if k_dev is None else k_dev.data
-            temperature, pressure = temperature[rows], pressure[rows]
-            vmr_by_gas = {n: v[rows] for n, v in vmr_by_gas.items()}
+        reduce = self._reduced_mesh if self.mesh is not None \
+            else self._reduced_blocks
+        results = reduce(built, output_format, temperature, pressure,
+                         vmr_by_gas)
+        data_vars = {"wavenumber": DataArray(self.grid, dims=("wavenumber",),
+                                             attrs={"units": "cm-1"})}
+        dims = list(self.output.dims)
+        dims.pop(-2)
+        out_shape = shape + (self.grid.size,)
+        for key, values in results.items():
+            data_vars[key] = DataArray(values.reshape(out_shape), dims=dims,
+                                       attrs=self.output.units)
+        return Dataset(data_vars=data_vars)
+
+    def _block_sums(self, built, output_format, temperature, pressure,
+                    vmr_by_gas, k):
+        """Per-gas mechanism sums of one block of states on the device:
+        {output variable: [b, grid] tensor}, one a gas for "gas", else the
+        total of the gases in their order.  ``k`` is the block's stacked
+        lines (None without a pipeline ``built``)."""
+        names = list(self.atmosphere.gases)
+        stacked_names = built[2] if built is not None else []
         ngrid = self.grid.size
         mechanism_fns = {name: self._device_mechanism_fns(name)
                          for name in names}
-        per_gas = {}
+        sums, total = {}, None
         with metrics.timed("continua.run"):
             for name in names:
                 nd = number_density(temperature, pressure, vmr_by_gas[name])
@@ -473,8 +578,8 @@ class Spectroscopy:
                 if name in stacked_names:
                     g = stacked_names.index(name)
                     parts.append(torch.as_tensor(
-                        nd[:, None], dtype=k_dev.dtype, device=self.device)
-                        * k_dev[:, g, :ngrid])
+                        nd[:, None], dtype=k.dtype, device=self.device)
+                        * k[:, g, :ngrid])
                 cont_fns, xsec_fn = mechanism_fns[name]
                 if cont_fns is not None:
                     for fn in cont_fns:
@@ -483,40 +588,140 @@ class Spectroscopy:
                     parts.append(torch.as_tensor(nd[:, None],
                                                  device=self.device)
                                  * xsec_fn(temperature, pressure))
-                total = parts[0] if parts else torch.zeros(
+                gas_total = parts[0] if parts else torch.zeros(
                     (temperature.size, ngrid), dtype=torch.float64,
                     device=self.device)
                 for part in parts[1:]:
-                    total = total + part
-                per_gas[name] = total
+                    gas_total = gas_total + part
+                if output_format == "gas":
+                    sums[f"{name}_absorption"] = gas_total
+                else:
+                    # The running total frees each gas's sum once added.
+                    total = gas_total if total is None \
+                        else total + gas_total
+        return sums if output_format == "gas" else {"absorption": total}
 
-        wavenumber = DataArray(self.grid, dims=("wavenumber",),
-                               attrs={"units": "cm-1"})
-        data_vars = {"wavenumber": wavenumber}
-        dims = list(self.output.dims)
-        dims.pop(-2)
-        out_shape = shape + (ngrid,)
+    def _reduced_mesh(self, built, output_format, temperature, pressure,
+                      vmr_by_gas):
+        """The reduced sums under a mesh, in one call: this rank's batch
+        rows of the padded batch, gathered over "batch" on the host side.
+        Returns {output variable: [B, grid] float64 numpy array}."""
+        from .parallel import collectives
+        from .parallel.mesh import BATCH_AXIS
+        from .parallel.sharded import row_slice
 
-        def host(t):
+        num = temperature.size
+        k = None
+        if built is not None:
+            k = self._run_stacked(built, temperature, pressure, vmr_by_gas,
+                                  local=True)[1].data
+        temperature, pressure, vmr_by_gas = self._pad_mesh_batch(
+            temperature, pressure, vmr_by_gas)
+        rows = row_slice(temperature.size, self.mesh)
+        sums = self._block_sums(built, output_format, temperature[rows],
+                                pressure[rows],
+                                {n: v[rows] for n, v in vmr_by_gas.items()},
+                                k)
+        out = {}
+        for key, total in sums.items():
             with metrics.timed("output"):
-                if self.mesh is not None:
-                    from .parallel import collectives
-                    from .parallel.mesh import BATCH_AXIS
-                    t = collectives.all_gather(t, self.mesh,
+                total = collectives.all_gather(total, self.mesh,
                                                BATCH_AXIS)[:num]
-                return t.cpu().numpy().astype(np.float64).reshape(out_shape)
+                out[key] = total.cpu().numpy().astype(np.float64)
+        return out
 
-        if output_format == "gas":
-            for name, total in per_gas.items():
-                data_vars[f"{name}_absorption"] = DataArray(
-                    host(total), dims=dims, attrs=self.output.units)
-        else:
-            total = None
-            for part in per_gas.values():
-                total = part if total is None else total + part
-            data_vars["absorption"] = DataArray(
-                host(total), dims=dims, attrs=self.output.units)
-        return Dataset(data_vars=data_vars)
+    def _plan_blocks(self, built, output_format, num_states):
+        """[(lo, hi)] state blocks of the reduced path on one device, by
+        :func:`block_bytes`'s model against :func:`block_budget`."""
+        stage = None if built is None else getattr(built[0], "stage", None)
+        lines = flat = 0
+        if stage is not None:
+            lines = stage.static["num_lines"] + stage.pad \
+                + stage.core_plan.num_instances
+            flat = stage.static["flat_points"]
+        outputs = len(self.atmosphere.gases) if output_format == "gas" \
+            else 1
+        state, fixed = block_bytes(lines, flat, self.grid.size, outputs,
+                                   self.dtype.itemsize)
+        return plan_blocks(num_states, state, fixed,
+                           block_budget(self.device))
+
+    def _reduced_blocks(self, built, output_format, temperature, pressure,
+                        vmr_by_gas):
+        """The reduced sums on one device, block by block: block i's
+        results go back to the host (:meth:`_start_copy`) while block i + 1
+        runs, and land in one float64 array a variable once block i + 1's
+        lines are under way.  Returns {output variable: [B, grid] float64
+        numpy array}.
+
+        Each block opens the span ``absorption.block``; the counter
+        ``absorption.blocks`` counts a call's blocks; the host's wait for
+        a block's copy is the span ``output.wait`` inside ``output``."""
+        num = temperature.size
+        blocks = self._plan_blocks(built, output_format, num)
+        metrics.count("absorption.blocks", len(blocks))
+        staging = getattr(self.lines_database, "host_staging", None) \
+            or HostStaging()
+        out = {}
+
+        def land(lo, hi, fetch):
+            with metrics.timed("output"):
+                with metrics.timed("output.wait"):
+                    arrays = fetch()
+                for key, values in arrays.items():
+                    if key not in out:
+                        out[key] = np.empty((num, self.grid.size))
+                    # torch's copy takes the host's threads.
+                    torch.from_numpy(out[key][lo:hi]).copy_(values)
+
+        with staging.lease() as buffers:
+            landing = None
+            for i, (lo, hi) in enumerate(blocks):
+                with metrics.timed("absorption.block"):
+                    t, p = temperature[lo:hi], pressure[lo:hi]
+                    vmr = {n: v[lo:hi] for n, v in vmr_by_gas.items()}
+                    k = None if built is None \
+                        else self._run_stacked(built, t, p, vmr)[1]
+                    if landing is not None:
+                        # While this block's lines kernels run.
+                        land(*landing)
+                    sums = self._block_sums(built, output_format, t, p, vmr,
+                                            k)
+                    del k
+                    with metrics.timed("output"):
+                        fetch = self._start_copy(sums, buffers, i % 2)
+                    del sums
+                landing = (lo, hi, fetch)
+            land(*landing)
+        return out
+
+    def _start_copy(self, sums, buffers, slot):
+        """Starts a block's ``sums`` back to the host and returns a
+        function that waits for them and gives {variable: host tensor}.
+
+        On the card each tensor is copied on ``buffers``' side stream,
+        after the block's kernels, into its pinned buffer of ``slot``
+        (:class:`~pylbl_tpu_torch.database.db.HostStaging`), and its
+        device memory is kept from reuse until the copy lands
+        (``record_stream``)."""
+        if self.device.type != "cuda":
+            return lambda: sums
+        stream = buffers.stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        hosts = {}
+        with torch.cuda.stream(stream):
+            for j, (key, t) in enumerate(sums.items()):
+                host = buffers.get((slot, j), t.shape, t.dtype)
+                host.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+                hosts[key] = host
+            done = torch.cuda.Event()
+            done.record(stream)
+
+        def fetch():
+            done.synchronize()
+            return hosts
+        return fetch
 
     def compute_absorption(self, output_format="all", remove_pedestal=None):
         """Computes absorption [m-1] for every gas/layer/mechanism.

@@ -172,6 +172,48 @@ def test_objects_on_one_database_share_the_stacked_pipeline(cuda_device,
     assert entry > 0 and abs(ten - one) <= entry
 
 
+@pytest.mark.gpu
+def test_blocked_absorption_equals_one_block(cuda_device, tmp_path,
+                                             monkeypatch):
+    """At 0.01 cm-1, two sites with the budget forced to one site a block
+    give, bit for bit, what one block gives ("total" and "gas"), and a
+    second request copies back through the same pinned buffers."""
+    from pylbl_tpu_torch import spectroscopy
+    from pylbl_tpu_torch.utils.observability import metrics
+
+    grid = np.arange(1.0, 220.0, 0.01)
+    # card_column's two layers at two sites, the second 1 K warmer.
+    sites = Dataset(data_vars={
+        name: (["site", "layer"],
+               np.stack([var.data, var.data + (name == "t")]), var.attrs)
+        for name, var in card_column().data_vars.items()})
+    db = card_database(tmp_path / "blocks.db")
+
+    def compute(output_format):
+        spec = Spectroscopy(sites, grid, db, device=cuda_device)
+        out = spec.compute_absorption(output_format=output_format)
+        return {k: v.data for k, v in out.data_vars.items()}
+
+    whole = {f: compute(f) for f in ("total", "gas")}
+    monkeypatch.setattr(spectroscopy, "block_bytes", lambda *a: (1, 0))
+    monkeypatch.setattr(spectroscopy, "block_budget", lambda device: 2)
+    for output_format, want in whole.items():
+        metrics.reset()
+        got = compute(output_format)
+        assert metrics.snapshot()["counters"]["absorption.blocks"] == 2
+        assert got.keys() == want.keys()
+        for key, values in want.items():
+            assert got[key].dtype == values.dtype == np.float64 \
+                or key == "wavenumber"
+            assert np.array_equal(got[key], values), key
+    buffers, = db.host_staging._free
+    held = {k: b.data_ptr() for k, b in buffers._buffers.items()}
+    assert held and all(b.is_pinned() for b in buffers._buffers.values())
+    assert np.array_equal(compute("total")["absorption"],
+                          whole["total"]["absorption"])
+    assert {k: b.data_ptr() for k, b in buffers._buffers.items()} == held
+
+
 # --- Single-gas kernels: tile line functions, segment passes, single-layer
 # launches and the Gas engine. ---
 

@@ -1,12 +1,13 @@
 """The port's spans: ``metrics.timed`` stages on the reduced
 ``Spectroscopy.compute_absorption`` path, each a ``pylbl.<stage>`` range
 while a profiler records, nested as the layers are, and the counters of
-the per-instance work."""
+the per-instance work and of the blocks."""
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lblbench.harness.spans import SPANS
 from pylbl_tpu_torch import Dataset, Spectroscopy
 from pylbl_tpu_torch.database.db import Database
 from pylbl_tpu_torch.database.fixtures import synthetic_line_pack
@@ -28,15 +29,21 @@ PARENTS = {
     "lines.core_plan": "lines.plan",
     "lines.pieces": "lines.plan",
     "lines.upload": "lines.build",
-    "lines.run": "absorption",
+    "absorption.block": "absorption",
+    "lines.run": "absorption.block",
     "lines.guard": "lines.run",
     "lines.assemble": "lines.run",
     "lines.wings": "lines.run",
     "lines.core": "lines.run",
-    "continua.build": "absorption",
-    "continua.run": "absorption",
-    "output": "absorption",
+    "continua.build": "absorption.block",
+    "continua.run": "absorption.block",
+    "output": "absorption.block",
+    "output.wait": "output",
 }
+# A block's copy starts in ``output`` inside its block and lands in
+# another ``output`` inside the next block; the last block's lands after
+# it, outside any block.
+LANDS_IN = "absorption"
 GASES = {"H2O": ("water_vapor", 6.6e-3), "CO2": ("carbon_dioxide", 4e-4)}
 
 
@@ -101,7 +108,59 @@ def test_every_span_opens_in_its_parent(database, grid):
     assert {stage for stage, _ in got} == set(PARENTS) - (
         set() if strided else {"lines.permute"})
     for stage, parent in got:
-        assert parent == PARENTS[stage], stage
+        assert parent == PARENTS[stage] or (stage, parent) == (
+            "output", LANDS_IN), stage
+
+
+@pytest.mark.parametrize("states,blocks", [(None, 1), (1, 4), (3, 2)])
+def test_blocks_open_their_spans_in_order(database, monkeypatch, states,
+                                          blocks):
+    """Each block runs its lines, its sums and the start of its copy in
+    ``absorption.block``; its copy lands (``output.wait`` in ``output``)
+    inside the next block, after that block's lines, the last block's
+    after it; the counter ``absorption.blocks`` counts them."""
+    from pylbl_tpu_torch import spectroscopy as module
+
+    if states is not None:
+        monkeypatch.setattr(module, "block_bytes", lambda *a: (1, 0))
+        monkeypatch.setattr(module, "block_budget", lambda device: states)
+    sites = Dataset(data_vars={
+        name: (["site", "layer"], np.stack([var.data, var.data]), var.attrs)
+        for name, var in atmosphere().data_vars.items()})
+    spec = Spectroscopy(sites, GRID, database, device="cpu",
+                        device_mechanisms=True)
+    metrics.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        spec.compute_absorption("total")
+    assert metrics.snapshot()["counters"]["absorption.blocks"] == blocks
+    got = spans(prof)
+    order = [stage for stage, parent in got
+             if stage == "absorption.block"
+             or (stage, parent) == ("output.wait", "output")]
+    # Block, block, wait (the first block's), ..., wait (the last's).
+    assert order == ["absorption.block"] + [
+        "absorption.block", "output.wait"] * (blocks - 1) + ["output.wait"]
+    landings = sorted((e for e in prof.events()
+                       if e.name == SPAN_PREFIX + "output.wait"),
+                      key=lambda e: e.time_range.start)
+    assert [e.cpu_parent.cpu_parent.name[len(SPAN_PREFIX):]
+            for e in landings] == ["absorption.block"] * (blocks - 1) \
+        + [LANDS_IN]
+    assert all(e.cpu_parent.name == SPAN_PREFIX + "output"
+               for e in landings)
+    # In a block the lines run before the block before lands.
+    lines_runs = sorted(e.time_range.end for e in prof.events()
+                        if e.name == SPAN_PREFIX + "lines.run")
+    assert all(run < wait.time_range.start
+               for run, wait in zip(lines_runs[1:], landings))
+    # The spans the benchmark's span metrics read stay disjoint, so that
+    # with host_other_ms they partition a call.
+    ranges = [(metric, e.time_range.start, e.time_range.end)
+              for e in prof.events() for metric, stages in SPANS.items()
+              if e.name in {SPAN_PREFIX + s for s in stages}]
+    for metric, lo, hi in ranges:
+        assert not any(other != metric and lo < b and a < hi
+                       for other, a, b in ranges), metric
 
 
 def test_a_second_call_builds_nothing(tmp_path):
@@ -113,21 +172,22 @@ def test_a_second_call_builds_nothing(tmp_path):
     # database reads each gas's pack once.
     fresh = {"lines.builds": 1, "continua.builds": len(GASES),
              "molecules.loaded": len(GASES),
-             "database.pack_reads": len(GASES)}
+             "database.pack_reads": len(GASES), "absorption.blocks": 1}
     assert metrics.snapshot()["counters"] == fresh
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         spec.compute_absorption("total")
     stages = {stage for stage, _ in spans(prof)}
     assert "lines.run" in stages and "continua.run" in stages
     assert not stages & {"lines.build", "continua.build", "lines.plan"}
-    assert metrics.snapshot()["counters"] == fresh
+    assert metrics.snapshot()["counters"] == dict(fresh,
+                                                  **{"absorption.blocks": 2})
     # A new object on the same database takes the database's stacked
     # pipeline, and reads no pack.
     metrics.reset()
     spectroscopy(database).compute_absorption("total")
     assert metrics.snapshot()["counters"] == {
         "lines.shared_hits": 1, "continua.builds": len(GASES),
-        "molecules.loaded": len(GASES)}
+        "molecules.loaded": len(GASES), "absorption.blocks": 1}
 
 
 def test_pack_reads_count_the_database_misses(tmp_path):
