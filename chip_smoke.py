@@ -141,9 +141,21 @@ kernels and the native pedestal scan from this checkout into ``build/``
     min-y block) on the NaN-y inputs, where a NaN y takes the whole
     correction as JAX's conds: each kernel equals its plain version bit
     for bit, NaN where its NaN is, and a repeat equals it too.
+20. the stacked pedestal remover at col60-0p1-default's width (60 layers
+    of the canonical column, phase 3's seven gases): the remover's call
+    (CUDA events, the memory it takes above the field) launches each of
+    its five kernels once a gas and repeats bit for bit; then, on H2O's
+    300k lines, the line physics and the endpoint contributions within
+    1e-14 of their largest value of the plain version (the same float64
+    operations; torch's exp and the kernel's may differ in the last
+    ulp), the scan (against the native scan), the bucket totals and the
+    field bit for bit, each timed beside its plain version and its bound
+    at the float64 peak (34 TFLOP/s): the endpoint terms at 9
+    operations, the totals' and the field's additions, the bytes.
 
-Every kernel equals its plain version bit for bit.  Each kernel record
-carries its launches on its path, its time and its plain version's, and
+Every kernel of the line shape equals its plain version bit for bit.
+Each kernel record carries its launches on its path, its time and its
+plain version's, and
 its bound: the larger of the operations its inputs need over 67 TFLOP/s
 (FP32 outside the tensor cores) and its input and output bytes over 3.35
 TB/s (H100 SXM).  Operations are counted per in-window evaluation from
@@ -247,6 +259,30 @@ KERNELS = {
 }
 # The kernels of the stacked main path (phases 3-5).
 STACKED = ("wings_strided", "core_segmix", "wings_splat")
+# Phase 20: the stacked pedestal remover's kernels (their launch counters
+# in pylbl_tpu_torch/ops/pedestal_cuda.py), which replace no TPU kernel:
+# the JAX package runs these steps on the host.
+PEDESTAL = {
+    "pedestal_lines": "none (host: pylbl_tpu/models/lines/physics.py "
+                      "line_profile_params and kernel_inputs)",
+    "pedestal_contrib": "none (host: pylbl_tpu/models/lines/pedestal.py "
+                        "compute_pedestals_batch's contribution sums)",
+    "pedestal_scan": "none (host: csrc/pylbl_native.cpp pedestal_scan)",
+    "pedestal_totals": "none (pylbl_tpu/parallel/lines.py "
+                       "_apply_pedestal_device's scatter)",
+    "pedestal_field": "none (pylbl_tpu/parallel/lines.py "
+                      "_apply_pedestal_device's cumsum)",
+}
+# Phase 20's layers (col60-0p1-default's 60) and the float64 peak of the
+# H100 SXM outside the tensor cores (NVIDIA's data sheet).
+PEDESTAL_LAYERS = 60
+PEAK_FP64 = 34e12
+# Float64 operations of an endpoint term (csrc/pedestal.cu line_term: the
+# Lorentzian's subtract, multiply, two squares, add, multiply and divide,
+# the strength's multiply, and the sum's add; the divide counted as one),
+# and of a bucket total added to a point's field.
+PEDESTAL_TERM_OPS = 9
+PEDESTAL_FIELD_OPS = 1
 # The launches of the Lorentzian walk, by line kind (the prepacked wings,
 # the raw splat, the ownership-checked wings): each record carries its
 # reciprocal floor and the registers and spills of its kind's walk.
@@ -2057,6 +2093,168 @@ def phase_nonfinite(torch, lc):
     print(f"phase 19 took {time.perf_counter() - start:.1f} s")
 
 
+def pedestal_terms(torch, ka):
+    """The endpoint terms kernel A computes: each (layer, bucket) walks its
+    segment twice, a term for each line whose window holds the endpoint of
+    that walk."""
+    s, e = ka["s_idx"].long(), ka["e_idx"].long()
+    batch = s.shape[0]
+    lo, hi = ka["seg_lo"].long(), ka["seg_hi"].long()
+    total = 0
+    for m in range(int((hi - lo).max())):
+        j = (lo + m).clamp(max=s.shape[1] - 1).expand(batch, -1)
+        valid = (lo + m < hi).expand(batch, -1)
+        for point in (ka["p_s"].long(), ka["p_e"].long()):
+            total += int((valid & (s.gather(1, j) <= point)
+                          & (e.gather(1, j) >= point)).sum())
+    return total
+
+
+def pedestal_record(record, got, want, ms, plain_ms, ops, nbytes, exact):
+    """A pedestal kernel's record against its plain version's outputs
+    (tuples of tensors), its bound at the float64 peak and the bytes."""
+    errs = [(float((g.double() - w.double()).abs().max()),
+             float(w.double().abs().max())) for g, w in zip(got, want)]
+    err = max(e for e, _ in errs)
+    rel = max(e / scale if scale else e for e, scale in errs)
+    t_ops, t_bytes = ops / PEAK_FP64, nbytes / PEAK_BYTES
+    record.update(max_abs_err=err, max_rel_err=rel,
+                  ms=ms, plain_ms=plain_ms, library_ms=None,
+                  bound_ms=max(t_ops, t_bytes) * 1e3,
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  operations=ops, bytes=nbytes)
+    print(f"{record['name']}: max abs {err:.3e} ({rel:.3e} of its output's "
+          f"largest), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {record['bound_ms']:.6f} ms ({record['bound_by']}: "
+          f"{ops:.6e} float64 operations, {nbytes} bytes)")
+    if exact:
+        check(err == 0, f"{record['name']} equals its plain version bit for "
+              "bit")
+    else:
+        check(rel <= 1e-14, f"{record['name']} within 1e-14 of the largest "
+              "value of each output of its plain version")
+
+
+def phase_pedestal(torch, spec, packs, grid, records):
+    """Phase 20: the stacked pedestal remover at col60-0p1-default's width
+    (PEDESTAL_LAYERS layers of the canonical column, the seven gases at
+    0.1 cm-1): the remover's call timed and its launches counted, then
+    each kernel on H2O's lines against its plain version (the
+    contributions within 1e-14 of their largest value, the scan and the
+    field bit for bit) and its bound; a repeat gives the same bits."""
+    from pylbl_tpu_torch.models.lines.gas import internal_grid
+    from pylbl_tpu_torch.ops import pedestal_cuda as pc
+
+    (fn, remover, names), = [v for v in spec._multigas_fns.values()
+                             if v != "unstackable"]
+    t, p, vmr = canonical_layers(PEDESTAL_LAYERS)
+    x = np.stack([vmr[name] for name in names], axis=1)
+    k = fn(t, p, x)
+    pc.reset_launches()
+    out = remover(k, t, p, x)
+    launches = dict(pc.LAUNCHES)
+    check(launches == {name: len(names) for name in PEDESTAL},
+          f"phase 20 the remover launched each kernel once a gas {launches}")
+    ms = kernel_ms(torch, lambda: remover(k, t, p, x), 3)
+    check(torch.equal(remover(k, t, p, x), out),
+          "phase 20 the remover repeats bit for bit")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    remover(k, t, p, x)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"phase 20 remover, {PEDESTAL_LAYERS} layers x {len(names)} gases: "
+          f"{ms:.3f} ms a call (CUDA events), {peak:.3f} GB above the field")
+
+    v0, vn, n_per_v, n = internal_grid(grid)
+    pack = packs["H2O"]
+    gas = pc.GasLines(pack, pack.compat_break_filter(v0, vn, CUT_OFF))
+    b0, nb, margin = gas.bucket_range(p)
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=k.device)
+
+    line_args = (gas.on(k.device), f64(t), f64(p),
+                 f64(x[:, names.index("H2O")]), f64(gas.q_slots(t)), v0,
+                 n_per_v, CUT_OFF, (b0, nb, margin), n)
+    ka = pc.line_inputs(*line_args)
+    names_p = ("center", "srw", "y", "pref", "s_idx", "e_idx", "bucket")
+    field = k.reshape(k.shape[0], -1)
+    off = names.index("H2O") * n
+    rows, num = ka["s_idx"].shape
+    recs = {name: dict(name=name, route="cuda",
+                       source="pylbl_tpu_torch/csrc/pedestal.cu",
+                       replaces=replaces, launches=launches[name])
+            for name, replaces in PEDESTAL.items()}
+
+    plain = pc.line_inputs(*line_args, plain=True)
+    pedestal_record(
+        recs["pedestal_lines"], [ka[name] for name in names_p],
+        [plain[name] for name in names_p],
+        kernel_ms(torch, lambda: pc.line_inputs(*line_args), 5),
+        kernel_ms(torch, lambda: pc.line_inputs(*line_args, plain=True), 1,
+                  warm=False),
+        0, len(pc.GasLines.KERNEL_ORDER) * num * 8
+        + rows * num * (4 * 8 + 3 * 4), False)
+    del plain
+    got = pc.endpoint_contributions(ka, field, off, n)
+    want = pc.endpoint_contributions(ka, field, off, n, plain=True)
+    torch.cuda.synchronize()
+    terms = pedestal_terms(torch, ka)
+    line_bytes = rows * num * (4 * 8 + 3 * 4)
+    pedestal_record(
+        recs["pedestal_contrib"], got, want,
+        kernel_ms(torch, lambda: pc.endpoint_contributions(ka, field, off,
+                                                           n), 5),
+        kernel_ms(torch, lambda: pc.endpoint_contributions(
+            ka, field, off, n, plain=True), 1, warm=False),
+        terms * PEDESTAL_TERM_OPS, line_bytes + rows * num * 4 * 8, False)
+    print(f"  {terms:.6e} endpoint terms ({terms / rows:.6e} a layer)")
+    check(all(torch.equal(a, b) for a, b in zip(
+        pc.endpoint_contributions(ka, field, off, n), got)),
+        "phase 20 kernel A repeats bit for bit")
+
+    scan_in = (ka["bucket"], ka["s_idx"], ka["e_idx"], *want)
+    window = 2 * CUT_OFF + 1
+    got = pc.scan(*scan_in, n, window, nb)
+    want = pc.scan(*scan_in, n, window, nb, plain=True)
+    pedestal_record(
+        recs["pedestal_scan"], (got,), (want,),
+        kernel_ms(torch, lambda: pc.scan(*scan_in, n, window, nb), 5),
+        kernel_ms(torch, lambda: pc.scan(*scan_in, n, window, nb,
+                                         plain=True), 1, warm=False),
+        0, rows * num * (3 * 4 + 4 * 8 + 8), True)
+    print(f"  {rows} rows of {num} lines, {nb} buckets; its bound is the "
+          "row's dependent chain of float64 operations, not a rate")
+
+    ped = got
+    totals = pc.bucket_totals(ped, ka, k.dtype)
+    pedestal_record(
+        recs["pedestal_totals"], (totals,),
+        (pc.bucket_totals(ped, ka, k.dtype, plain=True),),
+        kernel_ms(torch, lambda: pc.bucket_totals(ped, ka, k.dtype), 5),
+        kernel_ms(torch, lambda: pc.bucket_totals(ped, ka, k.dtype,
+                                                  plain=True), 1,
+                  warm=False),
+        rows * num, rows * num * (8 + 4) + rows * nb * 8, True)
+    blo, bhi = (torch.as_tensor(w, device=k.device) for w in
+                pc.bucket_windows(v0, vn, n_per_v, n, CUT_OFF))
+    adds = int(((bhi.long() - blo.long() + 1).clamp(min=0)).sum()) * rows
+
+    def field_run(plain):
+        dst = field.clone()
+        pc.subtract_field(dst, off, n, totals, blo, bhi, b0, plain=plain)
+        return (dst,)
+
+    pedestal_record(
+        recs["pedestal_field"], field_run(False), field_run(True),
+        kernel_ms(torch, lambda: field_run(False), 5),
+        kernel_ms(torch, lambda: field_run(True), 1, warm=False),
+        adds * PEDESTAL_FIELD_OPS,
+        2 * rows * n * field.element_size() + rows * nb * 8, True)
+    records.update(recs)
+
+
 def phase_bench(headline_rate, card, records):
     """Phase 17: ``python -m pylbl_tpu_torch bench`` as a user runs it, at
     the JAX bench's widths."""
@@ -2357,6 +2555,9 @@ def main():
     # Phase 19: every kernel on poisoned lines (after the records' counts:
     # these launches are not the main path's).
     phase_nonfinite(torch, lc)
+
+    # Phase 20: the pedestal remover's kernels at col60-0p1-default's width.
+    phase_pedestal(torch, spec_a, packs, grid_a, records)
     for name, record in records.items():
         check(record.get("launches", 0) > 0 and all(
             key in record for key in ("max_abs_err", "ms", "plain_ms",
@@ -2365,7 +2566,8 @@ def main():
               f"{name} launched on its path, compared with its plain "
               "version and bounded")
 
-    print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
+    print(json.dumps({"kernels": [records[k] for k in (*KERNELS,
+                                                       *PEDESTAL)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,7 @@ def cmd_info(args):
     import torch
 
     from . import __version__, plugins
-    from .ops.lineshape_cuda import CUDA_SOURCE
+    from .ops.lineshape_cuda import CUDA_SOURCES
     from .runtime import build, native
     device = args.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
@@ -56,7 +56,7 @@ def cmd_info(args):
     print(f"cross-section backends: {sorted(plugins.cross_sections)}")
     print(f"native runtime: "
           f"{'available' if native.available() else 'unavailable'}")
-    built = build.is_built("liblineshape_cuda.so", [CUDA_SOURCE])
+    built = build.is_built("liblineshape_cuda.so", CUDA_SOURCES)
     print(f"CUDA kernels: "
           f"{'built' if built else 'not built (built at first use)'} "
           f"under {build.BUILD_DIR}")

@@ -1039,6 +1039,9 @@ def permute_line_arrays(arrays, perm, zero_keys=("sw", "sw_pre")):
 # --------------------------------------------------------------------------
 
 CUDA_SOURCE = PACKAGE_DIR / "csrc" / "lineshape.cu"
+# The library's sources: the line-shape kernels and the pedestal remover's
+# (csrc/pedestal.cu, bound by ops/pedestal_cuda.py).
+CUDA_SOURCES = [CUDA_SOURCE, PACKAGE_DIR / "csrc" / "pedestal.cu"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -1074,7 +1077,7 @@ _PIECE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
 
 def cuda_library():
     """The kernels' shared library, built with nvcc on first use."""
-    return bind_library(load_library("liblineshape_cuda.so", [CUDA_SOURCE],
+    return bind_library(load_library("liblineshape_cuda.so", CUDA_SOURCES,
                                      _nvcc_command))
 
 

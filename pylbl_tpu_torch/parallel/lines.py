@@ -15,13 +15,14 @@ Counterpart of the single-device part of pylbl_tpu/parallel/lines.py:
   core parameters (segment-32 or rows) and run the wings and core passes
   (ops/lineshape_cuda.py: CUDA kernels on the card, plain versions on the
   CPU, or the plain versions anywhere with ``backend="plain"``);
-- :func:`make_stacked_pedestal_remover` removes the reference pedestal with
-  the host float64 scan and a deterministic box-subtract.
+- :func:`make_stacked_pedestal_remover` removes the reference pedestal on
+  the field's device (ops/pedestal_cuda.py), deterministically.
 
 Precision note: line centers are passed as an exact integer grid index
 plus a small fractional part computed on the host, so float32 kernels see
 no catastrophic cancellation in x = ((p - c_int) - c_frac) * srw.
 """
+import contextlib
 import math
 
 import numpy as np
@@ -818,87 +819,105 @@ def make_batched_tpu_fn(pack, grid, cut_off=c.DEFAULT_CUT_OFF, tile=None,
 
 
 def make_stacked_pedestal_remover(packs, grid, cut_off=c.DEFAULT_CUT_OFF):
-    """Reference-exact pedestal removal for [B, G, num_points] fields.
+    """Reference-exact pedestal removal for [B, G, num_points] fields, on
+    the field's device.
 
     The sequential pedestal scan (models/lines/pedestal.py, reference
-    spectra.c:66-78) needs the accumulated field only at each line's left
-    window endpoint, so this:
-
-    1. gathers the [B, N_total] endpoint values on the field's device and
-       fetches only those;
-    2. runs the float64 physics and scan per gas (prefix contributions on
-       the field's device, the order-dependent scan natively on the host);
-    3. builds the pedestal field with a difference array and a sequential
-       float64 cumulative sum per gas segment on the host (deterministic:
-       the card's float cumsum and scatter-add are not; float64 keeps the
-       running sum over a whole gas segment from losing the small
-       residuals the subtraction leaves) and subtracts it, cast to the
-       field's dtype, on the device.
+    spectra.c:66-78) runs, gas by gas, as ops/pedestal_cuda.py's float64
+    line physics, endpoint contributions, scan, bucket totals and
+    bucket-window field: CUDA kernels for a field on the card, each gas
+    on a stream of its own, their plain versions for one on the CPU.  Per
+    call the host computes only [B]-sized values (the TIPS Q(T) per
+    isotopologue slot, the buckets' range) and sends them in one copy,
+    from pinned memory to a card; it fetches nothing, so it never waits
+    for the card.  The field is the pedestals, each rounded to the
+    field's dtype, summed per point in float64 in a fixed order and
+    subtracted in the field's dtype: no scatter and no float atomics, so
+    repeat calls give the same bits.
 
     Returns:
-        remove(k, temperature[B], pressure[B], vmr_mat[B, G]) -> k with
-        pedestals removed.
+        remove(k, temperature[B], pressure[B], vmr_mat[B, G]) -> a new
+        tensor of k's shape with pedestals removed; each call opens the
+        ``lines.pedestal`` timer and counts ``lines.pedestal_device``.
     """
     from ..models.lines.gas import internal_grid
-    from ..models.lines.pedestal import compute_pedestals_batch
-    from ..models.lines.physics import kernel_inputs, line_profile_params
+    from ..ops import pedestal_cuda as pc
 
     v0, vn, n_per_v, num_points = internal_grid(grid)
     names = list(packs)
-    keeps = [packs[n].compat_break_filter(v0, vn, cut_off) for n in names]
+    gases = []
+    for name in names:
+        keep = packs[name].compat_break_filter(v0, vn, cut_off)
+        gases.append(pc.GasLines(packs[name], keep) if keep else None)
+    windows_np = pc.bucket_windows(v0, vn, n_per_v, num_points, cut_off)
+    windows = {}
+    live = [g for g, gas in enumerate(gases) if gas is not None]
+    streams = {}
+
+    def gas_streams(device):
+        """On a card, a stream a live gas, made once: each gas reads and
+        writes only its own columns, so the small gases' work runs beside
+        the largest gas's."""
+        if device.type != "cuda":
+            return [contextlib.nullcontext()] * len(live), None
+        if str(device) not in streams:
+            streams[str(device)] = [torch.cuda.Stream(device) for _ in live]
+        side = streams[str(device)]
+        main = torch.cuda.current_stream(device)
+        for stream in side:
+            stream.wait_stream(main)
+        return [torch.cuda.stream(stream) for stream in side], main
 
     def remove(k, temperature, pressure, vmr_mat):
-        t64 = np.atleast_1d(np.asarray(temperature, np.float64))
-        p64 = np.atleast_1d(np.asarray(pressure, np.float64))
-        x64 = np.atleast_2d(np.asarray(vmr_mat, np.float64))
-        batch = k.shape[0]
-        k_flat = k.reshape(batch, -1)
-
-        kins, ps_rows = [], []
-        for g, name in enumerate(names):
-            if keeps[g] == 0:
-                kins.append(None)
-                continue
-            params = line_profile_params(packs[name], t64, p64, x64[:, g],
-                                         keep=keeps[g])
-            kin = kernel_inputs(params, v0, n_per_v, cut_off)
-            kin["nu_raw"] = packs[name].nu[:keeps[g]]
-            kin["nu_shift"] = params["nu_shift"]
-            kins.append(kin)
-            p_s = np.clip(kin["s_idx"], 0, num_points - 1)
-            ps_rows.append(g * num_points + p_s)
-        if not ps_rows:
+        if not live:
             return k
-        flat_ps = torch.as_tensor(np.concatenate(ps_rows, axis=1),
-                                  device=k.device)
-        k_at = k_flat.gather(1, flat_ps).cpu().numpy().astype(np.float64)
-
-        diff = np.zeros((batch, len(names), num_points + 1))
-        col = 0
-        row0 = (np.arange(batch) * (num_points + 1))[:, None]
-        for g, kin in enumerate(kins):
-            if kin is None:
-                continue
-            n_g = kin["s_idx"].shape[1]
-            ped = compute_pedestals_batch(
-                None, kin, num_points, n_per_v, cut_off,
-                k_at_ps=k_at[:, col:col + n_g], device=k.device)
-            col += n_g
-            live = (kin["s_idx"] < num_points) & (kin["e_idx"] >= 0)
-            ped = np.where(live, ped, 0.0).astype(
-                np.float64 if k.dtype == torch.float64 else np.float32)
-            s = np.clip(kin["s_idx"], 0, num_points - 1)
-            e = np.clip(kin["e_idx"], 0, num_points - 1)
-            # Every +ped at s in line order, then every -ped at e + 1: the
-            # order of np.add.at's two passes, so the same float64 sums.
-            diff[:, g] = np.bincount(
-                np.concatenate([(row0 + s).ravel(), (row0 + e + 1).ravel()]),
-                weights=np.concatenate([ped.ravel(), -ped.ravel()]),
-                minlength=batch * (num_points + 1)).reshape(batch, -1)
-        field = np.cumsum(diff[..., :num_points], axis=-1)
-        field = torch.as_tensor(field, device=k.device).to(k.dtype)
-        return (k.reshape(batch, len(names), num_points) - field) \
-            .reshape(k.shape)
+        with metrics.timed("lines.pedestal"):
+            t64 = np.atleast_1d(np.asarray(temperature, np.float64))
+            p64 = np.atleast_1d(np.asarray(pressure, np.float64))
+            x64 = np.atleast_2d(np.asarray(vmr_mat, np.float64))
+            batch = k.shape[0]
+            device = k.device
+            out = k.reshape(batch, len(names) * num_points).clone(
+                memory_format=torch.contiguous_format)
+            if str(device) not in windows:
+                windows[str(device)] = tuple(
+                    torch.as_tensor(w, device=device) for w in windows_np)
+            blo, bhi = windows[str(device)]
+            # One copy of the [B]-sized inputs: T, p, the mole fractions
+            # of the live gases, and each live gas's Q(T) per slot.
+            host = [t64, p64] + [x64[:, g] for g in live] \
+                + [gases[g].q_slots(t64).ravel() for g in live]
+            dev = pc.upload(np.concatenate(host), device)
+            t, p = dev[:batch], dev[batch:2 * batch]
+            at = (2 + len(live)) * batch
+            contexts, main = gas_streams(device)
+            for i, g in enumerate(live):
+                gas = gases[g]
+                x = dev[(2 + i) * batch:(3 + i) * batch]
+                q = dev[at:at + gas.num_slots * batch].view(gas.num_slots,
+                                                            batch)
+                at += gas.num_slots * batch
+                b0, nb, margin = gas.bucket_range(p64)
+                off = g * num_points
+                with contexts[i]:
+                    ka = pc.line_inputs(gas.on(device), t, p, x, q, v0,
+                                        n_per_v, cut_off, (b0, nb, margin),
+                                        num_points)
+                    ks, pre, c0, cn = pc.endpoint_contributions(
+                        ka, out, off, num_points)
+                    ped = pc.scan(ka["bucket"], ka["s_idx"], ka["e_idx"], ks,
+                                  pre, c0, cn, num_points, 2 * cut_off + 1,
+                                  nb)
+                    del ks, pre, c0, cn
+                    totals = pc.bucket_totals(ped, ka, out.dtype)
+                    del ka, ped
+                    pc.subtract_field(out, off, num_points, totals, blo,
+                                      bhi, b0)
+            if main is not None:
+                for stream in streams[str(device)]:
+                    main.wait_stream(stream)
+            metrics.count("lines.pedestal_device")
+        return out.reshape(k.shape)
 
     return remove
 

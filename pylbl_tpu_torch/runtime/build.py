@@ -6,8 +6,9 @@ Two libraries, both plain C interfaces bound with ctypes:
   (g++), for the HITRAN CSV parser and the host pedestal scan
   (runtime/native.py);
 - ``liblineshape_cuda.so`` from ``pylbl_tpu_torch/csrc/lineshape.cu``
-  (nvcc, ``sm_90a``), the hand-written wings and core kernels
-  (ops/lineshape_cuda.py).
+  and ``csrc/pedestal.cu`` (nvcc, ``sm_90a``), the hand-written wings and
+  core kernels (ops/lineshape_cuda.py) and the pedestal remover's
+  (ops/pedestal_cuda.py).
 
 Libraries are built at first use into :func:`build_dir` and rebuilt when
 a source is newer: ``build/pylbl_tpu_torch/`` beside the package (in a

@@ -841,8 +841,8 @@ class Spectroscopy:
         The pending states, possibly non-contiguous after a resume, go in
         blocks of ``block_layers``; block i+1's lines are dispatched before
         block i's are fetched, the JAX package's order.  The port's
-        pedestal removal runs on the host inside the dispatch, so the
-        dispatch returns only after that block's pedestal is done.  The
+        pedestal removal runs on the lines' device inside the dispatch,
+        without a wait for it; the fetch waits.  The
         ``metrics`` timers ``stream.lines`` (stacked lines and pedestal),
         ``stream.fetch`` (device-to-host copy of the lines),
         ``stream.mechanisms`` (per-gas fallback lines, continua and cross

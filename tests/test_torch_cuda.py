@@ -1446,3 +1446,148 @@ def test_bench_stages_on_card(cuda_device, tmp_path):
             == bench.METHOD
         assert record.get("max_rel_err_vs_float64", 0.0) < 5e-4
         assert record["peak_gib"] > 0
+
+
+# --- The stacked pedestal remover's kernels (ops/pedestal_cuda.py). ---
+
+# col60-0p1-default's column at its four profile levels, and its H2O: 300k
+# lines over 0.5-5100 cm-1 on the 1-5000 cm-1 grid at 0.1 cm-1.
+PED_T = np.asarray([269.01, 227.74, 203.37, 288.99])
+PED_P = np.asarray([117.0, 1032.0, 11419.0, 98388.0])
+PED_X = np.asarray([5.244536e-06, 4.763972e-06, 3.039952e-06, 0.006637074])
+PED_GRID = np.arange(1.0, 5000.0, 0.1)
+
+
+def pedestal_case(device, num_lines=300_000, plain=False):
+    """(GasLines, b0, nb, line_inputs, [B, n + 3] float32 field with the
+    gas's points from column 3, blo, bhi, n) of one H2O-like gas."""
+    from pylbl_tpu_torch.models.lines.gas import internal_grid
+    from pylbl_tpu_torch.ops import pedestal_cuda as pc
+
+    pack = synthetic_line_pack("H2O", num_lines=num_lines, nu_min=0.5,
+                               nu_max=5100.0, seed=3,
+                               band_centers=(150.0, 1600.0, 3700.0))
+    v0, vn, n_per_v, n = internal_grid(PED_GRID)
+    gas = pc.GasLines(pack, pack.compat_break_filter(v0, vn, 25))
+    b0, nb, margin = gas.bucket_range(PED_P)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    ka = pc.line_inputs(gas.on(device), tensor(PED_T), tensor(PED_P),
+                        tensor(PED_X), tensor(gas.q_slots(PED_T)), v0,
+                        n_per_v, 25, (b0, nb, margin), n, plain=plain)
+    rng = np.random.default_rng(0)
+    field = torch.as_tensor(rng.uniform(1e-24, 1e-22, (PED_T.size, n + 3)),
+                            dtype=torch.float32, device=device)
+    blo, bhi = (torch.as_tensor(w, device=device) for w in pc.bucket_windows(
+        v0, vn, n_per_v, n, 25))
+    return gas, b0, nb, ka, field, blo, bhi, n
+
+
+@pytest.mark.gpu
+def test_pedestal_kernels_equal_plain(cuda_device):
+    """The pedestal kernels against their plain versions on the card, at
+    the cell's widths (4 layers): the line physics and the endpoint
+    contributions within 1e-14 of each output's largest value (the same
+    float64 operations; torch's and the kernels' exp and pow may differ in
+    the last ulp), the scan, the bucket totals and the field bit for bit
+    on the same inputs, each launched once a call; a repeat gives the same
+    bits."""
+    from pylbl_tpu_torch.ops import pedestal_cuda as pc
+
+    pc.reset_launches()
+    _, b0, nb, ka, field, blo, bhi, n = pedestal_case(cuda_device)
+    plain = pedestal_case(cuda_device, plain=True)[3]
+    for name, value in ka.items():
+        assert value.is_cuda and value.dtype == plain[name].dtype
+        scale = float(plain[name].double().abs().max())
+        assert float((value.double() - plain[name].double()).abs().max()) \
+            <= 1e-14 * scale, name
+    got = pc.endpoint_contributions(ka, field, 3, n)
+    want = pc.endpoint_contributions(ka, field, 3, n, plain=True)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.float64
+        assert float((g - w).abs().max()) <= 1e-14 * float(w.abs().max())
+    rows = (ka["bucket"], ka["s_idx"], ka["e_idx"], *want)
+    ped = pc.scan(*rows, n, 51, nb)
+    assert torch.equal(ped, pc.scan(*rows, n, 51, nb, plain=True))
+    for dtype in (torch.float32, torch.float64):
+        totals = pc.bucket_totals(ped, ka, dtype)
+        assert torch.equal(totals,
+                           pc.bucket_totals(ped, ka, dtype, plain=True))
+        out = field.to(dtype, copy=True)
+        plain = out.clone()
+        pc.subtract_field(out, 3, n, totals, blo, bhi, b0)
+        pc.subtract_field(plain, 3, n, totals, blo, bhi, b0, plain=True)
+        assert torch.equal(out, plain)
+        assert torch.equal(out[:, :3], field[:, :3].to(dtype))
+    assert pc.LAUNCHES == {"pedestal_lines": 1, "pedestal_contrib": 1,
+                           "pedestal_scan": 1, "pedestal_totals": 2,
+                           "pedestal_field": 2}
+    again = pc.endpoint_contributions(ka, field, 3, n)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert torch.equal(pc.scan(*rows, n, 51, nb), ped)
+
+
+@pytest.mark.gpu
+def test_pedestal_kernels_refuse_what_they_do_not_take(cuda_device):
+    from pylbl_tpu_torch.ops import pedestal_cuda as pc
+
+    _, b0, nb, ka, field, blo, bhi, n = pedestal_case(cuda_device, 20_000)
+    with pytest.raises(ValueError, match="pedestal_contrib"):
+        pc.endpoint_contributions(dict(ka, y=ka["y"].float()), field, 3, n)
+    with pytest.raises(ValueError, match="pedestal_contrib"):
+        pc.endpoint_contributions(ka, field[:, ::2], 3, n)
+    with pytest.raises(ValueError, match="pedestal_scan"):
+        pc.scan(ka["bucket"].long(), ka["s_idx"], ka["e_idx"], ka["y"],
+                ka["y"], ka["y"], ka["y"], n, 51, nb)
+    with pytest.raises(ValueError, match="pedestal_totals"):
+        pc.bucket_totals(ka["y"].float(), ka)
+    with pytest.raises(ValueError, match="pedestal_field"):
+        pc.subtract_field(field, 3, n + 1, torch.zeros(
+            (field.shape[0], nb), dtype=torch.float64, device=cuda_device),
+            blo, bhi, b0)
+
+
+@pytest.mark.gpu
+def test_pedestal_remover_on_card_matches_cpu(cuda_device):
+    """The stacked remover on the card against the same remover on the
+    CPU: a float64 field within 1e-9 (floor 1e-6; the line physics' exp
+    and pow may differ in the last ulp between the two), a float32 field
+    within a float32 ulp of the result plus 1e-13 of the largest value
+    (the physics' last ulp can move a pedestal by that much before its
+    float32 rounding); it launches each kernel once a gas, makes the host
+    wait for nothing on a warm call, counts one ``lines.pedestal_device``
+    and repeats bit for bit."""
+    from pylbl_tpu_torch import bench
+    from pylbl_tpu_torch.ops import pedestal_cuda as pc
+    from pylbl_tpu_torch.parallel.lines import make_stacked_pedestal_remover
+    from pylbl_tpu_torch.utils.observability import metrics
+
+    gases = packs()
+    grid = np.arange(1.0, 220.0, 0.1)
+    fn = make_multigas_batched_fn(gases, grid, device=cuda_device,
+                                  dtype=torch.float64, backend="plain")
+    k64 = fn(T, P, VMR)
+    remover = make_stacked_pedestal_remover(gases, grid)
+    for k in (k64, k64.float()):
+        got = remover(k, T, P, VMR)
+        want = remover(k.cpu(), T, P, VMR).numpy()
+        assert got.is_cuda and got.dtype == k.dtype
+        got = got.cpu().numpy()
+        if k.dtype == torch.float64:
+            scale = np.abs(want).max()
+            assert float((np.abs(got - want) / np.maximum(
+                np.abs(want), scale * 1e-6)).max()) < 1e-9
+        else:
+            assert (np.abs(got - want) <= 2.0 ** -24 * np.abs(want)
+                    + 1e-13 * np.abs(want).max()).all()
+    pc.reset_launches()
+    metrics.reset()
+    calls = []
+    assert bench.host_syncs(lambda: calls.append(remover(k, T, P, VMR)),
+                            cuda_device) == {}
+    assert pc.LAUNCHES == {name: len(gases) for name in pc.LAUNCHES}
+    assert metrics.snapshot()["counters"] == {"lines.pedestal_device": 1}
+    assert torch.equal(calls[0], remover(k, T, P, VMR))

@@ -35,6 +35,7 @@ PARENTS = {
     "lines.assemble": "lines.run",
     "lines.wings": "lines.run",
     "lines.core": "lines.run",
+    "lines.pedestal": "lines.run",
     "continua.build": "absorption.block",
     "continua.run": "absorption.block",
     "output": "absorption.block",
@@ -118,7 +119,9 @@ def test_blocks_open_their_spans_in_order(database, monkeypatch, states,
     """Each block runs its lines, its sums and the start of its copy in
     ``absorption.block``; its copy lands (``output.wait`` in ``output``)
     inside the next block, after that block's lines, the last block's
-    after it; the counter ``absorption.blocks`` counts them."""
+    after it; the counter ``absorption.blocks`` counts them, and
+    ``lines.pedestal_device`` the blocks' pedestal removals, one a
+    block's ``lines.run``."""
     from pylbl_tpu_torch import spectroscopy as module
 
     if states is not None:
@@ -132,7 +135,9 @@ def test_blocks_open_their_spans_in_order(database, monkeypatch, states,
     metrics.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         spec.compute_absorption("total")
-    assert metrics.snapshot()["counters"]["absorption.blocks"] == blocks
+    counters = metrics.snapshot()["counters"]
+    assert counters["absorption.blocks"] == blocks
+    assert counters["lines.pedestal_device"] == blocks
     got = spans(prof)
     order = [stage for stage, parent in got
              if stage == "absorption.block"
@@ -168,26 +173,29 @@ def test_a_second_call_builds_nothing(tmp_path):
     metrics.reset()
     spec = spectroscopy(database)
     spec.compute_absorption("total")
-    # Every gas here has lines and an MT-CKD continuum, and a new
-    # database reads each gas's pack once.
+    # Every gas here has lines and an MT-CKD continuum (so the call takes
+    # the pedestal out on the field's device, once), and a new database
+    # reads each gas's pack once.
     fresh = {"lines.builds": 1, "continua.builds": len(GASES),
              "molecules.loaded": len(GASES),
-             "database.pack_reads": len(GASES), "absorption.blocks": 1}
+             "database.pack_reads": len(GASES), "absorption.blocks": 1,
+             "lines.pedestal_device": 1}
     assert metrics.snapshot()["counters"] == fresh
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         spec.compute_absorption("total")
     stages = {stage for stage, _ in spans(prof)}
     assert "lines.run" in stages and "continua.run" in stages
     assert not stages & {"lines.build", "continua.build", "lines.plan"}
-    assert metrics.snapshot()["counters"] == dict(fresh,
-                                                  **{"absorption.blocks": 2})
+    assert metrics.snapshot()["counters"] == dict(
+        fresh, **{"absorption.blocks": 2, "lines.pedestal_device": 2})
     # A new object on the same database takes the database's stacked
     # pipeline, and reads no pack.
     metrics.reset()
     spectroscopy(database).compute_absorption("total")
     assert metrics.snapshot()["counters"] == {
         "lines.shared_hits": 1, "continua.builds": len(GASES),
-        "molecules.loaded": len(GASES), "absorption.blocks": 1}
+        "molecules.loaded": len(GASES), "absorption.blocks": 1,
+        "lines.pedestal_device": 1}
 
 
 def test_pack_reads_count_the_database_misses(tmp_path):
