@@ -20,10 +20,11 @@ import torch
 
 from .atmosphere import Atmosphere
 from .database.db import (AliasNotFoundError, CrossSectionNotFoundError,
-                          HostStaging, IsotopologuesNotFoundError,
-                          TipsDataNotFoundError, TransitionsNotFoundError)
+                          IsotopologuesNotFoundError, TipsDataNotFoundError,
+                          TransitionsNotFoundError)
 from .plugins import continua, cross_sections, molecular_lines
 from .runtime.device import resolve_backend, resolve_device, resolve_dtype
+from .runtime.reuse import reuse_of
 from .utils.constants import KB
 from .utils.observability import metrics
 from .utils.xrlite import DataArray, Dataset
@@ -183,6 +184,9 @@ class Spectroscopy:
             self.atmosphere = Atmosphere(atmosphere, mapping=mapping)
             self.grid = np.asarray(grid)
             self.lines_database = database
+            # What single-device objects on this database reuse across
+            # requests; under a mesh the pipelines stay per object.
+            self._reuse = reuse_of(database) if mesh is None else None
             self.lines_backend = lines_backend
             self.lines_engine = molecular_lines[lines_backend]
             self.continua_backend = continua_backend
@@ -354,48 +358,15 @@ class Spectroscopy:
             out[name] = gfn(temperature, pressure, vmr)[:num]
         return out
 
-    def _lines_device_stacked(self, temperature, pressure, vmr_by_gas,
-                              remove_pedestal, backend=None, local=False):
-        """One stacked pipeline call for every gas's lines, device-resident.
-
-        All molecules' line lists are concatenated with per-line gas
-        indices over a flat [G * num_points] grid, so the layer batch x gas
-        product is one wings pass plus one core pass; the pedestal is
-        removed on the device (only [B, N] endpoint values visit the host).
-
-        Under a mesh the pipeline is the line-sharded one
-        (parallel/sharded.py ``make_multigas_sharded_pipeline``): the
-        batch is padded to the mesh's batch axis, gases without packed
-        lines are left to the per-gas paths, and ``k`` is the full
-        [B, G, num_points] on every rank (or, with ``local``, this rank's
-        batch group's rows as a Slab of the padded batch).
-
-        Args:
-            vmr_by_gas: dict name -> [B] mole fractions (insertion order
-                fixes the gas order).
-            backend: as :meth:`_stacked_pipeline` takes it.
-
-        Returns:
-            (names, k) with ``names`` the stacked gas order and ``k`` a
-            [B, G, num_points] tensor of cross sections [m2] on the
-            internal grid, or None where :meth:`_stacked_pipeline` gives
-            no pipeline.
-        """
-        built = self._stacked_pipeline(vmr_by_gas, remove_pedestal, backend)
-        if built is None:
-            return None
-        return self._run_stacked(built, temperature, pressure, vmr_by_gas,
-                                 local)
-
     def _stacked_pipeline(self, vmr_by_gas, remove_pedestal, backend=None):
         """The built stacked pipeline over the gases of ``vmr_by_gas``:
         (fn, remover or None, names), built on a miss.
 
         A built single-device pipeline lives on this object and, shared
-        with every object on the same ``Database``, in the database's
-        ``stacked_pipelines`` (database/db.py): a new object over another
-        atmosphere in the same quantized envelope reuses it (the counter
-        ``lines.shared_hits``) and builds nothing.
+        with every object on the same database, in the pipelines of its
+        :func:`~pylbl_tpu_torch.runtime.reuse.reuse_of`: a new object over
+        another atmosphere in the same quantized envelope reuses it (the
+        counter ``lines.shared_hits``) and builds nothing.
 
         Args:
             backend: override of the pipeline backend; default this
@@ -433,11 +404,7 @@ class Spectroscopy:
                float(self.grid[-1]), self.grid.size, tuple(packs), backend,
                self._envelope, bool(remove_pedestal), self.device,
                self.dtype, tuple(map(id, packs.values())))
-        # Single-device pipelines are shared by the objects on one
-        # Database (a Database-like object without the cache keeps them
-        # per object, as the mesh path does).
-        shared = None if self.mesh is not None else getattr(
-            self.lines_database, "stacked_pipelines", None)
+        shared = None if self._reuse is None else self._reuse.pipelines
         cached = self._multigas_fns.get(key)
         if cached is None and shared is not None:
             cached = shared.get(key)
@@ -455,7 +422,15 @@ class Spectroscopy:
     def _run_stacked(self, built, temperature, pressure, vmr_by_gas,
                      local=False):
         """(names, k): the :meth:`_stacked_pipeline` ``built`` over these
-        layers, as :meth:`_lines_device_stacked` returns it."""
+        layers, one call for every gas's lines.
+
+        ``names`` is the stacked gas order and ``k`` a [B, G, num_points]
+        tensor of cross sections [m2] on the internal grid, on the device
+        with the pedestal removed there.  Under a mesh the batch is padded
+        to the mesh's batch axis and ``k`` is the full batch on every rank
+        (or, with ``local``, this rank's batch group's rows as a Slab of the
+        padded batch).
+        """
         fn, remover, names = built
         with metrics.timed("lines.run"):
             vmr_mat = np.stack([np.asarray(vmr_by_gas[n], np.float64)
@@ -503,17 +478,24 @@ class Spectroscopy:
 
     def _compute_lines_stacked(self, temperature, pressure, vmr_by_gas,
                                remove_pedestal, backend=None):
-        """Host-materialized view of :meth:`_lines_device_stacked`.
+        """Every gas's stacked lines on the host (``backend`` as
+        :meth:`_stacked_pipeline` takes it).
 
         Returns:
             dict name -> [B, num_points] float64 cross sections [m2] on
             the internal grid, or {} when the stacked path does not apply.
         """
-        out = self._lines_device_stacked(temperature, pressure, vmr_by_gas,
-                                         remove_pedestal, backend=backend)
-        if out is None:
+        built = self._stacked_pipeline(vmr_by_gas, remove_pedestal, backend)
+        if built is None:
             return {}
-        names, k_dev = out
+        return self._fetch_lines(
+            self._run_stacked(built, temperature, pressure, vmr_by_gas))
+
+    @staticmethod
+    def _fetch_lines(stacked):
+        """:meth:`_run_stacked`'s (names, k) on the host: dict name ->
+        [B, num_points] float64."""
+        names, k_dev = stacked
         k = k_dev.cpu().numpy().astype(np.float64)
         return {name: k[:, g] for g, name in enumerate(names)}
 
@@ -660,8 +642,6 @@ class Spectroscopy:
         num = temperature.size
         blocks = self._plan_blocks(built, output_format, num)
         metrics.count("absorption.blocks", len(blocks))
-        staging = getattr(self.lines_database, "host_staging", None) \
-            or HostStaging()
         out = {}
 
         def land(lo, hi, fetch):
@@ -674,7 +654,7 @@ class Spectroscopy:
                     # torch's copy takes the host's threads.
                     torch.from_numpy(out[key][lo:hi]).copy_(values)
 
-        with staging.lease() as buffers:
+        with self._reuse.staging.lease() as buffers:
             landing = None
             for i, (lo, hi) in enumerate(blocks):
                 with metrics.timed("absorption.block"):
@@ -701,7 +681,7 @@ class Spectroscopy:
 
         On the card each tensor is copied on ``buffers``' side stream,
         after the block's kernels, into its pinned buffer of ``slot``
-        (:class:`~pylbl_tpu_torch.database.db.HostStaging`), and its
+        (:class:`~pylbl_tpu_torch.runtime.reuse.HostStaging`), and its
         device memory is kept from reuse until the copy lands
         (``record_stream``)."""
         if self.device.type != "cuda":
@@ -743,8 +723,6 @@ class Spectroscopy:
         pressure, temperature, vmr_by_gas = self.atmosphere.packed()
         if remove_pedestal is None:
             remove_pedestal = self.continua_backend == "mt_ckd"
-        beta = {}
-        num_states = temperature.size
         shape = self.atmosphere.shape
         self._load_molecules()
         if output_format != "all" and self.device_mechanisms:
@@ -755,54 +733,63 @@ class Spectroscopy:
                 return reduced
         lines_stacked = self._compute_lines_stacked(
             temperature, pressure, vmr_by_gas, remove_pedestal)
+        # One state takes the engines' single-layer call, as the JAX
+        # package's compute_absorption does.
+        arrays = self._host_absorption(temperature, pressure, vmr_by_gas,
+                                       remove_pedestal, lines_stacked,
+                                       batch_from=2)
+        beta = {key: DataArray(values.reshape(shape + values.shape[1:]),
+                               dims=self.output.dims, attrs=self.output.units)
+                for key, values in arrays.items()}
+        return self._create_output_dataset(beta, output_format)
+
+    def _host_absorption(self, temperature, pressure, vmr_by_gas,
+                         remove_pedestal, lines_stacked, *, batch_from):
+        """Every gas's mechanisms on the host, in float64:
+        {f"{name}_absorption": [B, mechanism, grid]}, the lines and cross
+        sections weighted by the gas's number density.
+
+        A gas's lines come from ``lines_stacked`` (name -> [B, num_points]
+        float64, as :meth:`_compute_lines_stacked` gives them, empty when
+        nothing stacked), else under a mesh from the per-gas sharded
+        pipelines, else from its engine: ``absorption_coefficient_batch``
+        from ``batch_from`` states up, one ``absorption_coefficient`` call
+        a state below that or without it.
+        """
         if not lines_stacked and self.mesh is not None:
             lines_stacked = self._compute_lines_sharded_pergas(
                 temperature, pressure, vmr_by_gas, remove_pedestal)
-        for name, mole_fraction in self.atmosphere.gases.items():
-            varname = f"{name}_absorption"
-            beta[varname] = DataArray(np.zeros(self.output.dim_sizes),
-                                      dims=self.output.dims,
-                                      attrs=self.output.units)
-            data = self.cache[name]
+        num, ngrid = temperature.size, self.grid.size
+        out = {}
+        for name in self.atmosphere.gases:
+            gas = self.cache[name].gas
             fraction = vmr_by_gas[name]
-
-            # Per-gas fallback (gases that cannot share one stacked call):
-            # one pipeline call per gas over all layers.
-            lines_batch = lines_stacked.get(name)
-            if lines_batch is None and data.gas is not None and \
-                    num_states > 1 and \
-                    hasattr(data.gas, "absorption_coefficient_batch"):
-                lines_batch = data.gas.absorption_coefficient_batch(
-                    temperature, pressure, fraction, self.grid,
-                    remove_pedestal=remove_pedestal,
-                    **self._batch_kwargs(data.gas))
-
-            continua_batch = self._continua_batch(name, temperature,
-                                                  pressure, vmr_by_gas)
-            xsec_batch = self._xsec_batch(name, temperature, pressure)
-
-            for i in range(num_states):
-                n = number_density(temperature[i], pressure[i], fraction[i])
-                j = np.unravel_index(i, shape)
-
-                if data.gas is not None:
-                    if lines_batch is not None:
-                        k = lines_batch[i]
-                    else:
-                        k = data.gas.absorption_coefficient(
-                            temperature[i], pressure[i], fraction[i],
-                            self.grid, remove_pedestal=remove_pedestal)
-                    indices = tuple(list(j) + [0, slice(None)])
-                    beta[varname].values[indices] = n * k[:self.grid.size]
-
-                if continua_batch is not None:
-                    indices = tuple(list(j) + [1, slice(None)])
-                    beta[varname].values[indices] += continua_batch[i]
-
-                if xsec_batch is not None:
-                    indices = tuple(list(j) + [2, slice(None)])
-                    beta[varname].values[indices] = n * xsec_batch[i]
-        return self._create_output_dataset(beta, output_format)
+            block = np.zeros((num, len(self.output.mechanisms), ngrid))
+            n = number_density(temperature, pressure, fraction)
+            lines = lines_stacked.get(name)
+            if lines is None and gas is not None and num > 0:
+                if num >= batch_from and \
+                        hasattr(gas, "absorption_coefficient_batch"):
+                    lines = gas.absorption_coefficient_batch(
+                        temperature, pressure, fraction, self.grid,
+                        remove_pedestal=remove_pedestal,
+                        **self._batch_kwargs(gas))
+                else:
+                    lines = np.stack([gas.absorption_coefficient(
+                        temperature[j], pressure[j], fraction[j], self.grid,
+                        remove_pedestal=remove_pedestal)
+                        for j in range(num)])
+            if lines is not None:
+                block[:, 0] = n[:, None] * lines[:, :ngrid]
+            continua = self._continua_batch(name, temperature, pressure,
+                                            vmr_by_gas)
+            if continua is not None:
+                block[:, 1] += continua
+            xsec = self._xsec_batch(name, temperature, pressure)
+            if xsec is not None:
+                block[:, 2] = n[:, None] * xsec
+            out[f"{name}_absorption"] = block
+        return out
 
     def compute_absorption_streamed(self, path, remove_pedestal=None,
                                     resume=True, block_layers=8):
@@ -855,7 +842,6 @@ class Spectroscopy:
         pressure, temperature, vmr_full = self.atmosphere.packed()
         if remove_pedestal is None:
             remove_pedestal = self.continua_backend == "mt_ckd"
-        names = list(self.atmosphere.gases)
         self._load_molecules()
         writes = self.mesh is None or self.mesh.rank == 0
         pending = writer.pending_states() if writes else None
@@ -871,8 +857,9 @@ class Spectroscopy:
             p_blk = pressure[idx]
             vmr_blk = {x: v[idx] for x, v in vmr_full.items()}
             with metrics.timed("stream.lines"):
-                dev = self._lines_device_stacked(t_blk, p_blk, vmr_blk,
-                                                 remove_pedestal)
+                built = self._stacked_pipeline(vmr_blk, remove_pedestal)
+                dev = None if built is None else self._run_stacked(
+                    built, t_blk, p_blk, vmr_blk)
             return t_blk, p_blk, vmr_blk, dev
 
         prev = dispatch(blocks_idx[0]) if blocks_idx else None
@@ -882,47 +869,14 @@ class Spectroscopy:
                 if bi + 1 < len(blocks_idx) else None
             lines_stacked = {}
             if dev is not None:
-                names_s, k_dev = dev
                 with metrics.timed("stream.fetch"):
-                    k_host = k_dev.cpu().numpy().astype(np.float64)
-                lines_stacked = {n: k_host[:, g]
-                                 for g, n in enumerate(names_s)}
-            if not lines_stacked and self.mesh is not None:
-                lines_stacked = self._compute_lines_sharded_pergas(
-                    t_blk, p_blk, vmr_blk, remove_pedestal)
-            blocks = {}
+                    lines_stacked = self._fetch_lines(dev)
             with metrics.timed("stream.mechanisms"):
-                for name in names:
-                    data = self.cache[name]
-                    block = np.zeros((idx.size,
-                                      len(self.output.mechanisms),
-                                      self.grid.size))
-                    n_blk = number_density(t_blk, p_blk, vmr_blk[name])
-                    lines = lines_stacked.get(name)
-                    if lines is None and data.gas is not None:
-                        lines = data.gas.absorption_coefficient_batch(
-                            t_blk, p_blk, vmr_blk[name], self.grid,
-                            remove_pedestal=remove_pedestal,
-                            **self._batch_kwargs(data.gas)) \
-                            if hasattr(data.gas,
-                                       "absorption_coefficient_batch") \
-                            else np.stack([
-                                data.gas.absorption_coefficient(
-                                    t_blk[j], p_blk[j], vmr_blk[name][j],
-                                    self.grid,
-                                    remove_pedestal=remove_pedestal)
-                                for j in range(idx.size)])
-                    if lines is not None:
-                        block[:, 0] = n_blk[:, None] \
-                            * lines[:, :self.grid.size]
-                    cont_blk = self._continua_batch(name, t_blk, p_blk,
-                                                    vmr_blk)
-                    if cont_blk is not None:
-                        block[:, 1] += cont_blk
-                    xsec_blk = self._xsec_batch(name, t_blk, p_blk)
-                    if xsec_blk is not None:
-                        block[:, 2] = n_blk[:, None] * xsec_blk
-                    blocks[f"{name}_absorption"] = block
+                # A block takes the engines' batch call at any size, as
+                # the JAX package's streamed loop does.
+                blocks = self._host_absorption(t_blk, p_blk, vmr_blk,
+                                               remove_pedestal, lines_stacked,
+                                               batch_from=1)
             with metrics.timed("stream.write"):
                 for j, i in enumerate(idx):
                     if writes:

@@ -179,6 +179,7 @@ def test_blocked_absorption_equals_one_block(cuda_device, tmp_path,
     give, bit for bit, what one block gives ("total" and "gas"), and a
     second request copies back through the same pinned buffers."""
     from pylbl_tpu_torch import spectroscopy
+    from pylbl_tpu_torch.runtime.reuse import reuse_of
     from pylbl_tpu_torch.utils.observability import metrics
 
     grid = np.arange(1.0, 220.0, 0.01)
@@ -206,7 +207,7 @@ def test_blocked_absorption_equals_one_block(cuda_device, tmp_path,
             assert got[key].dtype == values.dtype == np.float64 \
                 or key == "wavenumber"
             assert np.array_equal(got[key], values), key
-    buffers, = db.host_staging._free
+    buffers, = reuse_of(db).staging._free
     held = {k: b.data_ptr() for k, b in buffers._buffers.items()}
     assert held and all(b.is_pinned() for b in buffers._buffers.values())
     assert np.array_equal(compute("total")["absorption"],

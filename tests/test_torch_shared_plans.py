@@ -1,8 +1,9 @@
-"""The stacked lines pipelines a ``Database`` shares with every
-single-device ``Spectroscopy`` over its packs (``Database.stacked_pipelines``):
-a new object in the same quantized envelope builds nothing and returns what
-a fresh build returns, bit for bit; anything that changes the build misses;
-the cache is bounded and dies with its database."""
+"""The stacked lines pipelines a database shares with every
+single-device ``Spectroscopy`` over its packs (the ``pipelines`` of
+``runtime.reuse.reuse_of``): a new object in the same quantized envelope
+builds nothing and returns what a fresh build returns, bit for bit;
+anything that changes the build misses; the cache is bounded and dies with
+its database."""
 import gc
 import sys
 import threading
@@ -13,9 +14,9 @@ import pytest
 import torch
 
 from pylbl_tpu_torch import Dataset, Spectroscopy
-from pylbl_tpu_torch.database import db as db_module
 from pylbl_tpu_torch.database.db import Database
 from pylbl_tpu_torch.database.fixtures import synthetic_line_pack
+from pylbl_tpu_torch.runtime import reuse
 from pylbl_tpu_torch.utils.observability import metrics
 
 torch.set_num_threads(1)
@@ -105,10 +106,10 @@ def test_the_least_recently_used_entry_goes_first(tmp_path):
     database = make_database(tmp_path / "evict.db")
     # Warmest layers in bound + 1 distinct 5 K buckets.
     columns = [(250.0 + 10.0 * i, 240.0)
-               for i in range(db_module.STACKED_KEPT + 1)]
+               for i in range(reuse.STACKED_KEPT + 1)]
     for column in columns:
         spectroscopy(database, column).compute_absorption("total")
-    assert len(database.stacked_pipelines) == db_module.STACKED_KEPT
+    assert len(reuse.reuse_of(database).pipelines) == reuse.STACKED_KEPT
     metrics.reset()
     spectroscopy(database, columns[-1]).compute_absorption("total")
     assert lines_counters() == {"lines.shared_hits": 1}
@@ -134,7 +135,7 @@ def test_the_entries_die_with_the_database(tmp_path):
 def test_threads_share_the_cache():
     """More threads than entries put and get at once under a short switch
     interval: no lookup fails, the bound holds, every hit is its key's."""
-    cache = db_module.StackedPipelines()
+    cache = reuse.StackedPipelines()
     errors = []
 
     def work(worker):
@@ -160,11 +161,11 @@ def test_threads_share_the_cache():
         sys.setswitchinterval(interval)
     assert not any(thread.is_alive() for thread in threads)
     assert errors == []
-    assert len(cache) == db_module.STACKED_KEPT
+    assert len(cache) == reuse.STACKED_KEPT
 
 
 class PlainDatabase:
-    """A Database-like object without the shared pipelines."""
+    """A Database-like object: the two reads a Spectroscopy makes."""
 
     def __init__(self, database):
         self.line_pack = database.line_pack
@@ -172,11 +173,40 @@ class PlainDatabase:
 
 
 def test_a_database_without_the_cache_builds_per_object(tmp_path):
-    database = PlainDatabase(make_database(tmp_path / "plain.db"))
-    first = spectroscopy(database)
+    """A Database-like object shares the pipelines as a Database does, and
+    its outputs are those of the Database it reads."""
+    database = make_database(tmp_path / "plain.db")
+    plain = PlainDatabase(database)
+    first = spectroscopy(plain)
     first.compute_absorption("total")
     metrics.reset()
-    second = spectroscopy(database, SECOND)
+    second = spectroscopy(plain, SECOND)
+    got = second.compute_absorption("total")
     second.compute_absorption("total")
-    second.compute_absorption("total")
+    assert lines_counters() == {"lines.shared_hits": 1}
+    want = spectroscopy(database, SECOND).compute_absorption("total")
+    assert np.array_equal(got["absorption"].data, want["absorption"].data)
+
+
+class SlotsDatabase:
+    """A Database-like object that cannot be weakly referenced."""
+
+    __slots__ = ("line_pack", "arts_crossfit")
+
+    def __init__(self, database):
+        self.line_pack = database.line_pack
+        self.arts_crossfit = database.arts_crossfit
+
+
+def test_a_database_without_weak_references_shares_nothing(tmp_path):
+    """Each object on it takes a fresh reuse of its own: a new object
+    builds its pipeline again, and the output is the Database's."""
+    database = make_database(tmp_path / "slots.db")
+    slots = SlotsDatabase(database)
+    assert reuse.reuse_of(slots) is not reuse.reuse_of(slots)
+    spectroscopy(slots).compute_absorption("total")
+    metrics.reset()
+    got = spectroscopy(slots, SECOND).compute_absorption("total")
     assert lines_counters() == {"lines.builds": 1}
+    want = spectroscopy(database, SECOND).compute_absorption("total")
+    assert np.array_equal(got["absorption"].data, want["absorption"].data)

@@ -7,7 +7,9 @@ against the JAX package's on the same database and column (lines rel
 5e-4, the float32 device-physics tolerance of tests/test_multigas.py;
 continua and cross sections rtol 1e-12, as tests/test_torch_spectroscopy.py),
 files that one package starts and the other finishes, block sizes that
-give bit-identical files, and the block loop on a host without h5py.
+give bit-identical files, the per-gas fallbacks (and which engine entry
+point a one-state call and a one-state block take), and the block loop on
+a host without h5py.
 """
 import json
 import subprocess
@@ -271,22 +273,69 @@ class LayerByLayer:
         return self._gas.absorption_coefficient(*args, **kwargs)
 
 
-@pytest.mark.parametrize("fallback", ["xla", "layer_by_layer"])
+class BothEntryPoints(LayerByLayer):
+    """A lines engine without packed lines that has both entry points and
+    records in ``calls`` which one ran (the portable backend, whose batch
+    is a loop of single layers, so both give the same bits)."""
+
+    def __init__(self, database, name):
+        self._gas = pylbl_tpu_torch.Gas(database, name, device="cpu",
+                                        backend="xla")
+        self.calls = []
+
+    def absorption_coefficient(self, *args, **kwargs):
+        self.calls.append("absorption_coefficient")
+        return super().absorption_coefficient(*args, **kwargs)
+
+    def absorption_coefficient_batch(self, *args, **kwargs):
+        self.calls.append("absorption_coefficient_batch")
+        return self._gas.absorption_coefficient_batch(*args, **kwargs)
+
+
+def engine_calls(spec):
+    """{gas: the entry points its engine ran since the last look}."""
+    calls = {}
+    for name, data in spec.cache.items():
+        if data.gas is not None:
+            calls[name], data.gas.calls = data.gas.calls, []
+    return calls
+
+
+@pytest.mark.parametrize("fallback", ["xla", "layer_by_layer", "one_state"])
 def test_streamed_per_gas_fallback(database, canonical, tmp_path,
                                    monkeypatch, fallback):
     """Lines the stacked path leaves to the per-gas engines: under
     backend="xla" one ``absorption_coefficient_batch`` per gas and block,
     for an engine without one a loop over the block's layers.  The file
-    equals the in-memory "all" output of the same engine and backend."""
+    equals the in-memory "all" output of the same engine and backend.
+
+    On a one-state column with both entry points, ``compute_absorption``
+    takes ``absorption_coefficient`` and a streamed block
+    ``absorption_coefficient_batch``, as the JAX package does."""
     if fallback == "xla":
         spec = port_spec(canonical, database[1], backend="xla")
     else:
+        engine = LayerByLayer
+        atmosphere = canonical
+        if fallback == "one_state":
+            engine = BothEntryPoints
+            atmosphere = pylbl_tpu_torch.Dataset(data_vars={
+                name: (var.dims, var.data[3:], var.attrs)
+                for name, var in canonical.data_vars.items()})
         monkeypatch.setitem(pylbl_tpu_torch.plugins.molecular_lines,
-                            fallback, LayerByLayer)
-        spec = port_spec(canonical, database[1], lines_backend=fallback)
+                            fallback, engine)
+        spec = port_spec(atmosphere, database[1], lines_backend=fallback)
     full = spec.compute_absorption("all")
+    if fallback == "one_state":
+        assert engine_calls(spec) == {
+            "H2O": ["absorption_coefficient"],
+            "CO2": ["absorption_coefficient"]}
     back = read_file(spec.compute_absorption_streamed(
         tmp_path / "fallback.nc", block_layers=3))["data"]
+    if fallback == "one_state":
+        assert engine_calls(spec) == {
+            "H2O": ["absorption_coefficient_batch"],
+            "CO2": ["absorption_coefficient_batch"]}
     assert not spec._multigas_fns
     assert back["H2O_absorption"][:, 0].max() > 0
     for name, data in back.items():
